@@ -8,17 +8,22 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
 
 1. fails unless ``torch.cuda.is_available()``;
 2. prints the card's name and power limit (``nvidia-smi``);
-3. builds the kernels and prints the build time;
+3. builds the kernels K1-K7 and prints the build time;
 4. holds each kernel against its plain PyTorch twin on the card, in fp32
-   and bf16, at the shapes the 600 x 400 forward gives it (batch 8), and
-   prints the maximum error and both times;
-5. runs the full-width base forward on the card in fp32 (TF32 off) against
-   the same weights' plain forward on the CPU at 1 x 400 x 600, and bf16
-   against that fp32 result;
-6. checks the launches of one forward: K1 1, K2 1, K3 6, K4 6;
+   and bf16, at every site shape the 600 x 400 forward gives it (batch 8),
+   and prints the error, the kernel's and the twin's times (and, for K4,
+   the one PyTorch call that computes the same function); K5 also in its
+   unnormalised and unfolded arms, and twice for identical bits;
+5. runs the full-width base and MSSA forwards on the card in fp32 (TF32
+   off) against the same weights' plain forward on the CPU at
+   1 x 400 x 600, and bf16 against that fp32 result;
+6. checks the launches of one forward: base K1 1, K2 1, K3 6, K4 6, K5 11,
+   K6 33, K7 22; MSSA the same with K5 12, K6 36, K7 24;
 7. serves requests through ``serve.Enhancer`` (gates on, gamma != 1) at
-   sizes that are not multiples of 8, counting every kernel's launches;
-8. prints the forward's images per second at 600 x 400 bf16 (information);
+   sizes that are not multiples of 8, for each variant, counting every
+   kernel's launches (the main path);
+8. prints each variant's images per second at 600 x 400 bf16, batch 1, 8
+   and 32 (information);
 9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -40,14 +45,31 @@ H, W = 400, 600          # the serving image (600 x 400 landscape), NHWC (B, H, 
 BATCH = 8                # batch of the kernel comparisons
 K = 0.2                  # density_k at init
 
-# tolerances, kernel vs its plain twin on the same card and inputs
-TOL_FP32 = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-6, "K4": 1e-6}
+# tolerances, kernel vs its plain twin on the same card and inputs. K1-K4
+# and K7 run the twin's fp32 ops in the same order (bitwise equal or one
+# fp32 ulp); K5 and K6 sum over space or channels in another order than the
+# twin's GEMM or reduction, so fp32 gets a few ulps of the sum.
+TOL_FP32 = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-6, "K4": 1e-6, "K5": 2e-5, "K6": 1e-5, "K7": 1e-6}
 TOL_BF16 = 2.0**-7       # one bf16 ulp at magnitudes in [1, 2): both round once from fp32
+# K5-K7 in bf16: a last-bit fp32 difference can flip the bf16 rounding of
+# one intermediate (A, the LN scale/shift, t1), which moves the output by an
+# ulp: two ulps relative, |err| <= TOL_BF16_REL * max(1, |ref|)
+TOL_BF16_REL = 2.0**-6
 # the full forward, card fp32 vs CPU fp32: conv/attention sums in other
 # orders through ~50 layers; outputs are in [0, 1]
 TOL_FORWARD_MAX = 1e-4
 TOL_FORWARD_MEAN = 1e-6
 TOL_BF16_FORWARD_MEAN = 2e-2
+
+# the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+VARIANTS = ("base", "mssa")
+# launches of one forward per kernel; MSSA also runs I_LCA5 (one more LCA)
+PER_FORWARD = {
+    "base": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 11, "K6": 33, "K7": 22},
+    "mssa": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 12, "K6": 36, "K7": 24},
+}
 
 
 def log(msg: str) -> None:
@@ -138,7 +160,9 @@ def compare_hvi(results: dict, dev) -> None:
         t_p = time_ms(lambda: hc.rgb_to_hvi_plain(img, k, dt))
         log(f"K1 rgb_to_hvi {tuple(img.shape)} {dt}: max_abs_err {e1:.3e}  "
             f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
-        results["K1"].append({"dtype": str(dt), "err": e1, "ms": t_k, "plain_ms": t_p})
+        bound = bound_ms("K1", img)
+        results["K1"].append({"dtype": str(dt), "err": e1, "ms": t_k, "plain_ms": t_p,
+                              "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1]})
 
         # K2 on the HVI map, perturbed, with hi == 6 edge pixels planted
         hvi = ref.float() + 0.05 * torch.randn(ref.shape, generator=gen).to(dev)
@@ -163,8 +187,10 @@ def compare_hvi(results: dict, dev) -> None:
             log(f"K2 hvi_to_rgb {tuple(hvi.shape)} {dt} {gates or 'no gates'}: max_abs_err "
                 f"{e2:.3e} (edge pixels {int(edge.sum())}, flipped {flips})  "
                 f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
+            bound = bound_ms("K2", hvi)
             results["K2"].append({"dtype": str(dt), "err": e2, "ms": t_k, "plain_ms": t_p,
-                                  "gates": gates})
+                                  "library_ms": None, "bound_ms": bound[0],
+                                  "bound_by": bound[1], "gates": gates})
 
 
 # (site, input shape (B, C, H, W)) at 600 x 400: NormDownsample's x0.5 input
@@ -198,22 +224,158 @@ def compare_resize(results: dict, dev) -> None:
                     x = (torch.rand((BATCH, c, h, w), generator=gen) * 2 - 1).to(dev, dt)
                     err = max_err(kern(x), plain(x))
                     check(f"{key} {site} {dt}", err, tol)
-                    measured[(c, h, w)] = (err, time_ms(lambda: kern(x)), time_ms(lambda: plain(x)))
-                err, t_k, t_p = measured[(c, h, w)]
+                    lib = None
+                    if key == "K4":  # the one PyTorch call of the same function
+                        lib = time_ms(lambda: torch.nn.functional.interpolate(
+                            x, scale_factor=2, mode="bilinear", align_corners=True))
+                    measured[(c, h, w)] = (err, time_ms(lambda: kern(x)), time_ms(lambda: plain(x)),
+                                           lib, bound_ms(key, x))
+                err, t_k, t_p, lib, bound = measured[(c, h, w)]
                 log(f"{key} {site} ({BATCH}, {c}, {h}, {w}) {dt}: max_abs_err {err:.3e}  "
-                    f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
+                    f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+                    + (f"F.interpolate {lib:.4f} ms  " if lib is not None else "")
+                    + f"bound {bound[0]:.4f} ms ({bound[1]})")
                 results[key].append({"dtype": str(dt), "err": err, "ms": t_k, "plain_ms": t_p,
-                                     "site": site})
+                                     "library_ms": lib, "bound_ms": bound[0],
+                                     "bound_by": bound[1], "site": site})
 
 
-def compare_forward(dev):
+# nominal fp32 operations per output element of the kernels whose work is
+# not a product (CUDA-core arithmetic): they show that bytes bound them
+OPS_PER_ELEMENT = {"K1": 40, "K2": 50, "K3": 24, "K4": 12, "K6": 8, "K7": 38}
+
+
+def bound_ms(key: str, x: torch.Tensor, *, heads: int = 1, fold: bool = True,
+             peak: str = "") -> tuple:
+    """(least time in ms, "bytes" or "operations") for kernel ``key`` on
+    input ``x`` (K5: q): each input read once and each output written once
+    over 3.35 TB/s, against the operations over the peak of their type."""
+    it, n_el = x.element_size(), x.numel()
+    if key in ("K1", "K2"):
+        nbytes, ops = 2 * n_el * it, OPS_PER_ELEMENT[key] * n_el // 3
+    elif key == "K3":
+        nbytes, ops = n_el * it + n_el // 4 * it, OPS_PER_ELEMENT[key] * n_el // 4
+    elif key == "K4":
+        nbytes, ops = 5 * n_el * it, OPS_PER_ELEMENT[key] * 4 * n_el
+    elif key == "K6":
+        nbytes, ops = 2 * n_el * it + 8 * x.shape[1], OPS_PER_ELEMENT[key] * n_el
+    elif key == "K7":
+        nbytes, ops = 2 * n_el * it + 18 * x.shape[1] * it, OPS_PER_ELEMENT[key] * n_el
+    else:  # K5: q, k, v read, out written; block-diagonal scores, norms, the apply
+        b, c = x.shape[:2]
+        cp, n = c // heads, n_el // (x.shape[0] * x.shape[1])
+        nbytes = 4 * n_el * it + (c * c * it if fold else 0)
+        ops = 2 * b * c * cp * n + 4 * b * c * n + 2 * b * c * (c if fold else cp) * n
+    peak = peak or ("bf16_tensor" if key == "K5" and x.dtype == torch.bfloat16 else "fp32")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[peak]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max(1, |ref|)."""
+    return ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max().item()
+
+
+# (level, C, heads, H, W, CAB sites in base, in MSSA) of the LCA blocks at
+# 600 x 400: LCA1/6 at H/2, LCA2/5 at H/4 (base skips I_LCA5), LCA3/4 at H/8.
+# Per CAB site: one K5, three K6 (norm of x, y and x + CAB), two K7.
+def lca_sites(ch=(36, 36, 72, 144), heads=(1, 2, 4, 8)):
+    _, c2, c3, c4 = ch
+    _, h2, h3, h4 = heads
+    return [(1, c2, h2, H // 2, W // 2, 4, 4), (2, c3, h3, H // 4, W // 4, 3, 4),
+            (3, c4, h4, H // 8, W // 8, 4, 4)]
+
+
+SITE_FACTOR = {"K5": 1, "K6": 3, "K7": 2}
+
+
+def compare_lca(results: dict, dev) -> None:
+    """K5-K7 against their twins at every LCA site shape, fp32 and bf16."""
+    from hvi_cidnet_torch.ops import attention_cuda as ac
+    from hvi_cidnet_torch.ops import iel_cuda as ic
+    from hvi_cidnet_torch.ops import norm_cuda as nc
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+
+    def rnd(shape, lo, hi, dt):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
+
+    def judge(name, got, ref, dt):
+        err, rel = max_err(got, ref), rel_err(got, ref)
+        if dt == torch.float32:
+            check(name, err, TOL_FP32[name[:2]])
+        elif not rel <= TOL_BF16_REL:
+            raise AssertionError(f"{name}: max err relative to max(1, |ref|) {rel:.3e} > "
+                                 f"tolerance {TOL_BF16_REL:.1e}")
+        return err, rel
+
+    def record(key, dt, site, err, rel, kern, plain, x, **bound_kw):
+        t_k, t_p = time_ms(kern), time_ms(plain)
+        bound = bound_ms(key, x, **bound_kw)
+        row = {"dtype": str(dt), "err": err, "rel": rel, "ms": t_k, "plain_ms": t_p,
+               "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1], "site": site}
+        if key == "K5":
+            row["bound_cuda_core_ms"] = bound_ms(key, x, peak="fp32", **bound_kw)[0]
+        results[key].append(row)
+        log(f"{key} {site} {tuple(x.shape)} {dt}: max_abs_err {err:.3e} (rel {rel:.3e})  kernel "
+            f"{t_k:.4f} ms  plain {t_p:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})"
+            + (f", CUDA-core bound {row['bound_cuda_core_ms']:.4f} ms" if key == "K5" else ""))
+
+    for dt in (torch.float32, torch.bfloat16):
+        for level, c, heads, h, w, n_base, n_mssa in lca_sites():
+            site = {"level": level, "base": n_base, "mssa": n_mssa}
+            # K5: the forward's arm (q/k normalised, project_out folded), then
+            # the unfolded arm and TNSM's unnormalised arm, whose q and k are
+            # drawn at 1/sqrt(N) so that the softmax is not saturated
+            q, k, v = (rnd((BATCH, c, h, w), -1.0, 1.0, dt) for _ in range(3))
+            temp = rnd((heads, 1, 1), 0.5, 2.0, torch.float32)
+            wp = rnd((c, c, 1, 1), -c**-0.5, c**-0.5, dt)
+            s = (h * w) ** -0.5
+            qs, ks = (rnd((BATCH, c, h, w), -s, s, dt) for _ in range(2))
+            for arm, qq, kk, norm, fold in (("forward", q, k, True, wp), ("unfolded", q, k, True, None),
+                                            ("unnormalised", qs, ks, False, wp)):
+                run = lambda: ac.channel_attention_kernel(qq, kk, v, temp, heads, normalize_qk=norm,
+                                                          w_proj=fold)
+                plain = lambda: ac.channel_attention_plain(qq, kk, v, temp, heads, normalize_qk=norm,
+                                                           w_proj=fold)
+                got = run()
+                err, rel = judge(f"K5 level {level} {arm} {dt}", got, plain(), dt)
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"K5 level {level} {arm} {dt}: two calls differ in bits")
+                if arm == "forward":
+                    record("K5", dt, site, err, rel, run, plain, q, heads=heads, fold=True)
+                else:
+                    log(f"K5 {arm} level {level} {dt}: max_abs_err {err:.3e} (rel {rel:.3e}), "
+                        f"bitwise repeatable")
+            del q, k, v, qs, ks
+
+            x = rnd((BATCH, c, h, w), -2.0, 3.0, dt)
+            wgt, bias = rnd((c,), 0.5, 1.5, torch.float32), rnd((c,), -0.5, 0.5, torch.float32)
+            run = lambda: nc.layer_norm_kernel(x, wgt, bias)
+            plain = lambda: nc.layer_norm_plain(x, wgt, bias)
+            err, rel = judge(f"K6 level {level} {dt}", run(), plain(), dt)
+            record("K6", dt, site, err, rel, run, plain, x)
+            del x
+
+            hid = int(c * 2.66)
+            y = rnd((BATCH, hid, h, w), -1.5, 1.5, dt)
+            w1, w2 = (rnd((hid, 1, 3, 3), -1 / 3, 1 / 3, dt) for _ in range(2))
+            run = lambda: ic.iel_branch_kernel(y, w1, w2)
+            plain = lambda: ic.iel_branch_plain(y, w1, w2)
+            err, rel = judge(f"K7 level {level} {dt}", run(), plain(), dt)
+            record("K7", dt, site, err, rel, run, plain, y)
+            del y
+
+
+def compare_forward(dev, variant: str):
     """Card fp32 vs CPU fp32 with the same weights; bf16 card vs fp32 card."""
     from hvi_cidnet_torch.models.cidnet import (
         CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward, cidnet_hvi,
     )
 
-    cpu_model = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0)).eval()
-    gpu_model = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    cfg = CIDNetConfig(variant=variant)
+    cpu_model = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    gpu_model = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
     x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, H, W, 3)).astype(np.float32))
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -224,30 +386,31 @@ def compare_forward(dev):
         got_hvi = cidnet_hvi(gpu_model, x.to(dev)).cpu()
     for t in (got, ref):
         if t.shape != (1, H, W, 3) or not torch.isfinite(t).all():
-            raise AssertionError(f"forward output bad: {tuple(t.shape)}")
+            raise AssertionError(f"{variant} forward output bad: {tuple(t.shape)}")
     hvi_err = max_err(got_hvi, ref_hvi)
     edge = hue_edge(ref_hvi, K)
     diff = (got - ref).abs().amax(-1)
     err = diff[~edge].max().item()
     mean = (got - ref).abs().mean().item()
-    log(f"forward fp32 (1, {H}, {W}, 3): card vs CPU max_abs_err {err:.3e} (hue-edge pixels "
-        f"{int(edge.sum())} excluded), mean_abs_err {mean:.3e}, output-HVI max_abs_err "
+    log(f"{variant} forward fp32 (1, {H}, {W}, 3): card vs CPU max_abs_err {err:.3e} (hue-edge "
+        f"pixels {int(edge.sum())} excluded), mean_abs_err {mean:.3e}, output-HVI max_abs_err "
         f"{hvi_err:.3e}  [CPU fp32 forward x2: {cpu_s:.1f} s]")
-    check("forward fp32 card vs CPU", err, TOL_FORWARD_MAX)
-    check("forward fp32 card vs CPU (mean)", mean, TOL_FORWARD_MEAN)
-    check("forward output HVI card vs CPU", hvi_err, TOL_FORWARD_MAX)
+    check(f"{variant} forward fp32 card vs CPU", err, TOL_FORWARD_MAX)
+    check(f"{variant} forward fp32 card vs CPU (mean)", mean, TOL_FORWARD_MEAN)
+    check(f"{variant} forward output HVI card vs CPU", hvi_err, TOL_FORWARD_MAX)
 
     bf_model = cast_conv_weights(
-        CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0)).to(dev), torch.bfloat16
+        CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev), torch.bfloat16
     ).eval()
     with torch.no_grad():
         bf = cidnet_forward(bf_model, x.to(dev, torch.bfloat16), compute_dtype=torch.bfloat16)
     if not torch.isfinite(bf.float()).all():
-        raise AssertionError("bf16 forward is not finite")
+        raise AssertionError(f"{variant} bf16 forward is not finite")
     bf_mean = (bf.float().cpu() - got).abs().mean().item()
     bf_max = (bf.float().cpu() - got).abs().max().item()
-    log(f"forward bf16 vs fp32 on the card: mean_abs_err {bf_mean:.3e}, max_abs_err {bf_max:.3e}")
-    check("forward bf16 vs fp32 (mean)", bf_mean, TOL_BF16_FORWARD_MEAN)
+    log(f"{variant} forward bf16 vs fp32 on the card: mean_abs_err {bf_mean:.3e}, "
+        f"max_abs_err {bf_max:.3e}")
+    check(f"{variant} forward bf16 vs fp32 (mean)", bf_mean, TOL_BF16_FORWARD_MEAN)
     return bf_model
 
 
@@ -260,6 +423,49 @@ def reset(kernels) -> None:
         v.launches = 0
 
 
+def summarise(key: str, rows: list, launches: dict) -> dict:
+    """One kernel's line: errors over both dtypes; times and bounds summed
+    over the kernel's sites in one base forward, 600 x 400, batch 8, bf16."""
+    bf = [r for r in rows if r["dtype"] == "torch.bfloat16"]
+    if key == "K2":
+        bf = bf[:1]  # the no-gates arm, as the forward runs by default
+
+    def per_forward(field):
+        if bf[0].get(field) is None:
+            return None
+        if key in SITE_FACTOR:
+            return sum(r[field] * r["site"]["base"] * SITE_FACTOR[key] for r in bf)
+        return sum(r[field] for r in bf)
+
+    sources = {"K1": ("rgb_to_hvi", "hvi.cu", "hvi_pallas.py:57"),
+               "K2": ("hvi_to_rgb", "hvi.cu", "hvi_pallas.py:102"),
+               "K3": ("half_prelu", "resize.cu", "resize_pallas.py:76"),
+               "K4": ("double_bilinear", "resize.cu", "resize_pallas.py:143"),
+               "K5": ("channel_attention", "attention.cu", "attention.py:181"),
+               "K6": ("layer_norm", "norm.cu", "norm_pallas.py:53"),
+               "K7": ("iel_branch", "iel.cu", "iel_pallas.py:72")}
+    name, src, tpu = sources[key]
+    worst = max(bf, key=lambda r: r["bound_ms"])
+    line = {
+        "name": name,
+        "route": "cuda",
+        "source": f"hvi_cidnet_torch/csrc/{src}",
+        "replaces": f"hvi_cidnet_tpu/ops/{tpu}",
+        "launches": sum(launches[v][key] for v in VARIANTS),
+        "launches_by_path": {v: launches[v][key] for v in VARIANTS},
+        "max_abs_err": max(r["err"] for r in rows if r["dtype"] == "torch.float32"),
+        "max_abs_err_bf16": max(r["err"] for r in rows if r["dtype"] == "torch.bfloat16"),
+        "ms": per_forward("ms"),
+        "plain_ms": per_forward("plain_ms"),
+        "bound_ms": per_forward("bound_ms"),
+        "bound_by": worst["bound_by"],
+        "library_ms": per_forward("library_ms"),
+    }
+    if key == "K5":
+        line["bound_cuda_core_ms"] = per_forward("bound_cuda_core_ms")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -267,7 +473,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from hvi_cidnet_torch.models.cidnet import HVIGates, cidnet_forward
     from hvi_cidnet_torch.ops import _build
-    from hvi_cidnet_torch.ops import hvi_cuda, resize_cuda
+    from hvi_cidnet_torch.ops import attention_cuda, hvi_cuda, iel_cuda, norm_cuda, resize_cuda
     from hvi_cidnet_torch.serve import Enhancer
 
     torch.backends.cudnn.allow_tf32 = False
@@ -284,76 +490,68 @@ def main() -> int:
         f"build+load {time.perf_counter() - t0:.1f} s")
 
     kernels = {"K1": hvi_cuda.RGB_TO_HVI, "K2": hvi_cuda.HVI_TO_RGB,
-               "K3": resize_cuda.HALF_PRELU, "K4": resize_cuda.DOUBLE}
+               "K3": resize_cuda.HALF_PRELU, "K4": resize_cuda.DOUBLE,
+               "K5": attention_cuda.ATTENTION, "K6": norm_cuda.LAYER_NORM,
+               "K7": iel_cuda.IEL_BRANCH}
     results = {k: [] for k in kernels}
     compare_hvi(results, dev)
     compare_resize(results, dev)
-    bf_model = compare_forward(dev)
+    compare_lca(results, dev)
+    torch.cuda.empty_cache()
+    bf_models = {v: compare_forward(dev, v) for v in VARIANTS}
 
-    # launches of one forward (the bf16 serving model, 1 x 400 x 600)
+    # launches of one forward (the bf16 serving models, 1 x 400 x 600)
     x = torch.rand((1, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev, torch.bfloat16)
-    reset(kernels)
-    with torch.no_grad():
-        cidnet_forward(bf_model, x, compute_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    per_forward = counts(kernels)
-    log(f"launches per forward: {per_forward}")
-    if per_forward != {"K1": 1, "K2": 1, "K3": 6, "K4": 6}:
-        raise AssertionError(f"launches per forward {per_forward} != 1/1/6/6")
+    for variant, model in bf_models.items():
+        reset(kernels)
+        with torch.no_grad():
+            cidnet_forward(model, x, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        per_forward = counts(kernels)
+        log(f"{variant} launches per forward: {per_forward}")
+        if per_forward != PER_FORWARD[variant]:
+            raise AssertionError(f"{variant} launches per forward {per_forward} != "
+                                 f"{PER_FORWARD[variant]}")
 
-    # the main path: requests through the serving entry point
+    # the main path: requests through the serving entry point, each variant
     gates = HVIGates(gated=True, gated2=True, alpha=0.95, alpha_s=1.1)
-    enhancer = Enhancer(bf_model, gates, gamma=0.8, compute_dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(3)
     requests = [rng.uniform(0, 0.4, (h, w, 3)).astype(np.float32)
                 for h, w in [(400, 600), (389, 517), (600, 400), (389, 517)]]
-    reset(kernels)
-    t0 = time.perf_counter()
-    outs = [enhancer.enhance(img) for img in requests]
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    served = counts(kernels)
-    for img, out in zip(requests, outs):
-        if out.shape != img.shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
-            raise AssertionError(f"served {img.shape} -> {out.shape}: bad output")
     n = len(requests)
-    log(f"served {n} requests {[r.shape[:2] for r in requests]} in {serve_s:.3f} s "
-        f"(first includes warm-up); launches {served}")
-    if served != {"K1": n, "K2": n, "K3": 6 * n, "K4": 6 * n}:
-        raise AssertionError(f"serving launches {served} != {n} forwards of 1/1/6/6")
+    served = {}
+    for variant, model in bf_models.items():
+        enhancer = Enhancer(model, gates, gamma=0.8, compute_dtype=torch.bfloat16, device=dev)
+        reset(kernels)
+        t0 = time.perf_counter()
+        outs = [enhancer.enhance(img) for img in requests]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        served[variant] = counts(kernels)
+        for img, out in zip(requests, outs):
+            if out.shape != img.shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+                raise AssertionError(f"{variant} served {img.shape} -> {out.shape}: bad output")
+        log(f"{variant} served {n} requests {[r.shape[:2] for r in requests]} in {serve_s:.3f} s "
+            f"(first includes warm-up); launches {served[variant]}")
+        want = {k: n * v for k, v in PER_FORWARD[variant].items()}
+        if served[variant] != want:
+            raise AssertionError(f"{variant} serving launches {served[variant]} != {want}")
 
     # throughput at 600 x 400 bf16 (information)
-    for b in (1, 8, 32):
-        xb = torch.rand((b, H, W, 3), generator=torch.Generator().manual_seed(b)).to(dev, torch.bfloat16)
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad():
-            ms = time_ms(lambda: cidnet_forward(bf_model, xb, compute_dtype=torch.bfloat16).clamp_(0, 1),
-                         iters=5, warmup=2)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"forward 600x400 bf16 batch {b}: {ms:.2f} ms, {1000 * b / ms:.1f} img/s, "
-            f"peak {peak:.2f} GiB")
+    for variant, model in bf_models.items():
+        for b in (1, 8, 32):
+            xb = torch.rand((b, H, W, 3), generator=torch.Generator().manual_seed(b)).to(
+                dev, torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                ms = time_ms(
+                    lambda: cidnet_forward(model, xb, compute_dtype=torch.bfloat16).clamp_(0, 1),
+                    iters=5, warmup=2)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"{variant} forward 600x400 bf16 batch {b}: {ms:.2f} ms, {1000 * b / ms:.1f} img/s, "
+                f"peak {peak:.2f} GiB")
 
-    sources = {"K1": ("hvi.cu", "hvi_pallas.py:57"), "K2": ("hvi.cu", "hvi_pallas.py:102"),
-               "K3": ("resize.cu", "resize_pallas.py:76"), "K4": ("resize.cu", "resize_pallas.py:143")}
-    names = {"K1": "rgb_to_hvi", "K2": "hvi_to_rgb", "K3": "half_prelu", "K4": "double_bilinear"}
-    summary = []
-    for key in kernels:
-        rows = results[key]
-        bf = [r for r in rows if r["dtype"] == "torch.bfloat16"]
-        if key == "K2":
-            bf = bf[:1]  # the no-gates arm, as the forward runs by default
-        summary.append({
-            "name": names[key],
-            "route": "cuda",
-            "source": f"hvi_cidnet_torch/csrc/{sources[key][0]}",
-            "replaces": f"hvi_cidnet_tpu/ops/{sources[key][1]}",
-            "launches": served[key],
-            "max_abs_err": max(r["err"] for r in rows if r["dtype"] == "torch.float32"),
-            "max_abs_err_bf16": max(r["err"] for r in rows if r["dtype"] == "torch.bfloat16"),
-            # per forward at 600 x 400 batch 8 bf16: all of the kernel's sites
-            "ms": sum(r["ms"] for r in bf),
-            "plain_ms": sum(r["plain_ms"] for r in bf),
-        })
+    summary = [summarise(key, results[key], served) for key in kernels]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ demo.py:11-73): reflect-pad to x8, run with both HVI gates on, crop, save
 
     python -m hvi_cidnet_torch.cli.demo --input IMG [--output_dir output]
         [--weight weights/SICE.pth | --random_init] [--gamma 1.0]
-        [--alpha_s 1.0] [--alpha_i 1.0] [--cpu]
+        [--alpha_s 1.0] [--alpha_i 1.0] [--variant base|mssa] [--cpu]
 
 Weights are a reference-layout ``.pth`` or ``.npz`` state dict; with
 ``--random_init`` the model is drawn from a generator seeded 0. Runs on the
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates
+from hvi_cidnet_torch.models.cidnet import VARIANTS, CIDNet, CIDNetConfig, HVIGates
 from hvi_cidnet_torch.serve import Enhancer
 
 
@@ -32,6 +32,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--gamma", type=float, default=1.0, help="lower = brighter")
     p.add_argument("--alpha_s", type=float, default=1.0, help="saturation")
     p.add_argument("--alpha_i", type=float, default=1.0, help="intensity")
+    p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     p.add_argument("--random_init", action="store_true",
                    help="run with fresh random weights (no weight file needed)")
@@ -41,14 +42,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> str:
     args = parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
+    config = CIDNetConfig(variant=args.variant)
     if args.random_init:
-        weights = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+        weights = CIDNet(config, generator=torch.Generator().manual_seed(0))
     else:
         print(f"loading weights: {args.weight}")
         weights = args.weight
     # the reference demo enables both gates (demo.py:32-33, 41-42)
     gates = HVIGates(gated=True, gated2=True, alpha=args.alpha_i, alpha_s=args.alpha_s)
-    enhancer = Enhancer(weights, gates, gamma=args.gamma, device="cpu" if args.cpu else "cuda")
+    enhancer = Enhancer(weights, gates, config=config, gamma=args.gamma,
+                        device="cpu" if args.cpu else "cuda")
 
     print(f"processing: {args.input}")
     img = np.asarray(Image.open(args.input).convert("RGB"), np.float32) / 255.0

@@ -2,7 +2,7 @@
 counterpart of ``cli/net_test.py`` (reference net_test.py:1-21).
 
     python -m hvi_cidnet_torch.cli.net_test [--size 256] [--batch 1]
-        [--dtype float32|bfloat16] [--iters 10] [--cpu]
+        [--dtype float32|bfloat16] [--iters 10] [--variant base|mssa] [--cpu]
 
 Runs on the card unless ``--cpu`` is given. The time is host wall clock
 around forwards that end in a device synchronise.
@@ -17,7 +17,13 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward
+from hvi_cidnet_torch.models.cidnet import (
+    VARIANTS,
+    CIDNet,
+    CIDNetConfig,
+    cast_conv_weights,
+    cidnet_forward,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -26,6 +32,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     return p.parse_args(argv)
 
@@ -34,7 +41,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = torch.device("cpu" if args.cpu else "cuda")
     dt = getattr(torch, args.dtype)
-    model = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+    model = CIDNet(CIDNetConfig(variant=args.variant), generator=torch.Generator().manual_seed(0))
     model = cast_conv_weights(model.to(device), dt).eval()
     x = np.random.default_rng(0).random((args.batch, args.size, args.size, 3))
     x = torch.from_numpy(x).to(device, dt)

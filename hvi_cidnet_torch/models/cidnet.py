@@ -1,18 +1,22 @@
-"""Base CIDNet: the module tree, its initialisation and its forward.
+"""CIDNet, base and MSSA: the module tree, its initialisation and its forward.
 
 Counterpart of ``hvi_cidnet_tpu/models/cidnet.py`` for the base variant
-(reference net/CIDNet.py). The reference's graph quirks are kept, because
-released checkpoints were trained with them:
+(reference net/CIDNet.py) and the MSSA variant (net/CIDNet_MSSA.py), which
+adds a spatial-attention gate after each decoder upsample and feeds
+``I_LCA5``'s output to ``ID_block2``. TNSM is not ported yet. The
+reference's graph quirks are kept, because released checkpoints were
+trained with them:
 
 (a) the level-3 downsamples consume the pre-LCA features (CIDNet.py:94-95);
-(b) ``I_LCA5``'s output is discarded: ``ID_block2`` re-derives from
-    ``i_dec3`` (CIDNet.py:105, 109);
+(b) base only: ``I_LCA5``'s output is discarded, ``ID_block2`` re-derives
+    from ``i_dec3`` (CIDNet.py:105, 109);
 (c) ``head1``/``ch1`` never feed an LCA (CIDNet.py:17-18).
 
 The public layout is NHWC in [0, 1] in and NHWC out, as in JAX; inside, the
-activations are NCHW. The HVI transform runs as the CUDA kernels K1 and K2
-on the card (``ops/hvi_cuda.py``), attention softmax and LN statistics in
-fp32, everything else in ``compute_dtype``. Only the 4-D conv weights take
+activations are NCHW. On the card the HVI transform runs as the CUDA
+kernels K1 and K2 (``ops/hvi_cuda.py``) and the blocks as K3-K7
+(``models/layers.py``); attention softmax and LN statistics are fp32,
+everything else ``compute_dtype``. Only the 4-D conv weights take
 the compute dtype (``cast_conv_weights``): LayerNorm, PReLU, temperature
 and density_k stay fp32 (``.to(bfloat16)`` on the whole module would round
 density_k 0.2 to 0.2002).
@@ -33,6 +37,7 @@ from hvi_cidnet_torch.models.layers import (
     Conv,
     NormDownsample,
     NormUpsample,
+    SpatialAttention,
 )
 from hvi_cidnet_torch.ops.conv import conv3x3_replpad
 from hvi_cidnet_torch.ops.hvi_cuda import hvi_to_rgb, rgb_to_hvi
@@ -40,7 +45,8 @@ from hvi_cidnet_torch.ops.hvi_cuda import hvi_to_rgb, rgb_to_hvi
 
 @dataclasses.dataclass(frozen=True)
 class CIDNetConfig:
-    """Defaults mirror net/CIDNet.py:9-12. Only ``variant="base"`` is ported."""
+    """Defaults mirror net/CIDNet.py:9-12. ``variant``: "base" or "mssa"
+    ("tnsm" is not ported yet)."""
 
     channels: Tuple[int, int, int, int] = (36, 36, 72, 144)
     heads: Tuple[int, int, int, int] = (1, 2, 4, 8)
@@ -66,8 +72,12 @@ class RGB_HVI(nn.Module):
         self.density_k = nn.Parameter(torch.full((1,), 0.2))
 
 
+VARIANTS = ("base", "mssa")
+SA_NAMES = ("sa_hv3", "sa_i3", "sa_hv2", "sa_i2", "sa_hv1", "sa_i1")
+
+
 class CIDNet(nn.Module):
-    """Base CIDNet parameters under the reference's ``state_dict`` keys.
+    """CIDNet parameters under the reference's ``state_dict`` keys.
 
     Conv weights are drawn from ``generator`` (a fresh one seeded 0 if None)
     as torch's Conv2d default, U(+-1/sqrt(fan_in)); the rest take the
@@ -77,8 +87,10 @@ class CIDNet(nn.Module):
     def __init__(self, config: CIDNetConfig = CIDNetConfig(), *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.variant != "base":
-            raise NotImplementedError(f"variant {config.variant!r} is not ported; only 'base'")
+        if config.variant not in VARIANTS:
+            raise NotImplementedError(
+                f"variant {config.variant!r} is not ported; only {', '.join(VARIANTS)}"
+            )
         self.config = config
         ch1, ch2, ch3, ch4 = config.channels
         _, h2, h3, h4 = config.heads
@@ -108,6 +120,9 @@ class CIDNet(nn.Module):
             self.add_module(f"I_LCA{idx}", I_LCA(dim, heads))
 
         self.trans = RGB_HVI()
+        if config.variant == "mssa":  # after the base tree: base draws stay as they were
+            for name in SA_NAMES:
+                self.add_module(name, SpatialAttention())
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -149,9 +164,12 @@ def _check_x8(x: torch.Tensor) -> None:
 
 def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
     """The forward up to PHVIT: NHWC RGB -> the output HVI map, NCHW
-    (B, 3, H, W) in ``compute_dtype`` (net/CIDNet.py:71-119)."""
+    (B, 3, H, W) in ``compute_dtype`` (net/CIDNet.py:71-119; MSSA:
+    net/CIDNet_MSSA.py)."""
     _check_x8(x)
     m = model
+    mssa = m.config.variant == "mssa"
+    gate = (lambda name, t: getattr(m, name)(t)) if mssa else (lambda name, t: t)
     hvi = rgb_to_hvi(x, m.trans.density_k, compute_dtype)  # K1; CIDNet.py:73
     i_img = hvi[:, 2:3]                                    # :74
 
@@ -180,22 +198,24 @@ def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32) -
     i_dec4 = m.I_LCA4(i_enc4, hv_4)  # :100
     hv_4 = m.HV_LCA4(hv_4, i_enc4)
 
-    hv_3 = m.HVD_block3(hv_4, hv_jump2)  # :103
-    i_dec3 = m.ID_block3(i_dec4, v_jump2)
+    hv_3 = gate("sa_hv3", m.HVD_block3(hv_4, hv_jump2))  # :103; MSSA :133
+    i_dec3 = gate("sa_i3", m.ID_block3(i_dec4, v_jump2))  # MSSA :135
 
-    # quirk (b) discards I_LCA5's output (:105), so it is not computed; XLA's
-    # dead-code elimination drops it from the JAX program the same way
+    # base: quirk (b) discards I_LCA5's output (:105), so it is not computed;
+    # XLA's dead-code elimination drops it from the JAX program the same way
+    i_dec2 = m.I_LCA5(i_dec3, hv_3) if mssa else i_dec3
     hv_2 = m.HV_LCA5(hv_3, i_dec3)
 
-    hv_2 = m.HVD_block2(hv_2, hv_jump1)  # :108
-    i_dec2 = m.ID_block2(i_dec3, v_jump1)  # quirk (b): from i_dec3 (:109)
+    hv_2 = gate("sa_hv2", m.HVD_block2(hv_2, hv_jump1))  # :108
+    # base, quirk (b): from i_dec3 (:109); MSSA feeds I_LCA5's output (:143)
+    i_dec2 = gate("sa_i2", m.ID_block2(i_dec2, v_jump1))
 
     i_dec1 = m.I_LCA6(i_dec2, hv_2)  # :111
     hv_1 = m.HV_LCA6(hv_2, i_dec2)
 
-    i_dec1 = m.ID_block1(i_dec1, i_jump0)  # :114
+    i_dec1 = gate("sa_i1", m.ID_block1(i_dec1, i_jump0))  # :114
     i_dec0 = conv3x3_replpad(i_dec1, m.ID_block0[1].weight)
-    hv_1 = m.HVD_block1(hv_1, hv_jump0)
+    hv_1 = gate("sa_hv1", m.HVD_block1(hv_1, hv_jump0))
     hv_0 = conv3x3_replpad(hv_1, m.HVD_block0[1].weight)
 
     return torch.cat([hv_0, i_dec0], dim=1) + hvi  # :119
@@ -208,8 +228,9 @@ def cidnet_forward(
     *,
     compute_dtype=torch.float32,
 ) -> torch.Tensor:
-    """Base CIDNet forward. ``x``: NHWC RGB in [0, 1] with H, W multiples of
-    8, on the model's device. Returns NHWC RGB in ``compute_dtype``."""
+    """CIDNet forward (the model's variant). ``x``: NHWC RGB in [0, 1] with
+    H, W multiples of 8, on the model's device. Returns NHWC RGB in
+    ``compute_dtype``."""
     out_hvi = cidnet_hvi(model, x, compute_dtype=compute_dtype)
     # PHVIT read the detached Python float this_k (HVI_transform.py:38, 59)
     return hvi_to_rgb(  # K2

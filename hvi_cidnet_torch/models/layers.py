@@ -1,7 +1,8 @@
 """CIDNet building blocks as ``nn.Module``s.
 
-Counterpart of ``hvi_cidnet_tpu/models/layers.py:59-180``. The module tree
-mirrors the reference's (net/transformer_utils.py, net/LCA.py), so every
+Counterpart of ``hvi_cidnet_tpu/models/layers.py:59-193``. The module tree
+mirrors the reference's (net/transformer_utils.py, net/LCA.py,
+net/CIDNet_MSSA.py), so every
 ``state_dict()`` key equals the reference key and the JAX parameter name
 (``HV_LCA1.ffn.q.weight``, ``HVE_block1.down.0.weight``, ...). Convolutions
 hold only their OIHW weight (no bias, as in the reference); the forwards
@@ -13,7 +14,9 @@ apply them through ``ops/`` and keep the JAX package's exact rewrites:
   (composed in fp32, then cast): 1x1 channel mixing commutes with the
   channel-independent bilinear x2.
 
-Activations are NCHW-contiguous.
+Activations are NCHW-contiguous. On the card the LCA interior runs as
+kernels: LayerNorm K6, the CAB's channel attention K5, the IEL branch K7;
+NormDownsample's tail K3 and NormUpsample's x2 K4.
 """
 
 from __future__ import annotations
@@ -21,15 +24,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from hvi_cidnet_torch.ops.attention import channel_attention
-from hvi_cidnet_torch.ops.conv import (
-    conv1x1,
-    conv3x3_same,
-    dwconv3x3,
-    layer_norm_channels,
-    prelu,
-)
-from hvi_cidnet_torch.ops.iel import iel_branch
+from hvi_cidnet_torch.ops.attention_cuda import channel_attention
+from hvi_cidnet_torch.ops.conv import conv1x1, conv2d, conv3x3_same, dwconv3x3, prelu
+from hvi_cidnet_torch.ops.iel_cuda import iel_branch
+from hvi_cidnet_torch.ops.norm_cuda import layer_norm
 from hvi_cidnet_torch.ops.resize_cuda import double_bilinear, half_prelu
 
 
@@ -43,7 +41,7 @@ class Conv(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Channel LayerNorm (net/transformer_utils.py:5-29)."""
+    """Channel LayerNorm (net/transformer_utils.py:5-29). K6."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -51,7 +49,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm_channels(x, self.weight, self.bias)
+        return layer_norm(x, self.weight, self.bias)
 
 
 class NormDownsample(nn.Module):
@@ -100,7 +98,8 @@ class NormUpsample(nn.Module):
 
 
 class CAB(nn.Module):
-    """Cross-attention block: q from x, k/v from y (net/LCA.py:7-41)."""
+    """Cross-attention block: q from x, k/v from y (net/LCA.py:7-41). The
+    attention with the folded ``project_out`` is K5."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -124,7 +123,8 @@ class CAB(nn.Module):
 
 
 class IEL(nn.Module):
-    """Intensity Enhancement Layer, the gated tanh FFN (net/LCA.py:45-67)."""
+    """Intensity Enhancement Layer, the gated tanh FFN (net/LCA.py:45-67).
+    Each of its two branches is K7."""
 
     def __init__(self, dim: int, expansion: float = 2.66):
         super().__init__()
@@ -164,3 +164,17 @@ class I_LCA(HV_LCA):
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         x = x + self.ffn(self.norm(x), self.norm(y))
         return x + self.gdfn(self.norm(x))
+
+
+class SpatialAttention(nn.Module):
+    """Channel mean and max -> 7x7 conv (2 -> 1, zero SAME padding) ->
+    sigmoid gate on ``x`` (net/CIDNet_MSSA.py:10-25). Plain PyTorch: the JAX
+    package has no kernel for it."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = Conv(2, 1, 7)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(conv2d(pooled, self.conv1.weight, padding=3))

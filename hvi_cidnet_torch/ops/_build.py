@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 All ``hvi_cidnet_torch/csrc/*.cu`` files compile with ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
+shared library with a plain C interface, loaded with ``ctypes``: one
+``nvcc -c`` per source, all started together, then one link. The build
 happens at first use, into ``build/kernels/`` at the repository root
 (git-ignored), under a name that hashes the sources and the flags, so a
 changed source never loads a stale library. Nothing here runs at import.
@@ -34,11 +35,8 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 # dtype codes of the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +66,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhvi_cidnet_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check(cmd: list, code: int, log: str, verbose: bool) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
+    if verbose:
+        print(log, end="")
+
+
 def build(*, verbose: bool = False) -> tuple[Path, float]:
     """Compile the kernels if the library is missing. Returns (path, seconds
     spent compiling; 0.0 when it was already built)."""
@@ -75,20 +80,24 @@ def build(*, verbose: bool = False) -> tuple[Path, float]:
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    return path, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        objects = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+                    for obj, src in zip(objects, _sources())]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        logs = [proc.communicate()[1] for proc in procs]  # waits for every compile
+        for cmd, proc, log in zip(compiles, procs, logs):
+            _check(cmd, proc.returncode, log, verbose)
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check(link, proc.returncode, proc.stderr, verbose)
+        os.replace(lib, path)  # atomic: a concurrent loader never sees half a file
+    return path, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,8 +2,8 @@
 
 Counterpart of ``channel_attention_xla`` (``hvi_cidnet_tpu/ops/attention.py:
 76-173``), the default path of the JAX forward; reference net/LCA.py:26-36.
-Its kernel (K5, the JAX ``_attn_kernel``) is ported in a later slice; until
-then this plain form runs on every device, as XLA's einsums run on the TPU.
+It is the plain twin of K5 (``ops/attention_cuda.py``, ``csrc/attention.cu``):
+the CPU runs it, the card runs the kernel.
 
 Per image, a C x C score matrix contracted over space, in fp32:
 

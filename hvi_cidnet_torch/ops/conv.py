@@ -52,7 +52,8 @@ def layer_norm_channels(
 
     fp32 runs the exact two-pass form. Other dtypes keep the statistics in
     fp32 as E[x^2] - E[x]^2 and apply in the activation dtype, as the JAX
-    bf16 form does (``hvi_cidnet_tpu/ops/conv.py:196-220``).
+    bf16 form does (``hvi_cidnet_tpu/ops/conv.py:196-220``). The plain twin
+    of K6 (``ops/norm_cuda.py``, ``csrc/norm.cu``).
     """
     w = weight.reshape(1, -1, 1, 1)
     b = bias.reshape(1, -1, 1, 1)

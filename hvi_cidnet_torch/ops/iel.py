@@ -1,8 +1,8 @@
 """The IEL gate branch in plain PyTorch: ``tanh(dw2(dw1(y))) + dw1(y)``.
 
 Counterpart of ``_xla_branch`` (``hvi_cidnet_tpu/ops/iel_pallas.py:199-203``),
-the default path of the JAX forward; reference net/LCA.py:53-60. Its kernel
-(K7, the JAX ``_branch_kernel``) is ported in a later slice. dw2's zero SAME
+the default path of the JAX forward; reference net/LCA.py:53-60. It is the
+plain twin of K7 (``ops/iel_cuda.py``, ``csrc/iel.cu``). dw2's zero SAME
 padding pads dw1's output with zeros, which is what chaining two
 ``dwconv3x3`` calls does.
 """

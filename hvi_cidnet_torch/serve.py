@@ -8,7 +8,7 @@ demo.py: ``model(x ** gamma)`` on the image reflect-padded to multiples of
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -36,11 +36,13 @@ def _pad_to(img: np.ndarray, bh: int, bw: int) -> np.ndarray:
 
 
 class Enhancer:
-    """Serves base CIDNet on ``device``.
+    """Serves CIDNet (base or MSSA) on ``device``.
 
     ``weights``: a ``CIDNet`` (taken over: moved to ``device``, conv weights
-    cast to ``compute_dtype``) or the path of a reference-layout state dict
-    (``.pth`` / ``.npz``), loaded strictly into a fresh base model.
+    cast to ``compute_dtype``; ``config``, if given, must be its config) or
+    the path of a reference-layout state dict (``.pth`` / ``.npz``), loaded
+    strictly into a fresh ``CIDNet(config)`` (default ``CIDNetConfig()``),
+    as the JAX ``Evaluator`` takes its ``config``.
     """
 
     def __init__(
@@ -48,13 +50,18 @@ class Enhancer:
         weights: Union[str, CIDNet],
         gates: HVIGates = HVIGates(),
         *,
+        config: Optional[CIDNetConfig] = None,
         gamma: float = 1.0,
         compute_dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device] = "cuda",
     ):
-        model = weights if isinstance(weights, CIDNet) else load_weights(
-            CIDNet(CIDNetConfig()), weights
-        )
+        if isinstance(weights, CIDNet):
+            if config is not None and config != weights.config:
+                raise ValueError(f"model config {weights.config} != serving config {config}")
+            model = weights
+        else:
+            model = load_weights(CIDNet(config or CIDNetConfig()), weights)
+        self.config = model.config
         self.device = torch.device(device)
         self.model = cast_conv_weights(model.to(self.device), compute_dtype).eval()
         self.gates = gates

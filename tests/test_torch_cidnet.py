@@ -147,7 +147,7 @@ def test_bf16_forward_runs_on_cpu(tiny):
 
 def test_other_variants_are_not_ported():
     with pytest.raises(NotImplementedError):
-        CIDNet(CIDNetConfig(variant="mssa"))
+        CIDNet(CIDNetConfig(variant="tnsm"))
 
 
 def test_entry_twin_shapes():

@@ -7,15 +7,23 @@ machine without jax it runs without the suite's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
 Shapes are small and odd (ragged grid tails, odd extents). Tolerances as in
-``chip_smoke.py``: fp32 1e-6 (K1, K3, K4) and 1e-5 (K2) — kernels and
+``chip_smoke.py``: fp32 1e-6 (K1, K3, K4, K7) and 1e-5 (K2) — kernels and
 twins run the same fp32 ops in the same order, so they are expected to be
-bitwise equal; bf16 one ulp at magnitudes below 2 (2**-7).
+bitwise equal; bf16 one ulp at magnitudes below 2 (2**-7). K5 and K6 sum
+over space or channels in another order than the twin's cuBLAS GEMM or
+torch reduction: fp32 2e-5 (K5) and 1e-5 (K6); bf16 two ulps relative,
+|err| <= 2**-6 * max(1, |ref|) (a last-bit difference in an fp32 value can
+flip the bf16 rounding of one intermediate, and a flip moves the output by
+an ulp).
 """
 
 import pytest
 import torch
 
+from hvi_cidnet_torch.ops import attention_cuda as ac
 from hvi_cidnet_torch.ops import hvi_cuda as hc
+from hvi_cidnet_torch.ops import iel_cuda as ic
+from hvi_cidnet_torch.ops import norm_cuda as nc
 from hvi_cidnet_torch.ops import resize_cuda as rc
 
 pytestmark = pytest.mark.gpu
@@ -110,3 +118,117 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         rc.double_bilinear(torch.rand((1, 4, 6, 8), device=cuda).transpose(2, 3))
     with pytest.raises(ValueError, match="density_k"):
         hc.rgb_to_hvi(torch.rand((1, 8, 8, 3), device=cuda), torch.full((1,), 0.2), torch.float32)
+
+
+def _close_rel(got, ref, dt, fp32):
+    """fp32: absolute ``fp32``; bf16: two ulps relative (see the module doc)."""
+    if dt == torch.float32:
+        torch.testing.assert_close(got, ref, atol=fp32, rtol=0)
+        return
+    err = (got.float() - ref.float()).abs()
+    bound = 2.0**-6 * ref.float().abs().clamp_min(1.0)
+    assert (err <= bound).all(), f"max err {err.max().item():.3e}, worst ratio {(err / bound).max():.2f}"
+
+
+@pytest.mark.parametrize("case", [
+    (2, 12, 7, 9, 3, True, True), (2, 12, 7, 9, 1, False, True), (1, 16, 5, 40, 4, True, False),
+    (3, 144, 3, 50, 8, True, True), (1, 192, 4, 33, 1, True, True), (2, 36, 1, 1, 2, False, False),
+], ids=["h3", "h1_nonorm", "h4_nofold", "c144", "c192_groups", "n1"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k5_matches_twin(cuda, dt, case):
+    b, c, h, w, heads, normalize_qk, fold = case
+    scale = 1.0 if normalize_qk else (h * w) ** -0.5  # unnormalised scores stay unsaturated
+    q, k = (_rand((b, c, h, w), cuda, dt, -scale, scale, seed=s) for s in (6, 7))
+    v = _rand((b, c, h, w), cuda, dt, -1.0, 1.0, seed=8)
+    temp = _rand((heads, 1, 1), cuda, torch.float32, 0.5, 2.0, seed=9)
+    wp = _rand((c, c, 1, 1), cuda, dt, -0.3, 0.3, seed=10) if fold else None
+    n = ac.ATTENTION.launches
+    got = ac.channel_attention(q, k, v, temp, heads, normalize_qk=normalize_qk, w_proj=wp)
+    assert ac.ATTENTION.launches == n + 1
+    ref = ac.channel_attention_plain(q, k, v, temp, heads, normalize_qk=normalize_qk, w_proj=wp)
+    _close_rel(got, ref, dt, 2e-5)
+
+
+def test_k5_is_bitwise_repeatable(cuda):
+    q, k, v = (_rand((2, 72, 30, 41), cuda, torch.bfloat16, -1.0, 1.0, seed=s) for s in (11, 12, 13))
+    temp = _rand((4, 1, 1), cuda, torch.float32, 0.5, 2.0, seed=14)
+    wp = _rand((72, 72, 1, 1), cuda, torch.bfloat16, -0.3, 0.3, seed=15)
+    a = ac.channel_attention(q, k, v, temp, 4, w_proj=wp)
+    assert torch.equal(a, ac.channel_attention(q, k, v, temp, 4, w_proj=wp))
+
+
+@pytest.mark.parametrize("shape", [(2, 36, 7, 9), (1, 144, 3, 130), (3, 5, 1, 1), (1, 256, 2, 3)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k6_matches_twin(cuda, dt, shape):
+    x = _rand(shape, cuda, dt, -2.0, 3.0, seed=16)
+    wgt = _rand((shape[1],), cuda, torch.float32, 0.5, 1.5, seed=17)
+    bias = _rand((shape[1],), cuda, torch.float32, -0.5, 0.5, seed=18)
+    n = nc.LAYER_NORM.launches
+    got = nc.layer_norm(x, wgt, bias)
+    assert nc.LAYER_NORM.launches == n + 1
+    _close_rel(got, nc.layer_norm_plain(x, wgt, bias), dt, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 17, 33), (1, 3, 1, 1), (1, 2, 40, 70), (2, 3, 16, 32)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k7_matches_twin(cuda, dt, shape):
+    y = _rand(shape, cuda, dt, -1.5, 1.5, seed=19)
+    w1, w2 = (_rand((shape[1], 1, 3, 3), cuda, dt, -0.5, 0.5, seed=s) for s in (20, 21))
+    n = ic.IEL_BRANCH.launches
+    got = ic.iel_branch(y, w1, w2)
+    assert ic.IEL_BRANCH.launches == n + 1
+    _close_rel(got, ic.iel_branch_plain(y, w1, w2), dt, 1e-6)
+
+
+def test_lca_kernels_backward_runs_the_twins_autograd(cuda):
+    f32 = torch.float32
+    q, k, v = (_rand((2, 8, 5, 6), cuda, f32, -1.0, 1.0, seed=s).requires_grad_() for s in (22, 23, 24))
+    temp = _rand((2, 1, 1), cuda, f32, 0.5, 2.0, seed=25).requires_grad_()
+    wp = _rand((8, 8, 1, 1), cuda, f32, -0.3, 0.3, seed=26).requires_grad_()
+    for fold in (wp, None):
+        args = (q, k, v, temp) + ((fold,) if fold is not None else ())
+        g1 = torch.autograd.grad(ac.channel_attention(q, k, v, temp, 2, w_proj=fold).square().sum(), args)
+        g2 = torch.autograd.grad(
+            ac.channel_attention_plain(q, k, v, temp, 2, w_proj=fold).square().sum(), args)
+        for u, w in zip(g1, g2):
+            torch.testing.assert_close(u, w, atol=1e-5, rtol=1e-5)
+
+    x = _rand((2, 6, 4, 5), cuda, f32, -1.0, 1.0, seed=27).requires_grad_()
+    wgt = _rand((6,), cuda, f32, 0.5, 1.5, seed=28).requires_grad_()
+    bias = _rand((6,), cuda, f32, -0.5, 0.5, seed=29).requires_grad_()
+    g1 = torch.autograd.grad(nc.layer_norm(x, wgt, bias).square().sum(), (x, wgt, bias))
+    g2 = torch.autograd.grad(nc.layer_norm_plain(x, wgt, bias).square().sum(), (x, wgt, bias))
+    for u, w in zip(g1, g2):
+        torch.testing.assert_close(u, w, atol=1e-5, rtol=1e-5)
+
+    y = _rand((2, 3, 6, 7), cuda, f32, -1.0, 1.0, seed=30).requires_grad_()
+    w1, w2 = (_rand((3, 1, 3, 3), cuda, f32, -0.5, 0.5, seed=s).requires_grad_() for s in (31, 32))
+    g1 = torch.autograd.grad(ic.iel_branch(y, w1, w2).square().sum(), (y, w1, w2))
+    g2 = torch.autograd.grad(ic.iel_branch_plain(y, w1, w2).square().sum(), (y, w1, w2))
+    for u, w in zip(g1, g2):
+        torch.testing.assert_close(u, w, atol=1e-5, rtol=1e-5)
+
+
+def test_lca_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    temp = torch.ones((1, 1, 1), device=cuda)
+    big = torch.rand((1, 200, 4, 4), device=cuda)
+    with pytest.raises(ValueError, match="C <= 192"):
+        ac.channel_attention(big, big, big, temp, 1)
+    t = torch.rand((1, 8, 4, 6), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ac.channel_attention(t.transpose(2, 3), t.transpose(2, 3), t.transpose(2, 3), temp, 1)
+    with pytest.raises(TypeError):
+        h = t.half()
+        ac.channel_attention(h, h, h, temp, 1)
+    with pytest.raises(ValueError, match="temperature"):
+        ac.channel_attention(t, t, t, torch.ones((2, 1, 1), device=cuda), 1)
+    with pytest.raises(ValueError, match="C <= 256"):
+        x = torch.rand((1, 300, 2, 2), device=cuda)
+        nc.layer_norm(x, torch.ones(300, device=cuda), torch.zeros(300, device=cuda))
+    with pytest.raises(ValueError, match="weight"):
+        nc.layer_norm(t, torch.ones(8, device=cuda, dtype=torch.bfloat16), torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="depthwise"):
+        ic.iel_branch(t, torch.rand((8, 1, 5, 5), device=cuda), torch.rand((8, 1, 3, 3), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        w3 = torch.rand((8, 1, 3, 3), device=cuda)
+        ic.iel_branch(t.transpose(2, 3), w3, w3)
