@@ -13,7 +13,8 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    and bf16, at every site shape the 600 x 400 forward gives it (batch 8),
    and prints the error, the kernel's and the twin's times (and, for K4,
    the one PyTorch call that computes the same function); K5 also in its
-   unnormalised and unfolded arms, and twice for identical bits;
+   unnormalised and unfolded arms, and twice for identical bits. K4 and K7
+   must be bitwise equal to their twins; they are also timed at batch 1;
 5. runs the full-width base and MSSA forwards on the card in fp32 (TF32
    off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result;
@@ -45,11 +46,13 @@ H, W = 400, 600          # the serving image (600 x 400 landscape), NHWC (B, H, 
 BATCH = 8                # batch of the kernel comparisons
 K = 0.2                  # density_k at init
 
-# tolerances, kernel vs its plain twin on the same card and inputs. K1-K4
-# and K7 run the twin's fp32 ops in the same order (bitwise equal or one
-# fp32 ulp); K5 and K6 sum over space or channels in another order than the
-# twin's GEMM or reduction, so fp32 gets a few ulps of the sum.
-TOL_FP32 = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-6, "K4": 1e-6, "K5": 2e-5, "K6": 1e-5, "K7": 1e-6}
+# tolerances, kernel vs its plain twin on the same card and inputs. K4 and
+# K7 run the twin's fp32 ops in the same order and must be bitwise equal
+# (torch.equal) in fp32 and bf16. K1-K3 do too (one fp32 ulp at most); K5
+# and K6 sum over space or channels in another order than the twin's GEMM
+# or reduction, so fp32 gets a few ulps of the sum.
+BITWISE = ("K4", "K7")
+TOL_FP32 = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-6, "K5": 2e-5, "K6": 1e-5}
 TOL_BF16 = 2.0**-7       # one bf16 ulp at magnitudes in [1, 2): both round once from fp32
 # K5-K7 in bf16: a last-bit fp32 difference can flip the bf16 rounding of
 # one intermediate (A, the LN scale/shift, t1), which moves the output by an
@@ -109,6 +112,14 @@ def hue_edge(hvi_nchw: torch.Tensor, k: float) -> torch.Tensor:
 def check(name: str, err: float, tol: float) -> None:
     if not err <= tol:
         raise AssertionError(f"{name}: max abs err {err:.3e} > tolerance {tol:.1e}")
+
+
+def check_equal(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Bitwise equality; returns the max abs error (0.0) for the record."""
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: not bitwise equal to the twin, max abs err "
+                             f"{max_err(got, ref):.3e}")
+    return max_err(got, ref)
 
 
 def nvidia_smi() -> str:
@@ -217,13 +228,16 @@ def compare_resize(results: dict, dev) -> None:
             ("K3", down, lambda x: rc.half_prelu_kernel(x, alpha), lambda x: rc.half_prelu_plain(x, alpha)),
             ("K4", up, rc.double_bilinear_kernel, rc.double_bilinear_plain),
         ):
-            tol = TOL_FP32[key] if dt == torch.float32 else TOL_BF16
             measured = {}
             for site, c, h, w in sites:
                 if (c, h, w) not in measured:  # HV and I branches share shapes
                     x = (torch.rand((BATCH, c, h, w), generator=gen) * 2 - 1).to(dev, dt)
-                    err = max_err(kern(x), plain(x))
-                    check(f"{key} {site} {dt}", err, tol)
+                    if key in BITWISE:
+                        err = check_equal(f"{key} {site} {dt}", kern(x), plain(x))
+                    else:
+                        err = max_err(kern(x), plain(x))
+                        check(f"{key} {site} {dt}", err,
+                              TOL_FP32[key] if dt == torch.float32 else TOL_BF16)
                     lib = None
                     if key == "K4":  # the one PyTorch call of the same function
                         lib = time_ms(lambda: torch.nn.functional.interpolate(
@@ -301,6 +315,8 @@ def compare_lca(results: dict, dev) -> None:
         return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
 
     def judge(name, got, ref, dt):
+        if name[:2] in BITWISE:
+            return check_equal(name, got, ref), 0.0
         err, rel = max_err(got, ref), rel_err(got, ref)
         if dt == torch.float32:
             check(name, err, TOL_FP32[name[:2]])
@@ -365,6 +381,32 @@ def compare_lca(results: dict, dev) -> None:
             err, rel = judge(f"K7 level {level} {dt}", run(), plain(), dt)
             record("K7", dt, site, err, rel, run, plain, y)
             del y
+
+
+def batch1_info(dev) -> None:
+    """K4 and K7 at the batch-1 level-1 shapes in bf16 (information, beside
+    the batch-8 lines; bitwise equal to their twins here too)."""
+    from hvi_cidnet_torch.ops import iel_cuda as ic
+    from hvi_cidnet_torch.ops import resize_cuda as rc
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    dt = torch.bfloat16
+    c1, hid = 36, int(36 * 2.66)
+    x = (torch.rand((1, c1, H // 2, W // 2), generator=gen) * 2 - 1).to(dev, dt)
+    check_equal("K4 batch 1 level 1", rc.double_bilinear_kernel(x), rc.double_bilinear_plain(x))
+    lib = time_ms(lambda: torch.nn.functional.interpolate(
+        x, scale_factor=2, mode="bilinear", align_corners=True))
+    log(f"K4 batch-1 level 1 {tuple(x.shape)} {dt}: kernel "
+        f"{time_ms(lambda: rc.double_bilinear_kernel(x)):.4f} ms  F.interpolate {lib:.4f} ms  "
+        f"bound {bound_ms('K4', x)[0]:.4f} ms")
+    y = (torch.rand((1, hid, H // 2, W // 2), generator=gen) * 3 - 1.5).to(dev, dt)
+    w1, w2 = ((torch.rand((hid, 1, 3, 3), generator=gen) * 2 / 3 - 1 / 3).to(dev, dt)
+              for _ in range(2))
+    check_equal("K7 batch 1 level 1", ic.iel_branch_kernel(y, w1, w2), ic.iel_branch_plain(y, w1, w2))
+    log(f"K7 batch-1 level 1 {tuple(y.shape)} {dt}: kernel "
+        f"{time_ms(lambda: ic.iel_branch_kernel(y, w1, w2)):.4f} ms  plain "
+        f"{time_ms(lambda: ic.iel_branch_plain(y, w1, w2)):.4f} ms  "
+        f"bound {bound_ms('K7', y)[0]:.4f} ms")
 
 
 def compare_forward(dev, variant: str):
@@ -497,6 +539,7 @@ def main() -> int:
     compare_hvi(results, dev)
     compare_resize(results, dev)
     compare_lca(results, dev)
+    batch1_info(dev)
     torch.cuda.empty_cache()
     bf_models = {v: compare_forward(dev, v) for v in VARIANTS}
 

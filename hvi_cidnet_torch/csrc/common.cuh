@@ -38,7 +38,6 @@ __device__ __forceinline__ float round_through<__nv_bfloat16>(float x) {
 }
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
 
 // Enough blocks to fill the card several times over; a grid-stride loop
 // with 64-bit indices covers the rest (a (128, 36, 400, 600) activation

@@ -1,5 +1,5 @@
 // K3 and K4: bilinear x0.5 (+ PReLU) and bilinear x2, align_corners=True,
-// on NCHW activations, one thread per output pixel.
+// on NCHW activations.
 //
 // Replaces the Pallas kernels of hvi_cidnet_tpu/ops/resize_pallas.py:
 //   K3 _half_kernel   (:76, call :120 in scale_half_pallas :107; model
@@ -9,7 +9,7 @@
 // Reference semantics: nn.UpsamplingBilinear2d(0.5 / 2) in NormDownsample /
 // NormUpsample (net/transformer_utils.py:38-40, 57-59). The plain twins are
 // half_prelu_plain / double_bilinear_plain in ops/resize_cuda.py, which run
-// the same taps and weights in the same order (bitwise equal in fp32).
+// the same taps and weights in the same order (bitwise equal in fp32 and bf16).
 //
 // What carries over from the TPU kernels is the arithmetic, not the layout:
 // per axis the x0.5 output i reads source rows {2i, 2i+1, 2i+2} and the x2
@@ -20,18 +20,37 @@
 // the W pass, both in fp32, with one rounding to the output type (and the
 // PReLU of K3 applied in fp32 before it), as the Pallas kernels do.
 //
-// Bound: memory bandwidth. K3 reads each input element about once (the 3x3
-// tap windows of neighbouring outputs overlap in L1/L2) and writes a quarter
-// as many: ~1.25 x input bytes per call (2.5 bytes per input element in bf16,
-// 5 in fp32), for 12 multiply-adds per output. K4 reads the input once and
-// writes four times as much: ~5 x input bytes, 6 multiply-adds per output.
-// Neighbouring threads take neighbouring output columns, so loads and stores
-// coalesce. Indices are 64-bit: (128, 36, 400, 600) is 1.1e9 elements.
-//
 // Edge taps: K3's third tap on the last output row/column (source 2i+2 == H)
 // and K4's outer taps at the borders have weight 0 and fall outside the
 // image; the index is clamped to the edge so nothing reads past the tensor
 // (0 * NaN from an out-of-bounds read would be NaN).
+//
+// K3: one thread per output pixel in a 64-bit grid-stride loop. It reads
+// ~1.25 x input bytes per call for 12 multiply-adds per output.
+//
+// K4 is bound by bytes: it reads the input once and writes four times as
+// much (5 x input bytes; stores are 80% of them) for 6 multiply-adds per
+// output. What held the first design at ~140 G outputs/s, far below that,
+// was per-output work: two 64-bit divisions for the indices, eight weight
+// and tap loads and a 2-byte store per output. The design:
+//   - blocks of (plane, band of source rows, group of column chunks) with a
+//     launch plan from the host (ops/resize_cuda.py:double_plan): three
+//     divisions per block and none per element, 64-bit arithmetic only for
+//     plane and row offsets. Column groups vary fastest over the grid and a
+//     warp writes 512 contiguous bytes of a row, so the blocks resident
+//     together write whole lines of a few planes (64-byte strips scattered
+//     over every plane ran bf16 at half the speed);
+//   - each thread owns 16 bytes of output columns (8 bf16 / 4 fp32, from an
+//     even column 2s) and walks a few source rows j, writing output rows 2j
+//     and 2j+1. Source rows j-1, j, j+1 live in registers and one new row
+//     is loaded per step, so each loaded element serves four outputs;
+//   - the H-pass value of each source column is computed once per output
+//     row and feeds the two to four output columns that read it;
+//   - stores are the widest aligned vector the row pitch allows (the plan's
+//     `store`): 16 B when 2w * sizeof(T) is a multiple of 16 (600 x 400's
+//     block1 in bf16), else 8 B or 4 B. 2w is even, so a pair always fits.
+//     Rows at a 300 B or 600 B pitch start only 4- or 8-byte aligned, which
+//     is why the width is per launch and not fixed at 16 B.
 #include "common.cuh"
 
 namespace hvi_cidnet {
@@ -71,40 +90,112 @@ __global__ void half_prelu_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// K4 takes its own launch plan (ops/resize_cuda.py:double_plan): block
+// (tx, ty), a 1-D grid of planes x gy row bands x gz column groups, column
+// groups fastest, so that blocks that run together write neighbouring
+// memory. A thread owns one chunk
+// of kChunk = 16 / sizeof(T) output columns [c0, c0 + kChunk), c0 even, and
+// walks `rows_per_thread` source rows j, writing output rows 2j and 2j + 1.
 template <typename T>
-__global__ void double_kernel(const T* __restrict__ x, T* __restrict__ out,
-                              const float* __restrict__ wh, const float* __restrict__ ww,
-                              int64_t n, int64_t h, int64_t w) {
-  const int64_t oh = 2 * h, ow = 2 * w;
-  const int64_t total = n * oh * ow;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; o < total;
-       o += stride) {
-    const int64_t plane = o / (oh * ow);
-    const int64_t rem = o - plane * oh * ow;
-    const int64_t oy = rem / ow;
-    const int64_t ox = rem - oy * ow;
-    const T* src = x + plane * h * w;
+struct DoubleChunk {
+  static constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // outputs per row
+  static constexpr int kSrc = kChunk / 2 + 2;  // source columns s-1 .. s+kChunk/2
+};
 
-    // weights per source index j: [ae | be | ao | bo], each of length h (w);
-    // even outputs 2j take (j-1, j) with (ae, be), odd outputs 2j+1 take
-    // (j, j+1) with (ao, bo)
-    const int64_t jy = oy >> 1, jx = ox >> 1;
-    int64_t r0, r1, c0, c1;
-    float h0, h1, w0, w1;
-    if ((oy & 1) == 0) {
-      r0 = max64(jy - 1, 0); r1 = jy; h0 = wh[jy]; h1 = wh[h + jy];
-    } else {
-      r0 = jy; r1 = min64(jy + 1, h - 1); h0 = wh[2 * h + jy]; h1 = wh[3 * h + jy];
+// one source row at the chunk's clamped columns, widened to fp32
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, const int (&cols)[N],
+                                         float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = load_f32(row, cols[i]);
+}
+
+// kBytes of vals to dst (aligned to kBytes) in one store
+template <int kBytes>
+__device__ __forceinline__ void store_vec(void* dst, const void* vals) {
+  if constexpr (kBytes == 16) {
+    *static_cast<uint4*>(dst) = *static_cast<const uint4*>(vals);
+  } else if constexpr (kBytes == 8) {
+    *static_cast<uint2*>(dst) = *static_cast<const uint2*>(vals);
+  } else {
+    static_assert(kBytes == 4, "4, 8 or 16 bytes");
+    *static_cast<unsigned int*>(dst) = *static_cast<const unsigned int*>(vals);
+  }
+}
+
+// One output row of the chunk: the H pass mid[i] = x[r0][col i] * h0 +
+// x[r1][col i] * h1 once per source column, then the W pass per output
+// (mids (ia[k], ia[k] + 1) with weights (wa[k], wb[k])), one rounding,
+// kStore-element vector stores (the tail vector past the row is skipped).
+template <typename T, int kStore>
+__device__ __forceinline__ void double_row(const float* r0, const float* r1, float h0, float h1,
+                                           const float* wa, const float* wb, T* dst, int c0,
+                                           int ow) {
+  using C = DoubleChunk<T>;
+  float mid[C::kSrc];
+#pragma unroll
+  for (int i = 0; i < C::kSrc; ++i) mid[i] = r0[i] * h0 + r1[i] * h1;
+  alignas(16) T vals[C::kChunk];
+#pragma unroll
+  for (int k = 0; k < C::kChunk; ++k) {
+    // even output 2jj: mids of source (jj-1, jj); odd 2jj+1: (jj, jj+1);
+    // mid index i holds source column s - 1 + i, with jj = s + k / 2
+    const int i0 = k / 2 + (k & 1);
+    vals[k] = from_f32<T>(mid[i0] * wa[k] + mid[i0 + 1] * wb[k]);
+  }
+#pragma unroll
+  for (int v = 0; v < C::kChunk / kStore; ++v)
+    if (c0 + v * kStore < ow) store_vec<kStore * sizeof(T)>(dst + v * kStore, vals + v * kStore);
+}
+
+template <typename T, int kStore>
+__global__ void double_kernel(const T* __restrict__ x, T* __restrict__ out,
+                              const float* __restrict__ wh, const float* __restrict__ ww, int h,
+                              int w, int rows_per_thread, int gy, int gz) {
+  using C = DoubleChunk<T>;
+  const int ow = 2 * w;
+  // (plane, band, column group) of this block: divisions once per block
+  const unsigned int bz = blockIdx.x % gz, rest = blockIdx.x / gz;
+  const unsigned int by = rest % gy;
+  const int64_t plane = rest / gy;
+  const int c0 = (bz * blockDim.x + threadIdx.x) * C::kChunk;
+  const int j0 = (by * blockDim.y + threadIdx.y) * rows_per_thread;
+  if (c0 >= ow || j0 >= h) return;
+  const int j1 = min(h, j0 + rows_per_thread);
+  const T* src = x + plane * h * w;
+  T* dst = out + plane * 4 * h * w + c0;
+  const int s = c0 / 2;  // c0 >= 0: a shift
+
+  // edge taps clamped in-bounds (their weight is 0): nothing reads past a plane
+  int cols[C::kSrc];
+#pragma unroll
+  for (int i = 0; i < C::kSrc; ++i) cols[i] = max(0, min(s - 1 + i, w - 1));
+  // W-pass weights of each output column; ww = [ae | be | ao | bo] by source
+  // index (clamped for the columns of a tail chunk past the row: not stored)
+  float wa[C::kChunk], wb[C::kChunk];
+#pragma unroll
+  for (int k = 0; k < C::kChunk; ++k) {
+    const int jj = min(s + k / 2, w - 1);
+    wa[k] = ww[(k & 1) ? 2 * w + jj : jj];
+    wb[k] = ww[(k & 1) ? 3 * w + jj : w + jj];
+  }
+
+  // source rows j-1, j, j+1 (clamped) in registers; each step loads one
+  float prev[C::kSrc], cur[C::kSrc], next[C::kSrc];
+  load_row(src + static_cast<int64_t>(max(j0 - 1, 0)) * w, cols, prev);
+  load_row(src + static_cast<int64_t>(j0) * w, cols, cur);
+  for (int j = j0; j < j1; ++j) {
+    load_row(src + static_cast<int64_t>(min(j + 1, h - 1)) * w, cols, next);
+    // even output row 2j: rows (j-1, j) with (ae, be); odd 2j+1: (j, j+1), (ao, bo)
+    double_row<T, kStore>(prev, cur, wh[j], wh[h + j], wa, wb,
+                          dst + static_cast<int64_t>(2 * j) * ow, c0, ow);
+    double_row<T, kStore>(cur, next, wh[2 * h + j], wh[3 * h + j], wa, wb,
+                          dst + static_cast<int64_t>(2 * j + 1) * ow, c0, ow);
+#pragma unroll
+    for (int i = 0; i < C::kSrc; ++i) {
+      prev[i] = cur[i];
+      cur[i] = next[i];
     }
-    if ((ox & 1) == 0) {
-      c0 = max64(jx - 1, 0); c1 = jx; w0 = ww[jx]; w1 = ww[w + jx];
-    } else {
-      c0 = jx; c1 = min64(jx + 1, w - 1); w0 = ww[2 * w + jx]; w1 = ww[3 * w + jx];
-    }
-    const float m0 = load_f32(src, r0 * w + c0) * h0 + load_f32(src, r1 * w + c0) * h1;
-    const float m1 = load_f32(src, r0 * w + c1) * h0 + load_f32(src, r1 * w + c1) * h1;
-    out[o] = from_f32<T>(m0 * w0 + m1 * w1);
   }
 }
 
@@ -117,13 +208,47 @@ int launch_half_prelu(const void* x, void* out, const void* wh, const void* ww,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_double(const void* x, void* out, const void* wh, const void* ww, int64_t n, int64_t h,
-                  int64_t w, cudaStream_t stream) {
-  double_kernel<T><<<grid_for(n * 4 * h * w), kThreads, 0, stream>>>(
+template <typename T, int kStore>
+int launch_double_vec(const void* x, void* out, const void* wh, const void* ww, int64_t n, int h,
+                      int w, int tx, int ty, int rows_per_thread, int gy, int gz,
+                      cudaStream_t stream) {
+  const dim3 block(tx, ty);
+  double_kernel<T, kStore><<<static_cast<unsigned int>(n * gy * gz), block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<const float*>(wh),
-      static_cast<const float*>(ww), n, h, w);
+      static_cast<const float*>(ww), h, w, rows_per_thread, gy, gz);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the plan's store width (elements) must divide the output row, and the
+// output must be aligned to it: every store is then an aligned vector
+template <typename T>
+int launch_double(const void* x, void* out, const void* wh, const void* ww, int64_t n,
+                  int64_t h, int64_t w, int store, int tx, int ty, int rows_per_thread, int gy,
+                  int gz, cudaStream_t stream) {
+  constexpr int kChunk = DoubleChunk<T>::kChunk;
+  const bool ok = n >= 1 && gy >= 1 && gz >= 1 && n * gy * gz <= 0x7fffffffLL && h >= 1 &&
+                  w >= 1 && h * w <= 0x7fffffffLL &&
+                  store >= 1 && kChunk % store == 0 && (2 * w) % store == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % (store * sizeof(T)) == 0 &&
+                  static_cast<int64_t>(gy) * ty * rows_per_thread >= h &&
+                  static_cast<int64_t>(gz) * tx * kChunk >= 2 * w;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int hi = static_cast<int>(h), wi = static_cast<int>(w);
+  switch (store * static_cast<int>(sizeof(T))) {
+    case 16:
+      return launch_double_vec<T, 16 / sizeof(T)>(x, out, wh, ww, n, hi, wi, tx, ty,
+                                                  rows_per_thread, gy, gz, stream);
+    case 8:
+      return launch_double_vec<T, 8 / sizeof(T)>(x, out, wh, ww, n, hi, wi, tx, ty,
+                                                 rows_per_thread, gy, gz, stream);
+    case 4:  // bf16 pairs; an fp32 row always takes 8 bytes (2w is even)
+      if constexpr (sizeof(T) == 2)
+        return launch_double_vec<T, 2>(x, out, wh, ww, n, hi, wi, tx, ty, rows_per_thread, gy,
+                                       gz, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -144,10 +269,16 @@ extern "C" int resize_half_prelu(const void* x, void* out, int dtype, const void
 }
 
 // x: (n, h, w); out: (n, 2h, 2w); wh: 4*h fp32 weights [ae|be|ao|bo]; ww: 4*w.
+// store, tx, ty, rows_per_thread, gy, gz: the launch plan of
+// ops/resize_cuda.py:double_plan.
 extern "C" int resize_double(const void* x, void* out, int dtype, const void* wh,
-                             const void* ww, int64_t n, int64_t h, int64_t w,
-                             cudaStream_t stream) {
-  if (dtype == kFloat32) return launch_double<float>(x, out, wh, ww, n, h, w, stream);
-  if (dtype == kBFloat16) return launch_double<__nv_bfloat16>(x, out, wh, ww, n, h, w, stream);
+                             const void* ww, int64_t n, int64_t h, int64_t w, int store, int tx,
+                             int ty, int rows_per_thread, int gy, int gz, cudaStream_t stream) {
+  if (dtype == kFloat32)
+    return launch_double<float>(x, out, wh, ww, n, h, w, store, tx, ty, rows_per_thread, gy, gz,
+                                stream);
+  if (dtype == kBFloat16)
+    return launch_double<__nv_bfloat16>(x, out, wh, ww, n, h, w, store, tx, ty, rows_per_thread,
+                                        gy, gz, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

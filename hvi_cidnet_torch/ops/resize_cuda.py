@@ -6,7 +6,8 @@ Counterpart of ``hvi_cidnet_tpu/ops/resize_pallas.py``. The kernels are
 (``ops/resize.py``) use the same float64-derived fp32 band weights, uploaded
 once per (size, device), the same tap order (H pass, then W pass) and fp32
 arithmetic with one rounding to the activation dtype at the end, after
-K3's shared-slope PReLU.
+K3's shared-slope PReLU. K4 launches by a plan computed here
+(``double_plan``: block shape, store width, grid), which the CPU tests walk.
 
 Dispatch is by device only: a CPU tensor takes the plain twin, a CUDA
 tensor the kernel. Backward runs the twin's autograd.
@@ -15,6 +16,7 @@ tensor the kernel. Backward runs the twin's autograd.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,7 +32,8 @@ from hvi_cidnet_torch.ops.resize import axis_weights, scale_double_f32, scale_ha
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 HALF_PRELU = CudaKernel("resize_half_prelu", [_p, _p, _i, _p, _p, _p, _i64, _i64, _i64])
-DOUBLE = CudaKernel("resize_double", [_p, _p, _i, _p, _p, _i64, _i64, _i64])
+DOUBLE = CudaKernel("resize_double",
+                    [_p, _p, _i, _p, _p, _i64, _i64, _i64, _i, _i, _i, _i, _i, _i])
 
 
 # --------------------------------------------------------------------------
@@ -88,16 +91,62 @@ def double_bilinear_plain(x: torch.Tensor) -> torch.Tensor:
     return scale_double_f32(x).to(x.dtype)
 
 
+MAX_GRID_X = 2**31 - 1   # CUDA's limit on gridDim.x
+# K4's block: a warp covers 32 chunks (512 contiguous bytes) of one output
+# row; each thread walks 2 source rows. On the card, narrower warps were
+# slower at every site of the 600 x 400 forward, while the rows per thread
+# and the warps per block mattered little.
+DOUBLE_BLOCK = (32, 4)
+DOUBLE_ROWS = 2
+
+
+class DoublePlan(NamedTuple):
+    """How K4 covers a (planes, 2h, 2w) output (``csrc/resize.cu``).
+
+    Block (tx, ty), a 1-D grid of planes * gy * gz blocks; block b is (p, by,
+    bz) with b = (p * gy + by) * gz + bz. Its thread (tx_i, ty_i) owns output
+    columns [c0, c0 + chunk) with c0 = (bz * tx + tx_i) * chunk, and source
+    rows [j0, j0 + rows_per_thread) with j0 = (by * ty + ty_i) *
+    rows_per_thread, each giving output rows 2j and 2j + 1; parts past the
+    plane are skipped. Stores are ``store`` elements wide.
+    """
+
+    chunk: int            # output columns per thread: 16 bytes
+    store: int            # elements per vector store
+    tx: int
+    ty: int
+    rows_per_thread: int
+    grid: tuple           # (planes, gy, gz); planes * gy * gz blocks
+
+
+def double_plan(planes: int, h: int, w: int, itemsize: int) -> DoublePlan:
+    """K4's launch plan: the widest aligned store the output row allows
+    (2w is even, so a pair always fits) and enough blocks to cover it."""
+    chunk = 16 // itemsize
+    store = chunk
+    while (2 * w) % store:
+        store //= 2
+    tx, ty = DOUBLE_BLOCK
+    chunks = -(-2 * w // chunk)
+    gy, gz = -(-h // (ty * DOUBLE_ROWS)), -(-chunks // tx)
+    if planes * gy * gz > MAX_GRID_X:
+        raise ValueError(f"K4: {planes} planes of {h} x {w} need more than {MAX_GRID_X} blocks")
+    return DoublePlan(chunk, store, tx, ty, DOUBLE_ROWS, (planes, gy, gz))
+
+
 def double_bilinear_kernel(x: torch.Tensor) -> torch.Tensor:
     """Launch K4 on contiguous NCHW ``x`` on the card."""
     check_input(x, "x", 4)
     b, c, h, w = x.shape
+    if h * w >= 2**31:
+        raise ValueError(f"x: K4 takes planes below 2**31 elements, got {h} x {w}")
     out = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    plan = double_plan(b * c, h, w, x.element_size())
     DOUBLE(
         x.device, x.data_ptr(), out.data_ptr(), DTYPE_CODES[x.dtype],
         axis_weights("double", h, x.device).data_ptr(),
         axis_weights("double", w, x.device).data_ptr(),
-        b * c, h, w,
+        b * c, h, w, plan.store, plan.tx, plan.ty, plan.rows_per_thread, *plan.grid[1:],
     )
     return out
 

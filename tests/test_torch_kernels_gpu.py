@@ -6,10 +6,11 @@ machine without jax it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Shapes are small and odd (ragged grid tails, odd extents). Tolerances as in
-``chip_smoke.py``: fp32 1e-6 (K1, K3, K4, K7) and 1e-5 (K2) — kernels and
-twins run the same fp32 ops in the same order, so they are expected to be
-bitwise equal; bf16 one ulp at magnitudes below 2 (2**-7). K5 and K6 sum
+Shapes are small and odd (ragged grid tails, odd extents). K4 and K7 are
+held to bitwise equality (``torch.equal``) in fp32 and bf16: they run the
+twins' fp32 ops in the same order. Tolerances of the others as in
+``chip_smoke.py``: fp32 1e-6 (K1, K3) and 1e-5 (K2), bf16 one ulp at
+magnitudes below 2 (2**-7). K5 and K6 sum
 over space or channels in another order than the twin's cuBLAS GEMM or
 torch reduction: fp32 2e-5 (K5) and 1e-5 (K6); bf16 two ulps relative,
 |err| <= 2**-6 * max(1, |ref|) (a last-bit difference in an fp32 value can
@@ -83,14 +84,42 @@ def test_k3_matches_twin(cuda, dt, shape):
     torch.testing.assert_close(got, rc.half_prelu_plain(x, a), atol=_tol(dt, 1e-6), rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 25, 75), (1, 3, 1, 1), (3, 2, 7, 3)])
+# K4 and K7 are bitwise equal to their twins (torch.equal). Beyond the
+# small odd shapes: each site shape of the 600 x 400 forward at batch 1,
+# widths whose bf16 row pitch is not a multiple of 16 bytes (75, 150, 300,
+# odd), heights and widths off the band and tile sizes, fewer planes than
+# SMs, and a tensor that starts 2-4 bytes past a 16-byte boundary and ends
+# at the end of its allocation ("edge").
+def _edge_tensor(shape, dev, dt, lo, hi, seed):
+    """A contiguous view one element into a fresh buffer whose bytes are a
+    multiple of 512: its end is the end of the caching allocator's block."""
+    n = 1
+    for s in shape:
+        n *= s
+    assert ((n + 1) * torch.tensor([], dtype=dt).element_size()) % 512 == 0
+    buf = torch.empty(n + 1, device=dev, dtype=dt)
+    buf[1:] = _rand((n,), dev, dt, lo, hi, seed)
+    t = buf[1:].view(shape)
+    assert t.data_ptr() % 16 != 0 and t.is_contiguous()
+    return t
+
+
+K4_SHAPES = [(2, 5, 25, 75), (1, 3, 1, 1), (3, 2, 7, 3),
+             (1, 72, 50, 75), (1, 36, 100, 150), (1, 36, 200, 300),
+             (2, 3, 13, 151), (1, 4, 33, 8), "edge"]
+
+
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=str)
 @pytest.mark.parametrize("dt", DTYPES)
 def test_k4_matches_twin(cuda, dt, shape):
-    x = _rand(shape, cuda, dt, -1.0, 1.0, seed=3)
+    if shape == "edge":
+        x = _edge_tensor((1, 1, 7, 73), cuda, dt, -1.0, 1.0, seed=3)
+    else:
+        x = _rand(shape, cuda, dt, -1.0, 1.0, seed=3)
     n = rc.DOUBLE.launches
     got = rc.double_bilinear(x)
     assert rc.DOUBLE.launches == n + 1
-    torch.testing.assert_close(got, rc.double_bilinear_plain(x), atol=_tol(dt, 1e-6), rtol=0)
+    assert torch.equal(got, rc.double_bilinear_plain(x))
 
 
 def test_backward_runs_the_twins_autograd(cuda):
@@ -169,15 +198,24 @@ def test_k6_matches_twin(cuda, dt, shape):
     _close_rel(got, nc.layer_norm_plain(x, wgt, bias), dt, 1e-5)
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 17, 33), (1, 3, 1, 1), (1, 2, 40, 70), (2, 3, 16, 32)])
+K7_SHAPES = [(2, 5, 17, 33), (1, 3, 1, 1), (1, 2, 40, 70), (2, 3, 16, 32),
+             (1, 95, 200, 300), (1, 191, 100, 150), (1, 383, 50, 75),
+             (1, 4, 37, 151), (2, 3, 2, 640), (1, 2, 123, 1), "edge"]
+
+
+@pytest.mark.parametrize("shape", K7_SHAPES, ids=str)
 @pytest.mark.parametrize("dt", DTYPES)
 def test_k7_matches_twin(cuda, dt, shape):
-    y = _rand(shape, cuda, dt, -1.5, 1.5, seed=19)
+    if shape == "edge":
+        shape = (1, 5, 17, 3)
+        y = _edge_tensor(shape, cuda, dt, -1.5, 1.5, seed=19)
+    else:
+        y = _rand(shape, cuda, dt, -1.5, 1.5, seed=19)
     w1, w2 = (_rand((shape[1], 1, 3, 3), cuda, dt, -0.5, 0.5, seed=s) for s in (20, 21))
     n = ic.IEL_BRANCH.launches
     got = ic.iel_branch(y, w1, w2)
     assert ic.IEL_BRANCH.launches == n + 1
-    _close_rel(got, ic.iel_branch_plain(y, w1, w2), dt, 1e-6)
+    assert torch.equal(got, ic.iel_branch_plain(y, w1, w2))
 
 
 def test_lca_kernels_backward_runs_the_twins_autograd(cuda):
