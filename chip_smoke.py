@@ -13,8 +13,11 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    and bf16, at every site shape the 600 x 400 forward gives it (batch 8),
    and prints the error, the kernel's and the twin's times (and, for K4,
    the one PyTorch call that computes the same function); K5 also in its
-   unnormalised and unfolded arms, and twice for identical bits. K4 and K7
-   must be bitwise equal to their twins; they are also timed at batch 1;
+   unnormalised and unfolded arms, and twice for identical bits, on q and
+   k with shared structure; K5 must also be rejected on planted faults
+   (k rows met in the wrong place, a k tile dropped). K4 and K7
+   must be bitwise equal to their twins; K4 and K7 are also timed at
+   batch 1 at level 1, K5 and K6 at levels 1 and 3;
 5. runs the full-width base and MSSA forwards on the card in fp32 (TF32
    off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result;
@@ -46,7 +49,8 @@ H, W = 400, 600          # the serving image (600 x 400 landscape), NHWC (B, H, 
 BATCH = 8                # batch of the kernel comparisons
 K = 0.2                  # density_k at init
 
-# tolerances, kernel vs its plain twin on the same card and inputs. K4 and
+# tolerances, kernel vs its plain twin on the same inputs (on the card, but
+# for K5 in fp32 on the CPU: k5_twin_cpu). K4 and
 # K7 run the twin's fp32 ops in the same order and must be bitwise equal
 # (torch.equal) in fp32 and bf16. K1-K3 do too (one fp32 ulp at most); K5
 # and K6 sum over space or channels in another order than the twin's GEMM
@@ -303,6 +307,60 @@ def lca_sites(ch=(36, 36, 72, 144), heads=(1, 2, 4, 8)):
 SITE_FACTOR = {"K5": 1, "K6": 3, "K7": 2}
 
 
+def k5_inputs(gen, shape, heads, dev, dt, normalised: bool):
+    """q, k and the temperature of a K5 check whose result depends on which
+    q row meets which k row. q = U z + e over space (a rank-4 part common to
+    all rows: row pairs meet at cosines spread over (-1, 1)); k = q + e' (each
+    q row meets its own k row at a cosine near 0.9); temperatures 3-8 (2-4
+    unnormalised, rows of norm 1.5) make the softmax rows peaked, so a k row
+    met in the wrong place moves the output by a large share of |v|."""
+    b, c = shape[:2]
+    n = int(np.prod(shape[2:]))
+    z = torch.randn((b, 4, n), generator=gen)
+    q = torch.randn((c, 4), generator=gen) @ z + 0.5 * torch.randn((b, c, n), generator=gen)
+    k = q + 0.5 * torch.randn((b, c, n), generator=gen)
+    rms = q.square().mean().sqrt()
+    scale = 1.0 / rms if normalised else 1.5 / (rms * n**0.5)
+    lo, hi = (3.0, 8.0) if normalised else (2.0, 4.0)
+    temp = torch.rand((heads, 1, 1), generator=gen) * (hi - lo) + lo
+    return ((q * scale).reshape(shape).to(dev, dt), (k * scale).reshape(shape).to(dev, dt),
+            temp.to(dev))
+
+
+def k5_twin_cpu(q, k, v, temp, heads, normalize_qk, w_proj):
+    """K5's twin run on the CPU on copies of the same inputs: the fp32
+    reference. The card's twin takes its scores from one cuBLAS fp32 GEMM
+    over N; on q and k of shared structure the diagonal sums grow steadily,
+    and a long fp32 accumulation over N = 60000 loses a few 1e-6 relative
+    against float64, which temperatures up to 8 carry into the output
+    (compare_lca logs that gap beside the kernel's error)."""
+    from hvi_cidnet_torch.ops import attention_cuda as ac
+
+    cpu = [t.cpu() for t in (q, k, v, temp)]
+    ref = ac.channel_attention_plain(*cpu, heads, normalize_qk=normalize_qk,
+                                     w_proj=None if w_proj is None else w_proj.cpu())
+    return ref.to(q.device)
+
+
+def k5_planted_faults(k: torch.Tensor, heads: int) -> dict:
+    """Inputs under which a right K5 computes what a wrong one would on the
+    true inputs: k rows permuted within each head, q rows met by another
+    head's k rows, one 8-row k tile of one image dropped, all scores zero.
+    The check must reject the kernel's output on each against the twin's on
+    the true inputs."""
+    b, c = k.shape[:2]
+    cp = c // heads
+    by_head = k.reshape(b, heads, cp, *k.shape[2:])
+    faults = {"k rows permuted within heads": by_head.flip(2).reshape(k.shape).contiguous()}
+    if heads > 1:
+        faults["q met by another head's k"] = by_head.roll(1, 1).reshape(k.shape).contiguous()
+    dropped = k.clone()
+    dropped[0, 8:16] = 0
+    faults["one 8-row k tile dropped"] = dropped
+    faults["scores all zero"] = torch.zeros_like(k)
+    return faults
+
+
 def compare_lca(results: dict, dev) -> None:
     """K5-K7 against their twins at every LCA site shape, fp32 and bf16."""
     from hvi_cidnet_torch.ops import attention_cuda as ac
@@ -341,29 +399,48 @@ def compare_lca(results: dict, dev) -> None:
         for level, c, heads, h, w, n_base, n_mssa in lca_sites():
             site = {"level": level, "base": n_base, "mssa": n_mssa}
             # K5: the forward's arm (q/k normalised, project_out folded), then
-            # the unfolded arm and TNSM's unnormalised arm, whose q and k are
-            # drawn at 1/sqrt(N) so that the softmax is not saturated
-            q, k, v = (rnd((BATCH, c, h, w), -1.0, 1.0, dt) for _ in range(3))
-            temp = rnd((heads, 1, 1), 0.5, 2.0, torch.float32)
+            # the unfolded arm and TNSM's unnormalised arm; q and k share
+            # structure (k5_inputs), and each planted fault must be rejected
+            shape = (BATCH, c, h, w)
+            q, k, temp = k5_inputs(gen, shape, heads, dev, dt, True)
+            qs, ks, temps = k5_inputs(gen, shape, heads, dev, dt, False)
+            v = rnd(shape, -1.0, 1.0, dt)
             wp = rnd((c, c, 1, 1), -c**-0.5, c**-0.5, dt)
-            s = (h * w) ** -0.5
-            qs, ks = (rnd((BATCH, c, h, w), -s, s, dt) for _ in range(2))
-            for arm, qq, kk, norm, fold in (("forward", q, k, True, wp), ("unfolded", q, k, True, None),
-                                            ("unnormalised", qs, ks, False, wp)):
-                run = lambda: ac.channel_attention_kernel(qq, kk, v, temp, heads, normalize_qk=norm,
+            for arm, qq, kk, tt, norm, fold in (
+                    ("forward", q, k, temp, True, wp), ("unfolded", q, k, temp, True, None),
+                    ("unnormalised", qs, ks, temps, False, wp)):
+                run = lambda: ac.channel_attention_kernel(qq, kk, v, tt, heads, normalize_qk=norm,
                                                           w_proj=fold)
-                plain = lambda: ac.channel_attention_plain(qq, kk, v, temp, heads, normalize_qk=norm,
+                plain = lambda: ac.channel_attention_plain(qq, kk, v, tt, heads, normalize_qk=norm,
                                                            w_proj=fold)
-                got = run()
-                err, rel = judge(f"K5 level {level} {arm} {dt}", got, plain(), dt)
+                got, ref = run(), plain()
+                if dt == torch.float32:  # the CPU's twin: see k5_twin_cpu
+                    ref_cpu = k5_twin_cpu(qq, kk, v, tt, heads, norm, fold)
+                    log(f"K5 {arm} level {level} {dt}: kernel vs the card's twin "
+                        f"{max_err(got, ref):.3e}, the card's twin vs the CPU's "
+                        f"{max_err(ref, ref_cpu):.3e}")
+                    ref = ref_cpu
+                err, rel = judge(f"K5 level {level} {arm} {dt}", got, ref, dt)
                 if not torch.equal(got, run()):
                     raise AssertionError(f"K5 level {level} {arm} {dt}: two calls differ in bits")
+                caught = []
+                for fault, bad in k5_planted_faults(kk, heads).items():
+                    wrong = ac.channel_attention_kernel(qq, bad, v, tt, heads, normalize_qk=norm,
+                                                        w_proj=fold)
+                    f_err, f_rel = max_err(wrong, ref), rel_err(wrong, ref)
+                    if (f_err if dt == torch.float32 else f_rel) <= (
+                            TOL_FP32["K5"] if dt == torch.float32 else TOL_BF16_REL):
+                        raise AssertionError(f"K5 level {level} {arm} {dt}: the check passes a "
+                                             f"planted fault ({fault}: rel err {f_rel:.3e})")
+                    caught.append(f"{fault} {f_rel:.3f}")
+                log(f"K5 {arm} level {level} {dt}: planted faults rejected, rel err "
+                    + ", ".join(caught))
                 if arm == "forward":
                     record("K5", dt, site, err, rel, run, plain, q, heads=heads, fold=True)
                 else:
                     log(f"K5 {arm} level {level} {dt}: max_abs_err {err:.3e} (rel {rel:.3e}), "
                         f"bitwise repeatable")
-            del q, k, v, qs, ks
+            del q, k, v, qs, ks, got, ref
 
             x = rnd((BATCH, c, h, w), -2.0, 3.0, dt)
             wgt, bias = rnd((c,), 0.5, 1.5, torch.float32), rnd((c,), -0.5, 0.5, torch.float32)
@@ -384,9 +461,13 @@ def compare_lca(results: dict, dev) -> None:
 
 
 def batch1_info(dev) -> None:
-    """K4 and K7 at the batch-1 level-1 shapes in bf16 (information, beside
-    the batch-8 lines; bitwise equal to their twins here too)."""
+    """K4 and K7 at the batch-1 level-1 shapes, K5 and K6 at the batch-1
+    level-1 and level-3 shapes, in bf16 (information, beside the batch-8
+    lines; K4/K7 bitwise equal to their twins here too, K5/K6 within two
+    ulps relative)."""
+    from hvi_cidnet_torch.ops import attention_cuda as ac
     from hvi_cidnet_torch.ops import iel_cuda as ic
+    from hvi_cidnet_torch.ops import norm_cuda as nc
     from hvi_cidnet_torch.ops import resize_cuda as rc
 
     gen = torch.Generator(device="cpu").manual_seed(5)
@@ -407,6 +488,31 @@ def batch1_info(dev) -> None:
         f"{time_ms(lambda: ic.iel_branch_kernel(y, w1, w2)):.4f} ms  plain "
         f"{time_ms(lambda: ic.iel_branch_plain(y, w1, w2)):.4f} ms  "
         f"bound {bound_ms('K7', y)[0]:.4f} ms")
+    rnd = lambda shape, lo, hi, t: (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, t)
+    for level, c, heads, h, w, _, _ in lca_sites():
+        if level == 2:
+            continue
+        q, k, temp = k5_inputs(gen, (1, c, h, w), heads, dev, dt, True)
+        v = rnd((1, c, h, w), -1.0, 1.0, dt)
+        wp = rnd((c, c, 1, 1), -c**-0.5, c**-0.5, dt)
+        run = lambda: ac.channel_attention_kernel(q, k, v, temp, heads, w_proj=wp)
+        plain = lambda: ac.channel_attention_plain(q, k, v, temp, heads, w_proj=wp)
+        rel = rel_err(run(), plain())
+        if not rel <= TOL_BF16_REL:
+            raise AssertionError(f"K5 batch 1 level {level}: rel err {rel:.3e} > {TOL_BF16_REL:.1e}")
+        log(f"K5 batch-1 level {level} {tuple(q.shape)} {dt}: rel err {rel:.3e}  kernel "
+            f"{time_ms(run):.4f} ms  plain {time_ms(plain):.4f} ms  "
+            f"bound {bound_ms('K5', q, heads=heads)[0]:.4f} ms")
+        x = rnd((1, c, h, w), -2.0, 3.0, dt)
+        wgt, bias = rnd((c,), 0.5, 1.5, torch.float32), rnd((c,), -0.5, 0.5, torch.float32)
+        run = lambda: nc.layer_norm_kernel(x, wgt, bias)
+        plain = lambda: nc.layer_norm_plain(x, wgt, bias)
+        rel = rel_err(run(), plain())
+        if not rel <= TOL_BF16_REL:
+            raise AssertionError(f"K6 batch 1 level {level}: rel err {rel:.3e} > {TOL_BF16_REL:.1e}")
+        log(f"K6 batch-1 level {level} {tuple(x.shape)} {dt}: rel err {rel:.3e}  kernel "
+            f"{time_ms(run):.4f} ms  plain {time_ms(plain):.4f} ms  "
+            f"bound {bound_ms('K6', x)[0]:.4f} ms")
 
 
 def compare_forward(dev, variant: str):

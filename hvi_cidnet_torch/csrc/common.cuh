@@ -1,5 +1,5 @@
 // Shared helpers of the port's CUDA kernels: fp32/bf16 loads and stores,
-// 64-bit grid-stride loops, and the dtype codes of the C interface
+// cp.async copies, 64-bit grid-stride loops, and the dtype codes of the C interface
 // (0 = float32, 1 = bfloat16; see hvi_cidnet_torch/ops/_build.py).
 #pragma once
 
@@ -35,6 +35,20 @@ __device__ __forceinline__ float round_through<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_through<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 16-byte copies from device to shared memory that bypass L1 (cp.async.cg),
+// committed and waited for in groups
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }

@@ -64,18 +64,6 @@ namespace {
 constexpr int kStages = 4;  // ops/iel_cuda.py:STAGES
 constexpr int kMaxIelThreads = 512;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // nine taps at columns [off, off + 3) of three window rows, rows outer and
 // columns inner, from 0
 template <int kOff>

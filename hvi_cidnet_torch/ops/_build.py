@@ -106,6 +106,17 @@ def library() -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
+_GET_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # CUDA builds
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of device ``index`` as a raw handle (PyTorch's own
+    accessor where the build has it, without making a Stream object)."""
+    if _GET_RAW_STREAM is not None:
+        return _GET_RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 class CudaKernel:
     """One C entry point of the library, with its launch count.
 
@@ -121,14 +132,20 @@ class CudaKernel:
         self._fn = None
 
     def __call__(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream, with ``device`` current."""
+        """Launch on ``device``'s current stream, with ``device`` current.
+        The stream is read as a raw handle and the device switched only when
+        it is not current: at batch 1 this host work is most of a call."""
         if self._fn is None:
             fn = getattr(library(), self.name)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        with torch.cuda.device(device):
-            err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if torch.cuda.current_device() == index:
+            err = self._fn(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = self._fn(*args, _raw_stream(index))
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: cudaError {err}")
         self.launches += 1

@@ -15,7 +15,7 @@ over space or channels in another order than the twin's cuBLAS GEMM or
 torch reduction: fp32 2e-5 (K5) and 1e-5 (K6); bf16 two ulps relative,
 |err| <= 2**-6 * max(1, |ref|) (a last-bit difference in an fp32 value can
 flip the bf16 rounding of one intermediate, and a flip moves the output by
-an ulp).
+an ulp). K5's fp32 reference is its twin run on the CPU (``_k5_twin``).
 """
 
 import pytest
@@ -90,15 +90,16 @@ def test_k3_matches_twin(cuda, dt, shape):
 # odd), heights and widths off the band and tile sizes, fewer planes than
 # SMs, and a tensor that starts 2-4 bytes past a 16-byte boundary and ends
 # at the end of its allocation ("edge").
-def _edge_tensor(shape, dev, dt, lo, hi, seed):
+def _edge_tensor(shape, dev, dt, lo, hi, seed, values=None):
     """A contiguous view one element into a fresh buffer whose bytes are a
-    multiple of 512: its end is the end of the caching allocator's block."""
+    multiple of 512: its end is the end of the caching allocator's block.
+    Filled with ``values`` where given, else uniform in [lo, hi)."""
     n = 1
     for s in shape:
         n *= s
     assert ((n + 1) * torch.tensor([], dtype=dt).element_size()) % 512 == 0
     buf = torch.empty(n + 1, device=dev, dtype=dt)
-    buf[1:] = _rand((n,), dev, dt, lo, hi, seed)
+    buf[1:] = _rand((n,), dev, dt, lo, hi, seed) if values is None else values.reshape(-1)
     t = buf[1:].view(shape)
     assert t.data_ptr() % 16 != 0 and t.is_contiguous()
     return t
@@ -149,6 +150,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         hc.rgb_to_hvi(torch.rand((1, 8, 8, 3), device=cuda), torch.full((1,), 0.2), torch.float32)
 
 
+def _k5_twin(q, k, v, temp, heads, **kw):
+    """K5's twin on the same inputs; in fp32 run on the CPU, as in
+    ``chip_smoke.py:k5_twin_cpu``: the card's twin sums N in one fp32 GEMM,
+    whose error on q and k of shared structure approaches K5's tolerance."""
+    if q.dtype != torch.float32:
+        return ac.channel_attention_plain(q, k, v, temp, heads, **kw)
+    wp = kw.pop("w_proj", None)
+    ref = ac.channel_attention_plain(*(t.cpu() for t in (q, k, v, temp)), heads,
+                                     w_proj=None if wp is None else wp.cpu(), **kw)
+    return ref.to(q.device)
+
+
 def _close_rel(got, ref, dt, fp32):
     """fp32: absolute ``fp32``; bf16: two ulps relative (see the module doc)."""
     if dt == torch.float32:
@@ -159,37 +172,143 @@ def _close_rel(got, ref, dt, fp32):
     assert (err <= bound).all(), f"max err {err.max().item():.3e}, worst ratio {(err / bound).max():.2f}"
 
 
+def _qk(shape, heads, dev, dt, normalised, seed):
+    """q, k and the temperature of a K5 check whose result depends on which
+    q row meets which k row (as chip_smoke.py:k5_inputs): q = U z + e over
+    space with a rank-4 part common to all rows, k = q + e', temperatures
+    3-8 (2-4 unnormalised, rows of norm 1.5), so the softmax rows are peaked
+    and a k row met in the wrong place moves the output by a share of |v|."""
+    g = torch.Generator().manual_seed(seed)
+    b, c = shape[:2]
+    n = shape[2] * shape[3]
+    z = torch.randn((b, 4, n), generator=g)
+    q = torch.randn((c, 4), generator=g) @ z + 0.5 * torch.randn((b, c, n), generator=g)
+    k = q + 0.5 * torch.randn((b, c, n), generator=g)
+    rms = q.square().mean().sqrt()
+    scale = 1.0 / rms if normalised else 1.5 / (rms * n**0.5)
+    lo, hi = (3.0, 8.0) if normalised else (2.0, 4.0)
+    temp = torch.rand((heads, 1, 1), generator=g) * (hi - lo) + lo
+    return ((q * scale).reshape(shape).to(dev, dt), (k * scale).reshape(shape).to(dev, dt),
+            temp.to(dev))
+
+
+# K5 beyond the small shapes: each LCA level's C and heads at batch 1 with N
+# = 3750 (a bf16 row 7500 bytes: rows start 4-byte aligned), odd N (7 x 9),
+# C = 36 with cp = 18 and C = 192 with one head (the wrapper's maximum)
 @pytest.mark.parametrize("case", [
     (2, 12, 7, 9, 3, True, True), (2, 12, 7, 9, 1, False, True), (1, 16, 5, 40, 4, True, False),
     (3, 144, 3, 50, 8, True, True), (1, 192, 4, 33, 1, True, True), (2, 36, 1, 1, 2, False, False),
-], ids=["h3", "h1_nonorm", "h4_nofold", "c144", "c192_groups", "n1"])
+    (1, 36, 50, 75, 2, True, True), (1, 72, 50, 75, 4, True, True), (1, 144, 50, 75, 8, True, True),
+    (1, 36, 7, 9, 2, True, True), (2, 36, 7, 9, 2, False, False), (1, 192, 50, 75, 1, True, True),
+    (1, 192, 7, 9, 1, True, False), (1, 144, 7, 9, 8, False, True),
+    (1, 36, 200, 300, 2, True, True), (2, 72, 100, 150, 4, True, True), (1, 192, 8, 16, 1, True, True),
+    (1, 144, 8, 16, 8, False, False),
+], ids=["h3", "h1_nonorm", "h4_nofold", "c144", "c192_groups", "n1", "n3750_c36", "n3750_c72",
+        "n3750_c144", "odd_c36", "odd_c36_nonorm_nofold", "n3750_c192", "odd_c192_nofold",
+        "odd_c144_nonorm", "aligned_l1_b1", "aligned_l2_b2", "aligned_c192", "aligned_c144_nonorm_nofold"])
 @pytest.mark.parametrize("dt", DTYPES)
 def test_k5_matches_twin(cuda, dt, case):
     b, c, h, w, heads, normalize_qk, fold = case
-    scale = 1.0 if normalize_qk else (h * w) ** -0.5  # unnormalised scores stay unsaturated
-    q, k = (_rand((b, c, h, w), cuda, dt, -scale, scale, seed=s) for s in (6, 7))
+    q, k, temp = _qk((b, c, h, w), heads, cuda, dt, normalize_qk, seed=6)
     v = _rand((b, c, h, w), cuda, dt, -1.0, 1.0, seed=8)
-    temp = _rand((heads, 1, 1), cuda, torch.float32, 0.5, 2.0, seed=9)
     wp = _rand((c, c, 1, 1), cuda, dt, -0.3, 0.3, seed=10) if fold else None
     n = ac.ATTENTION.launches
     got = ac.channel_attention(q, k, v, temp, heads, normalize_qk=normalize_qk, w_proj=wp)
     assert ac.ATTENTION.launches == n + 1
-    ref = ac.channel_attention_plain(q, k, v, temp, heads, normalize_qk=normalize_qk, w_proj=wp)
+    ref = _k5_twin(q, k, v, temp, heads, normalize_qk=normalize_qk, w_proj=wp)
     _close_rel(got, ref, dt, 2e-5)
 
 
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k5_takes_a_tensor_off_16_byte_alignment(cuda, dt):
+    """q, k, v 2 bytes past a 16-byte boundary (bf16; 4 bytes in fp32) and
+    ending at their allocations' ends, N odd: the ragged first and last
+    chunks are copied element by element."""
+    shape = (1, 45, 7, 13)  # 4095 elements
+    q0, k0, temp = _qk(shape, 3, cuda, dt, True, seed=40)
+    q, k = (_edge_tensor(shape, cuda, dt, 0, 0, 0, values=t) for t in (q0, k0))
+    v = _edge_tensor(shape, cuda, dt, -1.0, 1.0, seed=42)
+    wp = _rand((45, 45, 1, 1), cuda, dt, -0.3, 0.3, seed=44)
+    got = ac.channel_attention(q, k, v, temp, 3, w_proj=wp)
+    _close_rel(got, _k5_twin(q, k, v, temp, 3, w_proj=wp), dt, 2e-5)
+
+
+# each LCA level's C and heads (batch 2, N = 3750 and odd), in every arm
+@pytest.mark.parametrize("arm", ["forward", "unfolded", "unnormalised"])
+@pytest.mark.parametrize("level", [(36, 2, 50, 75), (72, 4, 50, 75), (144, 8, 50, 75), (144, 8, 7, 9),
+                                   (36, 2, 100, 150), (72, 4, 50, 80)],
+                         ids=["l1", "l2", "l3", "l3_odd", "l1_aligned", "l2_aligned"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k5_is_bitwise_repeatable_at_every_level_and_arm(cuda, dt, level, arm):
+    c, heads, h, w = level
+    q, k, temp = _qk((2, c, h, w), heads, cuda, dt, arm != "unnormalised", seed=45)
+    v = _rand((2, c, h, w), cuda, dt, -1.0, 1.0, seed=47)
+    wp = None if arm == "unfolded" else _rand((c, c, 1, 1), cuda, dt, -c**-0.5, c**-0.5, seed=49)
+    run = lambda: ac.channel_attention(q, k, v, temp, heads, normalize_qk=arm != "unnormalised",
+                                       w_proj=wp)
+    a = run()
+    assert torch.equal(a, run())
+    ref = _k5_twin(q, k, v, temp, heads, normalize_qk=arm != "unnormalised", w_proj=wp)
+    _close_rel(a, ref, dt, 2e-5)
+
+
 def test_k5_is_bitwise_repeatable(cuda):
-    q, k, v = (_rand((2, 72, 30, 41), cuda, torch.bfloat16, -1.0, 1.0, seed=s) for s in (11, 12, 13))
-    temp = _rand((4, 1, 1), cuda, torch.float32, 0.5, 2.0, seed=14)
+    q, k, temp = _qk((2, 72, 30, 41), 4, cuda, torch.bfloat16, True, seed=11)
+    v = _rand((2, 72, 30, 41), cuda, torch.bfloat16, -1.0, 1.0, seed=13)
     wp = _rand((72, 72, 1, 1), cuda, torch.bfloat16, -0.3, 0.3, seed=15)
     a = ac.channel_attention(q, k, v, temp, 4, w_proj=wp)
     assert torch.equal(a, ac.channel_attention(q, k, v, temp, 4, w_proj=wp))
 
 
-@pytest.mark.parametrize("shape", [(2, 36, 7, 9), (1, 144, 3, 130), (3, 5, 1, 1), (1, 256, 2, 3)])
+def _over_tolerance(got, ref, dt, fp32):
+    if dt == torch.float32:
+        return (got - ref).abs().max().item() > fp32
+    err = (got.float() - ref.float()).abs()
+    return bool((err > 2.0**-6 * ref.float().abs().clamp_min(1.0)).any())
+
+
+# The checks above must tell a right K5 from a wrong one: the kernel run on
+# inputs under which it computes what a faulty kernel would on the true ones
+# (k rows permuted within a head, q rows met by another head's k rows, one
+# 8-row k tile of an image dropped, a 32-column step of the contraction
+# dropped where N is small) is rejected against the twin on the true inputs.
+@pytest.mark.parametrize("arm", ["forward", "unnormalised"])
+@pytest.mark.parametrize("level", [(36, 2, 50, 75), (72, 4, 100, 150), (144, 8, 50, 75), (36, 2, 7, 9)],
+                         ids=["l1", "l2_aligned", "l3", "odd"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k5_checks_reject_planted_faults(cuda, dt, level, arm):
+    c, heads, h, w = level
+    q, k, temp = _qk((2, c, h, w), heads, cuda, dt, arm == "forward", seed=50)
+    v = _rand((2, c, h, w), cuda, dt, -1.0, 1.0, seed=51)
+    wp = _rand((c, c, 1, 1), cuda, dt, -c**-0.5, c**-0.5, seed=52)
+    kw = dict(normalize_qk=arm == "forward", w_proj=wp)
+    ref = _k5_twin(q, k, v, temp, heads, **kw)
+    _close_rel(ac.channel_attention(q, k, v, temp, heads, **kw), ref, dt, 2e-5)
+    by_head = k.reshape(2, heads, c // heads, h, w)
+    faults = [by_head.flip(2).reshape(k.shape), by_head.roll(1, 1).reshape(k.shape), k.clone()]
+    faults[2][0, 8:16] = 0
+    if h * w < 128:
+        faults.append(k.clone().reshape(2, c, -1))
+        faults[3][0, :, :32] = 0
+    for bad in faults:
+        got = ac.channel_attention(q, bad.reshape(k.shape).contiguous(), v, temp, heads, **kw)
+        assert _over_tolerance(got, ref, dt, 2e-5)
+
+
+# the sites' C at batch 1 with N = 60000, 15000, 3750 (16-, 16- and 4-byte
+# bf16 plane pitches), odd N, C = 256 (the wrapper's maximum), and a tensor
+# 2 bytes past a 16-byte boundary ("edge": 2-byte loads)
+@pytest.mark.parametrize("shape", [
+    (2, 36, 7, 9), (1, 144, 3, 130), (3, 5, 1, 1), (1, 256, 2, 3), (1, 36, 200, 300),
+    (1, 72, 100, 150), (1, 144, 50, 75), (8, 144, 50, 75), (1, 256, 50, 75), (1, 192, 7, 9), "edge",
+], ids=str)
 @pytest.mark.parametrize("dt", DTYPES)
 def test_k6_matches_twin(cuda, dt, shape):
-    x = _rand(shape, cuda, dt, -2.0, 3.0, seed=16)
+    if shape == "edge":
+        shape = (1, 45, 7, 13)
+        x = _edge_tensor(shape, cuda, dt, -2.0, 3.0, seed=16)
+    else:
+        x = _rand(shape, cuda, dt, -2.0, 3.0, seed=16)
     wgt = _rand((shape[1],), cuda, torch.float32, 0.5, 1.5, seed=17)
     bias = _rand((shape[1],), cuda, torch.float32, -0.5, 0.5, seed=18)
     n = nc.LAYER_NORM.launches

@@ -1,12 +1,16 @@
-"""The host-side launch plans of K4 (``ops/resize_cuda.py:double_plan``) and
-K7 (``ops/iel_cuda.py:iel_plan``), checked on the CPU.
+"""The host-side launch plans of K4 (``ops/resize_cuda.py:double_plan``), K5
+(``ops/attention_cuda.py:attention_plan``), K6 (``ops/norm_cuda.py:
+layer_norm_plan``) and K7 (``ops/iel_cuda.py:iel_plan``), checked on the CPU.
 
 Each test walks the plan the way the kernel walks it (the mapping that
-``DoublePlan`` and ``IelPlan`` document, as ``csrc/resize.cu`` and
-``csrc/iel.cu`` implement it) and checks that every output row and column
-is written exactly once, that the shared memory fits, that the batch-1
-level-1 K7 site fills the card, and that no grid dimension overflows.
+``DoublePlan``, ``AttentionPlan``, ``LayerNormPlan`` and ``IelPlan``
+document, as the ``csrc/*.cu`` kernels implement it) and checks that every
+output (and, for K5, every column of the contraction and every entry of the
+score matrix) is covered exactly once, that the shared memory fits, that the
+batch-1 sites fill the card, and that no grid dimension overflows.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -147,3 +151,207 @@ def test_k7_plan_grid_stays_in_limits():
         ic.iel_plan(2**31, 64, 8, 2)
     with pytest.raises(ValueError, match="shared memory"):
         ic.iel_plan(1, 4, 20_000, 4)
+
+
+# ---------------------------------------------------------------------------
+# K5 (ops/attention_cuda.py:attention_plan) and K6 (ops/norm_cuda.py:
+# layer_norm_plan)
+# ---------------------------------------------------------------------------
+
+from hvi_cidnet_torch.ops import attention_cuda as ac  # noqa: E402
+from hvi_cidnet_torch.ops import norm_cuda as nc  # noqa: E402
+
+# (C, heads, H, W): the LCA levels at 600 x 400 (cp = 18 at each), the same
+# C at odd N, C = 192 (the wrapper's maximum) with one and with 8 heads
+K5_SITES = [(36, 2, 200, 300), (72, 4, 100, 150), (144, 8, 50, 75), (36, 2, 7, 9),
+            (144, 8, 7, 9), (192, 1, 50, 75), (192, 8, 7, 9), (12, 3, 1, 1), (36, 1, 3, 37)]
+
+
+def _k5_columns(splits, chunk, tile, n):
+    """Times each column of one image is visited: block s walks [s * chunk,
+    min(n, (s + 1) * chunk)) in steps of ``tile``."""
+    seen = np.zeros(n, np.int64)
+    for s in range(splits):
+        end = min(n, (s + 1) * chunk)
+        assert s * chunk < end  # no empty slice
+        for n0 in range(s * chunk, end, tile):
+            seen[n0:min(end, n0 + tile)] += 1
+    return seen
+
+
+def _k5_entries(plan, c, cp):
+    """Times each (row, column) of the score matrix is written by the bf16
+    scores pass: block group z, warp j, item slot i take item z * w * ipw +
+    j + i * w; an item's tiles cover rows 16 m .. 16 m + 15 and columns 8 t ..
+    8 t + 7, of which the block-diagonal entries below C are written."""
+    items = ac.score_items(c, cp)
+    warps = plan.score_threads // 32
+    per_block = warps * plan.items_per_warp
+    written = np.zeros((c, c), np.int64)
+    for z in range(plan.score_groups):
+        for j in range(warps):
+            for i in range(plan.items_per_warp):
+                idx = z * per_block + j + i * warps
+                if j + i * warps >= per_block or idx >= len(items):
+                    continue
+                m, t0, t1 = items[idx]
+                for t in range(t0, t1):
+                    for r in range(16 * m, min(c, 16 * m + 16)):
+                        for col in range(8 * t, min(c, 8 * t + 8)):
+                            if col // cp == r // cp:
+                                written[r, col] += 1
+    return written
+
+
+def _k5_apply_outputs(plan, c):
+    """Times each (row, column) of one bf16 apply tile is written: warp (m,
+    j) writes row tiles [m * mt, (m + 1) * mt) below C16 / 16 and columns
+    [32 j, 32 j + 32) (four 8-column tiles, two columns a lane)."""
+    c16 = ac.round16(c)
+    wn = plan.apply_tile // (8 * ac.APPLY_NT)
+    assert plan.apply_threads % (32 * wn) == 0
+    written = np.zeros((c16, plan.apply_tile), np.int64)
+    for warp in range(plan.apply_threads // 32):
+        m, j = divmod(warp, wn)
+        for mi in range(m * plan.apply_mt, min(c16 // 16, (m + 1) * plan.apply_mt)):
+            written[16 * mi:16 * mi + 16, 32 * j:32 * j + 32] += 1
+    return written[:c]
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", K5_SITES, ids=str)
+@pytest.mark.parametrize("direct", [False, True])
+def test_k5_plan_covers_each_column_and_entry_once(site, b, itemsize, direct):
+    c, heads, h, w = site
+    n, cp = h * w, c // heads
+    p = ac.attention_plan(b, c, heads, n, itemsize, direct)
+    assert p.direct == int(direct and itemsize == 2 and n % 8 == 0)
+    assert (_k5_columns(p.splits, p.chunk, p.score_tile, n) == 1).all()
+    assert (_k5_columns(p.apply_splits, p.apply_chunk, p.apply_tile, n) == 1).all()
+    assert p.part_stride == c * cp + 2 * c
+    assert p.a_offset % 256 == 0 and p.a_offset >= 4 * b * p.splits * p.part_stride
+    a_bytes = 4 * c * c if itemsize == 4 else 2 * ac.round16(c) * (ac.round16(c) + 8)
+    assert p.scratch_bytes == p.a_offset + b * a_bytes
+    if itemsize == 2:
+        assert p.chunk % 8 == 0 and p.apply_chunk % 8 == 0  # 16-byte chunks per row
+        want = np.equal.outer(np.arange(c) // cp, np.arange(c) // cp).astype(np.int64)
+        assert (_k5_entries(p, c, cp) == want).all()
+        # no block group without an item
+        assert (p.score_groups - 1) * (p.score_threads // 32) * p.items_per_warp < len(
+            ac.score_items(c, cp))
+        assert (_k5_apply_outputs(p, c) == 1).all()
+        assert p.score_smem == ac.scores_smem(c, p.score_tile, p.direct)
+        assert p.apply_smem == ac.apply_smem(c, p.apply_tile)
+        # every norm item has a slot: 2 C16 / 16 <= kNormSlots x warps
+        assert 2 * ac.round16(c) // 16 <= ac.NORM_SLOTS * p.score_threads // 32
+    else:
+        assert p.score_tile == ac.F32_SCORE_TILE and p.apply_tile == ac.F32_APPLY_TILE
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("c,heads", [(36, 2), (72, 4), (144, 8), (192, 1), (192, 8), (192, 192),
+                                     (180, 10), (1, 1)])
+def test_k5_plan_fits_shared_memory_and_the_grid(c, heads, itemsize):
+    for (b, n), direct in itertools.product(
+            [(1, 1), (1, 3750), (8, 60000), (128, 60000), (65535, 9)], [False, True]):
+        p = ac.attention_plan(b, c, heads, n, itemsize, direct)
+        for smem in (p.score_smem, p.apply_smem, p.rows_smem):
+            assert smem <= ac.SMEM_LIMIT
+        assert p.splits <= ac.MAX_GRID_X and p.apply_splits <= ac.MAX_GRID_X
+        assert p.score_groups <= ac.MAX_GRID_YZ and heads <= ac.MAX_GRID_YZ
+        assert 32 <= p.score_threads <= ac.MAX_THREADS and p.score_threads % 32 == 0
+        assert 32 <= p.apply_threads <= ac.MAX_THREADS and p.apply_threads % 32 == 0
+    if itemsize == 2 and c <= 72:  # two scores blocks share an SM, aligned or not
+        assert 2 * (ac.scores_smem(c, 32, False) + ac.SMEM_PER_BLOCK) <= ac.SMEM_SM
+    with pytest.raises(ValueError, match="grid"):
+        ac.attention_plan(65536, c, heads, 9, itemsize)
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("site", K5_SITES[:3], ids=str)
+def test_k5_plan_fills_the_card_at_batch_1(site, itemsize):
+    c, heads, h, w = site
+    n = h * w
+    # as the forward runs it: fresh (aligned) tensors, direct where n % 8 == 0
+    p = ac.attention_plan(1, c, heads, n, itemsize, n % 8 == 0)
+    # as many blocks as there are SMs, or one for every 32 columns
+    assert p.splits * p.score_groups >= min(ac.SMS, -(-n // 32))
+    if itemsize == 2:
+        assert p.apply_splits >= min(ac.SMS, -(-n // 32))
+        # realigned (one 512-thread block an SM): one wave over 3/4 of the SMs
+        p = ac.attention_plan(1, c, heads, n, itemsize, False)
+        assert 3 * ac.SMS // 4 <= p.splits * p.score_groups <= ac.SMS
+    # batch 8: one wave of long-lived scores blocks over at least 3/4 of the
+    # SMs (whole tiles per image set the granularity)
+    p8 = ac.attention_plan(8, c, heads, n, itemsize, n % 8 == 0)
+    if itemsize == 2:
+        per_sm = ac._blocks_per_sm(p8.score_smem, p8.score_threads)
+        assert 3 * ac.SMS // 4 <= 8 * p8.splits * p8.score_groups <= ac.SMS * per_sm
+
+
+def test_k5_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="C <= 192"):
+        ac.attention_plan(1, 200, 1, 64, 2)
+    with pytest.raises(ValueError, match="divisible"):
+        ac.attention_plan(1, 36, 5, 64, 2)
+
+
+# (b, C, H, W) of the LayerNorm sites at 600 x 400, odd N, C = 256
+K6_SITES = [(36, 200, 300), (72, 100, 150), (144, 50, 75), (36, 7, 9), (144, 7, 9), (256, 50, 75),
+            (256, 1, 1), (5, 1, 1), (192, 3, 130)]
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", K6_SITES, ids=str)
+def test_k6_plan_covers_each_pixel_and_channel_once(site, b, itemsize):
+    c, h, w = site
+    hw = h * w
+    p = nc.layer_norm_plan(b, c, hw, itemsize)
+    pixels = p.lanes * p.vec
+    assert hw % p.vec == 0 and p.tiles == -(-hw // pixels) and p.blocks == b * p.tiles
+    seen = np.zeros(hw, np.int64)
+    for t in range(p.tiles):
+        for lane in range(p.lanes):
+            p0 = t * pixels + lane * p.vec
+            if p0 < hw:
+                seen[p0:p0 + p.vec] += 1
+    assert (seen == 1).all()
+    chans = np.zeros(c, np.int64)
+    for g in range(p.groups):
+        for i in range(p.channels_per_thread):
+            if g + i * p.groups < c:
+                chans[g + i * p.groups] += 1
+    assert (chans == 1).all()
+    assert p.threads == p.lanes * p.groups and p.threads % 32 == 0 and p.threads <= nc.MAX_THREADS
+    assert p.channels_per_thread in nc.CHANNELS_PER_THREAD
+    assert p.smem_bytes == (2 * p.groups * pixels + 2 * pixels) * 4 <= ac.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("itemsize,hw,address,vec", [
+    (2, 60000, 0, 4), (2, 15000, 0, 4), (2, 3750, 0, 2), (4, 3750, 0, 2), (4, 15000, 0, 2),
+    (2, 63, 0, 1), (2, 60000, 2, 1), (2, 60000, 4, 2), (4, 60000, 8, 2), (2, 60000, 0, 4),
+])
+def test_k6_plan_takes_the_widest_load_the_pitch_and_base_allow(itemsize, hw, address, vec):
+    p = nc.layer_norm_plan(8, 36, hw, itemsize, address)
+    assert p.vec == vec
+    assert p.vec * itemsize <= nc.LOAD_BYTES and address % (p.vec * itemsize) == 0
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("site", K6_SITES[:3], ids=str)
+def test_k6_plan_fills_the_card_at_batch_1(site, itemsize):
+    c, h, w = site
+    p = nc.layer_norm_plan(1, c, h * w, itemsize)
+    assert p.blocks >= nc.SMS
+    # a warp reads at least one 32-byte sector of each channel row
+    assert p.lanes * p.vec * itemsize >= nc.MIN_ROW_BYTES
+
+
+def test_k6_plan_grid_stays_in_limits():
+    assert nc.layer_norm_plan(128, 36, 400 * 600, 2).blocks <= nc.MAX_GRID_X
+    with pytest.raises(ValueError, match="grid"):
+        nc.layer_norm_plan(2**20, 8, 2**22, 4)
+    with pytest.raises(ValueError, match="C must be"):
+        nc.layer_norm_plan(1, 257, 64, 2)

@@ -143,11 +143,16 @@ def test_k7_zero_padding_rule_is_what_the_twin_computes():
 
 @pytest.mark.parametrize("shape", [(3, 12, 7, 5), (1, 8, 1, 33)])
 def test_split_plan_covers_space_without_empty_splits(shape):
+    """K5's launch plan (``attention_plan``, which replaced ``split_plan``):
+    the scores and apply slices cover N in whole tiles, none empty."""
     b, c, h, w = shape
     for heads in (1, 2, 4):
-        splits, chunk = attention_cuda.split_plan(b, c, heads, h * w)
-        assert chunk % attention_cuda.SCORE_TILE == 0 and splits >= 1
-        assert (splits - 1) * chunk < h * w <= splits * chunk
+        for itemsize in (4, 2):
+            p = attention_cuda.attention_plan(b, c, heads, h * w, itemsize)
+            assert p.chunk % p.score_tile == 0 and p.splits >= 1
+            assert (p.splits - 1) * p.chunk < h * w <= p.splits * p.chunk
+            assert p.apply_chunk % p.apply_tile == 0 and p.apply_splits >= 1
+            assert (p.apply_splits - 1) * p.apply_chunk < h * w <= p.apply_splits * p.apply_chunk
 
 
 # ---------------------------------------------------------------------------
