@@ -15,9 +15,10 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    the one PyTorch call that computes the same function); K5 also in its
    unnormalised and unfolded arms, and twice for identical bits, on q and
    k with shared structure; K5 must also be rejected on planted faults
-   (k rows met in the wrong place, a k tile dropped). K4 and K7
+   (k rows met in the wrong place, a k tile dropped). K3, K4 and K7
    must be bitwise equal to their twins; K4 and K7 are also timed at
-   batch 1 at level 1, K5 and K6 at levels 1 and 3;
+   batch 1 at level 1, K5 and K6 at levels 1 and 3, K3 at block1 and
+   block3 and K2 at 1 x 3 x 400 x 600;
 5. runs the full-width base and MSSA forwards on the card in fp32 (TF32
    off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result;
@@ -50,13 +51,14 @@ BATCH = 8                # batch of the kernel comparisons
 K = 0.2                  # density_k at init
 
 # tolerances, kernel vs its plain twin on the same inputs (on the card, but
-# for K5 in fp32 on the CPU: k5_twin_cpu). K4 and
+# for K5 in fp32 on the CPU: k5_twin_cpu). K3, K4 and
 # K7 run the twin's fp32 ops in the same order and must be bitwise equal
-# (torch.equal) in fp32 and bf16. K1-K3 do too (one fp32 ulp at most); K5
+# (torch.equal) in fp32 and bf16. K1 and K2 run the twin's ops but not all
+# of its library calls' bits (one fp32 ulp at most); K5
 # and K6 sum over space or channels in another order than the twin's GEMM
 # or reduction, so fp32 gets a few ulps of the sum.
-BITWISE = ("K4", "K7")
-TOL_FP32 = {"K1": 1e-6, "K2": 1e-5, "K3": 1e-6, "K5": 2e-5, "K6": 1e-5}
+BITWISE = ("K3", "K4", "K7")
+TOL_FP32 = {"K1": 1e-6, "K2": 1e-5, "K5": 2e-5, "K6": 1e-5}
 TOL_BF16 = 2.0**-7       # one bf16 ulp at magnitudes in [1, 2): both round once from fp32
 # K5-K7 in bf16: a last-bit fp32 difference can flip the bf16 rounding of
 # one intermediate (A, the LN scale/shift, t1), which moves the output by an
@@ -462,16 +464,41 @@ def compare_lca(results: dict, dev) -> None:
 
 def batch1_info(dev) -> None:
     """K4 and K7 at the batch-1 level-1 shapes, K5 and K6 at the batch-1
-    level-1 and level-3 shapes, in bf16 (information, beside the batch-8
-    lines; K4/K7 bitwise equal to their twins here too, K5/K6 within two
-    ulps relative)."""
+    level-1 and level-3 shapes, K3 at block1 and block3 and K2 at 1 x 3 x
+    400 x 600, in bf16 (information, beside the batch-8 lines; K3/K4/K7
+    bitwise equal to their twins here too, K5/K6 within two ulps relative,
+    K2 within one bf16 ulp)."""
     from hvi_cidnet_torch.ops import attention_cuda as ac
+    from hvi_cidnet_torch.ops import hvi_cuda as hc
     from hvi_cidnet_torch.ops import iel_cuda as ic
     from hvi_cidnet_torch.ops import norm_cuda as nc
     from hvi_cidnet_torch.ops import resize_cuda as rc
 
     gen = torch.Generator(device="cpu").manual_seed(5)
     dt = torch.bfloat16
+    alpha = torch.full((1,), 0.25, device=dev)
+    down, _ = resize_sites()
+    for site, c, h, w in down:
+        if site not in ("HVE_block1", "HVE_block3"):
+            continue
+        x = (torch.rand((1, c, h, w), generator=gen) * 2 - 1).to(dev, dt)
+        check_equal(f"K3 batch 1 {site}", rc.half_prelu_kernel(x, alpha), rc.half_prelu_plain(x, alpha))
+        log(f"K3 batch-1 {site} {tuple(x.shape)} {dt}: kernel "
+            f"{time_ms(lambda: rc.half_prelu_kernel(x, alpha)):.4f} ms  plain "
+            f"{time_ms(lambda: rc.half_prelu_plain(x, alpha)):.4f} ms  "
+            f"bound {bound_ms('K3', x)[0]:.4f} ms")
+    k = torch.full((1,), K, device=dev)
+    img = torch.rand((1, H, W, 3), generator=gen).to(dev)
+    hvi = hc.rgb_to_hvi_plain(img, k, torch.float32)
+    hvi = (hvi + 0.05 * torch.randn(hvi.shape, generator=gen).to(dev)).to(dt).contiguous()
+    edge = hue_edge(hvi, K)
+    diff = (hc.hvi_to_rgb_kernel(hvi, k).float() - hc.hvi_to_rgb_plain(hvi, k).float()).abs()
+    err = diff.amax(-1)[~edge].max().item()
+    check("K2 batch 1", err, TOL_BF16)
+    log(f"K2 batch-1 {tuple(hvi.shape)} {dt}: max_abs_err {err:.3e}  kernel "
+        f"{time_ms(lambda: hc.hvi_to_rgb_kernel(hvi, k)):.4f} ms  plain "
+        f"{time_ms(lambda: hc.hvi_to_rgb_plain(hvi, k)):.4f} ms  "
+        f"bound {bound_ms('K2', hvi)[0]:.4f} ms")
     c1, hid = 36, int(36 * 2.66)
     x = (torch.rand((1, c1, H // 2, W // 2), generator=gen) * 2 - 1).to(dev, dt)
     check_equal("K4 batch 1 level 1", rc.double_bilinear_kernel(x), rc.double_bilinear_plain(x))

@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels: fp32/bf16 loads and stores,
-// cp.async copies, 64-bit grid-stride loops, and the dtype codes of the C interface
-// (0 = float32, 1 = bfloat16; see hvi_cidnet_torch/ops/_build.py).
+// vector loads and stores of 2 to 16 bytes, cp.async copies, 64-bit
+// grid-stride loops, and the dtype codes of the C interface (0 = float32,
+// 1 = bfloat16; see hvi_cidnet_torch/ops/_build.py).
 #pragma once
 
 #include <cstdint>
@@ -35,6 +36,32 @@ __device__ __forceinline__ float round_through<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_through<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the unsigned type of kBytes (2, 4, 8 or 16): one vector access
+template <int kBytes>
+struct VecBytes;
+template <>
+struct VecBytes<2> { using type = unsigned short; };
+template <>
+struct VecBytes<4> { using type = unsigned int; };
+template <>
+struct VecBytes<8> { using type = uint2; };
+template <>
+struct VecBytes<16> { using type = uint4; };
+
+// kBytes of vals to dst (aligned to kBytes) in one store
+template <int kBytes>
+__device__ __forceinline__ void store_vec(void* dst, const void* vals) {
+  using V = typename VecBytes<kBytes>::type;
+  *static_cast<V*>(dst) = *static_cast<const V*>(vals);
+}
+
+// kBytes of src (aligned to kBytes) to vals in one load
+template <int kBytes>
+__device__ __forceinline__ void load_vec(void* vals, const void* src) {
+  using V = typename VecBytes<kBytes>::type;
+  *static_cast<V*>(vals) = *static_cast<const V*>(src);
 }
 
 // 16-byte copies from device to shared memory that bypass L1 (cp.async.cg),

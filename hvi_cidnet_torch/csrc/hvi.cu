@@ -1,4 +1,4 @@
-// K1 and K2: the HVI colour transform, fused, one thread per pixel.
+// K1 and K2: the HVI colour transform, fused.
 //
 // Replaces the Pallas kernels of hvi_cidnet_tpu/ops/hvi_pallas.py:
 //   K1 _hvit_kernel  (:57, launched by _run :174; on the default path through
@@ -13,12 +13,23 @@
 // NCHW HVI (B, 3, H, W); K2 reads NCHW HVI and writes NHWC RGB. The layout
 // change at the model's boundary is absorbed into the kernels' indexing.
 //
-// Bound: memory bandwidth. Per pixel K1 moves 3 loads + 3 stores (24 bytes
-// in fp32, 12 in bf16) for ~60 flops of transcendental work (sinf, cosf x2,
-// powf); K2 the same bytes with atan2f, sqrtf, powf, sinf. At the H100's
-// 3.35 TB/s an (8, 400, 600) fp32 batch is ~11 us of traffic. Loads and
-// stores of neighbouring threads are neighbouring addresses (the NHWC side
-// touches 3 consecutive elements per thread).
+// K1: one thread per pixel in a 64-bit grid-stride loop. Per pixel it
+// moves 3 loads + 3 stores (24 bytes in fp32, 12 in bf16) for ~60 flops of
+// transcendental work (sinf, cosf x2, powf).
+//
+// K2 moves the same bytes (an (8, 400, 600) bf16 batch is 6.9 us of
+// traffic at 3.35 TB/s) but is bound by its math: with precise powf, sinf,
+// atan2f, sqrtf and two IEEE divisions a pixel is ~264 SASS instructions
+// on the fast path, ~15 us for that batch at one instruction per clock per
+// scheduler. The first design (one thread per pixel) also paid a 64-bit
+// division, three strided plane loads and three 2-byte stores at a 6-byte
+// stride per pixel (~312 instructions); on the card, with the math
+// replaced by a copy it ran at 11 us, with the math and one coalesced
+// output at 30 us, as a whole at 30 us (PERF.md). The design below: a 2-D
+// grid with no division per pixel, vector loads of the three planes and
+// 16-byte stores of whole NHWC lines, both staged through shared memory,
+// the per-pixel loop not unrolled (its code stays small), and three exact
+// rewrites of the math (hvi_to_rgb_pixel).
 //
 // Traps kept as the twin has them:
 // * mod is floored in both mod(., 6) (K1) and mod(., 1) (K2), as jnp.mod and
@@ -39,6 +50,7 @@ namespace {
 constexpr float kEps = 1e-8f;
 constexpr float kHalfPi = static_cast<float>(0.5 * 3.141592653589793);
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
+constexpr float kInvTwoPi = 1.0f / kTwoPi;  // rounded once, as PyTorch's 1 / scalar
 
 __device__ __forceinline__ float floored_mod(float a, float b) {
   float m = fmodf(a, b);
@@ -86,53 +98,119 @@ __global__ void rgb_to_hvi_kernel(const In* __restrict__ img, Out* __restrict__ 
   }
 }
 
-template <typename T>
-__global__ void hvi_to_rgb_kernel(const T* __restrict__ hvi, T* __restrict__ out,
-                                  const float* __restrict__ k_ptr, int64_t n_pix, int64_t hw,
-                                  int gated, int gated2, float alpha, float alpha_s) {
-  const float k = *k_ptr;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; p < n_pix;
-       p += stride) {
-    const int64_t bi = p / hw;
-    const T* x = hvi + bi * 3 * hw + (p - bi * hw);
-    float h_c = clampf(load_f32(x, 0), -1.0f, 1.0f);
-    float v_c = clampf(load_f32(x, hw), -1.0f, 1.0f);
-    const float i_c = clampf(load_f32(x, 2 * hw), 0.0f, 1.0f);
+// K2 per pixel: the twin's ops in its order, with three rewrites that
+// drop instructions (the math, not the bytes, binds K2; PERF.md):
+// * the hue's "/ (2 pi)" is a multiply by the fp32 reciprocal of 2 pi:
+//   PyTorch's CUDA division by a Python scalar, which the twin's is, does
+//   exactly that (on the CPU it divides; the two differ by an ulp at most);
+// * floored mod(x, 1) is x - floorf(x): exact for |x| < 1, and |x| <= 0.5
+//   here (|atan2f| <= fp32 pi, over fp32 2 pi). For x >= 0 both give x; for
+//   x < 0 fmodf gives x and the mod adds 1 with one rounding, as x - (-1)
+//   does; -0 gives +0 against -0, and both land in sector 0 alike;
+// * the sector select is three select chains, no branches.
+// Precise sinf, powf, atan2f, sqrtf and the two IEEE divisions stay: the
+// twin's functions (torch.sin, torch.pow, torch.atan2, torch.sqrt).
+__device__ __forceinline__ void hvi_to_rgb_pixel(float hh, float vv, float ii, float k, int gated,
+                                                 int gated2, float alpha, float alpha_s,
+                                                 float& r, float& g, float& b) {
+  float h_c = clampf(hh, -1.0f, 1.0f);
+  float v_c = clampf(vv, -1.0f, 1.0f);
+  const float i_c = clampf(ii, 0.0f, 1.0f);
 
-    const float cs = powf(sinf(i_c * kHalfPi) + kEps, k);
-    h_c = clampf(h_c / (cs + kEps), -1.0f, 1.0f);
-    v_c = clampf(v_c / (cs + kEps), -1.0f, 1.0f);
+  const float cs = powf(sinf(i_c * kHalfPi) + kEps, k);
+  h_c = clampf(h_c / (cs + kEps), -1.0f, 1.0f);
+  v_c = clampf(v_c / (cs + kEps), -1.0f, 1.0f);
 
-    const float h = floored_mod(atan2f(v_c + kEps, h_c + kEps) / kTwoPi, 1.0f);
-    float s = sqrtf(h_c * h_c + v_c * v_c + kEps);
-    if (gated) s = s * alpha_s;
-    s = clampf(s, 0.0f, 1.0f);
-    const float v = clampf(i_c, 0.0f, 1.0f);
+  const float turns = atan2f(v_c + kEps, h_c + kEps) * kInvTwoPi;
+  const float h = turns - floorf(turns);
+  float s = sqrtf(h_c * h_c + v_c * v_c + kEps);
+  if (gated) s = s * alpha_s;
+  s = clampf(s, 0.0f, 1.0f);
+  const float v = clampf(i_c, 0.0f, 1.0f);
 
-    const float hi = floorf(h * 6.0f);
-    const float f = h * 6.0f - hi;
-    const float pp = v * (1.0f - s);
-    const float q = v * (1.0f - f * s);
-    const float t = v * (1.0f - (1.0f - f) * s);
+  const float hi = floorf(h * 6.0f);
+  const float f = h * 6.0f - hi;
+  const float pp = v * (1.0f - s);
+  const float q = v * (1.0f - f * s);
+  const float t = v * (1.0f - (1.0f - f) * s);
 
-    // six disjoint sectors; hi == 6 matches none and stays black
-    float r = 0.0f, g = 0.0f, b = 0.0f;
-    if (hi == 0.0f) { r = v; g = t; b = pp; }
-    else if (hi == 1.0f) { r = q; g = v; b = pp; }
-    else if (hi == 2.0f) { r = pp; g = v; b = t; }
-    else if (hi == 3.0f) { r = pp; g = q; b = v; }
-    else if (hi == 4.0f) { r = t; g = pp; b = v; }
-    else if (hi == 5.0f) { r = v; g = pp; b = q; }
-    if (gated2) {
-      r = r * alpha;
-      g = g * alpha;
-      b = b * alpha;
-    }
-    T* o = out + 3 * p;
+  // six disjoint sectors (r, g, b): 0 (v, t, p), 1 (q, v, p), 2 (p, v, t),
+  // 3 (p, q, v), 4 (t, p, v), 5 (v, p, q); hi == 6 matches none and stays
+  // black
+  const bool s0 = hi == 0.0f, s1 = hi == 1.0f, s2 = hi == 2.0f;
+  const bool s3 = hi == 3.0f, s4 = hi == 4.0f, s5 = hi == 5.0f;
+  r = (s0 || s5) ? v : s1 ? q : (s2 || s3) ? pp : s4 ? t : 0.0f;
+  g = (s1 || s2) ? v : s0 ? t : s3 ? q : (s4 || s5) ? pp : 0.0f;
+  b = (s3 || s4) ? v : (s0 || s1) ? pp : s2 ? t : s5 ? q : 0.0f;
+  if (gated2) {
+    r = r * alpha;
+    g = g * alpha;
+    b = b * alpha;
+  }
+}
+
+// K2 takes a launch plan (ops/hvi_cuda.py:hvi_to_rgb_plan): a 2-D grid of
+// (pixel runs, images) and blocks of kRgbThreads; block (x, y) owns pixels
+// [x * run, (x + 1) * run) of image y (run = kRgbThreads * pixels per
+// thread).
+// V divides H * W and aligns the input, so every plane load is a whole
+// aligned vector.
+//   1. the block loads its run of each of the three planes into shared
+//      memory, one V-pixel vector per thread and plane at a time;
+//   2. each thread converts the pixels tid, tid + threads, ...: neighbouring
+//      threads, neighbouring pixels; the RGB triples go to shared memory at
+//      the output's offset from a 16-byte boundary (`shift`);
+//   3. the block writes its lines of NHWC output (3 * run contiguous
+//      elements) as 16-byte vectors, the part of a vector outside the
+//      block's range element by element.
+constexpr int kRgbThreads = 256;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kRgbThreads)
+    hvi_to_rgb_kernel(const T* __restrict__ hvi, T* __restrict__ out,
+                      const float* __restrict__ k_ptr, int hw, int run, int gated, int gated2,
+                      float alpha, float alpha_s) {
+  constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));  // elements per 16 bytes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float k_s;
+  T* planes = reinterpret_cast<T*>(smem_raw);  // [3][run]
+  T* rgb = planes + 3 * run;                   // [shift + 3 * run]
+  const int p0 = blockIdx.x * run;
+  const int n = min(run, hw - p0);
+  const T* src = hvi + static_cast<int64_t>(blockIdx.y) * 3 * hw + p0;
+  T* dst = out + (static_cast<int64_t>(blockIdx.y) * hw + p0) * 3;
+  const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(dst) % 16 / sizeof(T));
+
+  if (threadIdx.x == 0) k_s = *k_ptr;  // density_k, once per block
+  for (int q = threadIdx.x * V; q < n; q += blockDim.x * V) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      load_vec<V * sizeof(T)>(planes + c * run + q, src + static_cast<int64_t>(c) * hw + q);
+  }
+  __syncthreads();
+
+  const float k = k_s;
+#pragma unroll 1
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float r, g, b;
+    hvi_to_rgb_pixel(load_f32(planes, p), load_f32(planes, run + p),
+                     load_f32(planes, 2 * run + p), k, gated, gated2, alpha, alpha_s, r, g, b);
+    T* o = rgb + shift + 3 * p;
     o[0] = from_f32<T>(r);
     o[1] = from_f32<T>(g);
     o[2] = from_f32<T>(b);
+  }
+  __syncthreads();
+
+  // element e of rgb is dst[e - shift]: base is 16-byte aligned
+  T* base = dst - shift;
+  const int end = shift + 3 * n;
+  for (int e0 = threadIdx.x * kVec16; e0 < end; e0 += blockDim.x * kVec16) {
+    if (e0 >= shift && e0 + kVec16 <= end) {
+      store_vec<16>(base + e0, rgb + e0);
+    } else {
+      for (int e = max(e0, shift); e < min(e0 + kVec16, end); ++e) base[e] = rgb[e];
+    }
   }
 }
 
@@ -145,13 +223,52 @@ int launch_rgb_to_hvi(const void* img, void* out, const void* k, int64_t n_pix, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hvi_to_rgb(const void* hvi, void* out, const void* k, int64_t n_pix, int64_t hw,
-                      int gated, int gated2, float alpha, float alpha_s, cudaStream_t stream) {
-  hvi_to_rgb_kernel<T><<<grid_for(n_pix), kThreads, 0, stream>>>(
-      static_cast<const T*>(hvi), static_cast<T*>(out), static_cast<const float*>(k), n_pix, hw,
+template <typename T, int V>
+int launch_hvi_to_rgb_vec(const void* hvi, void* out, const void* k, int64_t batch, int hw,
+                          int run, int runs, int gated, int gated2, float alpha, float alpha_s,
+                          cudaStream_t stream) {
+  const dim3 grid(runs, static_cast<unsigned int>(batch));
+  const size_t smem = (6 * run + 16 / sizeof(T)) * sizeof(T);
+  hvi_to_rgb_kernel<T, V><<<grid, kRgbThreads, smem, stream>>>(
+      static_cast<const T*>(hvi), static_cast<T*>(out), static_cast<const float*>(k), hw, run,
       gated, gated2, alpha, alpha_s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the plan's vector (pixels) must divide H * W and align the input, its run
+// be whole vectors and 16-byte lines of RGB in at most 48 KB of shared
+// memory, and its blocks cover every image
+template <typename T>
+int launch_hvi_to_rgb(const void* hvi, void* out, const void* k, int64_t batch, int64_t hw,
+                      int vec, int run, int runs, int gated, int gated2, float alpha,
+                      float alpha_s, cudaStream_t stream) {
+  const bool ok = batch >= 1 && batch <= 65535 && hw >= 1 && 3 * hw <= 0x7fffffffLL &&
+                  vec >= 1 && vec * sizeof(T) <= 16 && hw % vec == 0 &&
+                  reinterpret_cast<uintptr_t>(hvi) % (vec * sizeof(T)) == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % sizeof(T) == 0 && run >= vec &&
+                  run % vec == 0 && (3 * run * sizeof(T)) % 16 == 0 &&
+                  (6 * run + 16 / sizeof(T)) * sizeof(T) <= 48 * 1024 && runs >= 1 &&
+                  static_cast<int64_t>(runs) * run >= hw;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int h = static_cast<int>(hw);
+  switch (vec * static_cast<int>(sizeof(T))) {
+    case 16:
+      return launch_hvi_to_rgb_vec<T, 16 / sizeof(T)>(hvi, out, k, batch, h, run, runs,
+                                                      gated, gated2, alpha, alpha_s, stream);
+    case 8:
+      return launch_hvi_to_rgb_vec<T, 8 / sizeof(T)>(hvi, out, k, batch, h, run, runs,
+                                                     gated, gated2, alpha, alpha_s, stream);
+    case 4:
+      return launch_hvi_to_rgb_vec<T, 4 / sizeof(T)>(hvi, out, k, batch, h, run, runs,
+                                                     gated, gated2, alpha, alpha_s, stream);
+    case 2:  // bf16 only: an odd H * W or a base off 4-byte alignment
+      if constexpr (sizeof(T) == 2)
+        return launch_hvi_to_rgb_vec<T, 1>(hvi, out, k, batch, h, run, runs, gated,
+                                           gated2, alpha, alpha_s, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -174,15 +291,17 @@ extern "C" int hvi_rgb_to_hvi(const void* img, int in_dtype, void* out, int out_
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// hvi: (B, 3, H, W) contiguous; out: (B, H, W, 3) contiguous, same dtype.
+// hvi: (B, 3, H, W) contiguous; out: (B, H, W, 3) contiguous, same dtype;
+// k: one fp32 on the device. vec, run, runs: the launch plan of
+// ops/hvi_cuda.py:hvi_to_rgb_plan. Returns cudaGetLastError().
 extern "C" int hvi_hvi_to_rgb(const void* hvi, void* out, int dtype, const void* k,
-                              int64_t n_pix, int64_t hw, int gated, int gated2, float alpha,
-                              float alpha_s, cudaStream_t stream) {
+                              int64_t batch, int64_t hw, int vec, int run, int runs, int gated,
+                              int gated2, float alpha, float alpha_s, cudaStream_t stream) {
   if (dtype == kFloat32)
-    return launch_hvi_to_rgb<float>(hvi, out, k, n_pix, hw, gated, gated2, alpha, alpha_s,
-                                    stream);
+    return launch_hvi_to_rgb<float>(hvi, out, k, batch, hw, vec, run, runs, gated,
+                                    gated2, alpha, alpha_s, stream);
   if (dtype == kBFloat16)
-    return launch_hvi_to_rgb<__nv_bfloat16>(hvi, out, k, n_pix, hw, gated, gated2, alpha,
-                                            alpha_s, stream);
+    return launch_hvi_to_rgb<__nv_bfloat16>(hvi, out, k, batch, hw, vec, run, runs,
+                                            gated, gated2, alpha, alpha_s, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

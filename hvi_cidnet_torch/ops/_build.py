@@ -151,6 +151,16 @@ class CudaKernel:
         self.launches += 1
 
 
+def widest_vector(size: int, offset: int, itemsize: int) -> int:
+    """The widest vector, in elements (a power of two, at most 16 bytes),
+    that divides a row of ``size`` elements and a base ``offset`` bytes past
+    a 16-byte boundary: then every row of the tensor starts aligned to it."""
+    vec = 16 // itemsize
+    while size % vec or offset % (vec * itemsize):
+        vec //= 2
+    return vec
+
+
 def check_input(t: torch.Tensor, name: str, ndim: int) -> None:
     """The kernels take contiguous fp32 or bf16 CUDA tensors only."""
     if t.device.type != "cuda":

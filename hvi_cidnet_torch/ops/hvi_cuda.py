@@ -10,6 +10,9 @@ model's boundary:
   ``out_dtype`` (the compute dtype);
 * ``hvi_to_rgb``: NCHW HVI -> NHWC RGB, in the input's dtype.
 
+K2 launches by a plan computed here (``hvi_to_rgb_plan``: vector width,
+block size, grid), which the CPU tests walk.
+
 Dispatch is by device only: a CPU tensor takes the plain twin, a CUDA
 tensor the kernel (which raises on anything it does not take). The kernel
 paths are ``autograd.Function``s whose backward runs the twin's autograd.
@@ -18,6 +21,8 @@ paths are ``autograd.Function``s whose backward runs the twin's autograd.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,11 +33,12 @@ from hvi_cidnet_torch.ops._build import (
     check_input,
     scalar_pointer,
     twin_backward,
+    widest_vector,
 )
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 RGB_TO_HVI = CudaKernel("hvi_rgb_to_hvi", [_p, _i, _p, _i, _p, _i64, _i64])
-HVI_TO_RGB = CudaKernel("hvi_hvi_to_rgb", [_p, _p, _i, _p, _i64, _i64, _i, _i, _f, _f])
+HVI_TO_RGB = CudaKernel("hvi_hvi_to_rgb", [_p, _p, _i, _p, _i64, _i64, _i, _i, _i, _i, _i, _f, _f])
 
 
 # --------------------------------------------------------------------------
@@ -103,6 +109,52 @@ def hvi_to_rgb_plain(
     return rgb.permute(0, 2, 3, 1).contiguous()
 
 
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+RGB_THREADS = 256         # csrc/hvi.cu:kRgbThreads, the block size
+RGB_PIXELS = (4, 2, 1)    # pixels per thread, most first
+RGB_MIN_BLOCKS = 16 * SMS  # two full SMs' worth of 256-thread blocks each
+RGB_SMEM = 48 * 1024      # shared memory a block takes without opting in
+MAX_GRID_Y = 65535        # CUDA's limit on gridDim.y (the images)
+
+
+class HviToRgbPlan(NamedTuple):
+    """How K2 covers a (batch, 3, H, W) input (``csrc/hvi.cu``).
+
+    A 2-D grid of (runs, batch) blocks of RGB_THREADS threads; block (x, y)
+    owns pixels [x * run, (x + 1) * run) of image y (the last run of an
+    image is cut at H * W). It loads the run of each plane in ``vec``-pixel
+    vectors, its thread t converts pixels t, t + RGB_THREADS, ... and it
+    writes the run's RGB lines in 16-byte vectors.
+    """
+
+    vec: int              # pixels per vector load of a plane
+    run: int              # pixels per block: RGB_THREADS * pixels per thread
+    grid: tuple           # (runs, batch)
+    smem_bytes: int       # the planes and the RGB lines of one run
+
+
+@functools.lru_cache(maxsize=256)
+def hvi_to_rgb_plan(batch: int, hw: int, itemsize: int, offset: int = 0) -> HviToRgbPlan:
+    """K2's plan for ``batch`` images of ``hw`` pixels whose tensor starts
+    ``offset`` bytes past a 16-byte boundary. The vector is the widest (up
+    to 16 bytes) that divides H * W and the offset, so every plane's rows
+    start aligned. Blocks are 256 threads; each thread takes the most pixels
+    of 4, 2, 1 that still give the grid 16 blocks per SM (a pixel is ~264
+    instructions in long dependent chains: the card needs many threads in
+    flight; on the card 2 pixels a thread were fastest at batch 8, 4 at 32,
+    1 at batch 1), and whose run fits 48 KB of shared memory. Cached per
+    shape: at batch 1 the host's work per launch sets the pace."""
+    if batch > MAX_GRID_Y:
+        raise ValueError(f"K2: {batch} images, past the grid's limit of {MAX_GRID_Y}")
+    vec = widest_vector(hw, offset, itemsize)
+    smem = lambda run: (6 * run + 16 // itemsize) * itemsize
+    fits = [p for p in RGB_PIXELS if smem(RGB_THREADS * p) <= RGB_SMEM]
+    per_thread = next((p for p in fits if batch * -(-hw // (RGB_THREADS * p)) >= RGB_MIN_BLOCKS),
+                      fits[-1])
+    run = RGB_THREADS * per_thread
+    return HviToRgbPlan(vec, run, (-(-hw // run), batch), smem(run))
+
+
 def hvi_to_rgb_kernel(
     hvi: torch.Tensor, k: torch.Tensor, *, gated: bool = False, gated2: bool = False,
     alpha: float = 1.0, alpha_s: float = 1.3,
@@ -112,10 +164,13 @@ def hvi_to_rgb_kernel(
     b, c, h, w = hvi.shape
     if c != 3:
         raise ValueError(f"hvi: expected 3 channels at dim 1, got shape {tuple(hvi.shape)}")
+    if 3 * h * w >= 2**31:
+        raise ValueError(f"hvi: K2 takes images below 2**31 / 3 pixels, got {h} x {w}")
     out = torch.empty((b, h, w, 3), dtype=hvi.dtype, device=hvi.device)
+    plan = hvi_to_rgb_plan(b, h * w, hvi.element_size(), hvi.data_ptr() % 16)
     HVI_TO_RGB(
         hvi.device, hvi.data_ptr(), out.data_ptr(), DTYPE_CODES[hvi.dtype],
-        scalar_pointer(k, hvi.device, "density_k"), b * h * w, h * w,
+        scalar_pointer(k, hvi.device, "density_k"), b, h * w, plan.vec, plan.run, plan.grid[0],
         int(bool(gated)), int(bool(gated2)), float(alpha), float(alpha_s),
     )
     return out

@@ -123,6 +123,24 @@ def test_hvi_to_rgb_dispatch_matches_pallas_hwcb(gates):
     assert edges <= 2, f"{edges} pixels on the hi == 6 edge"
 
 
+def test_hvi_to_rgb_dispatch_matches_pallas_hwcb_at_batch_3():
+    """K2's twin at batch 3 (the card's grid has one row of blocks per
+    image) with every gate on, vs the Pallas kernel in interpret mode."""
+    gates = GATES[3]
+    hvi = np.asarray(jax_rgb_to_hvi(jnp.asarray(_img((3, 16, 24, 3), seed=8)), jnp.asarray(K)))
+    hvi = hvi + np.random.default_rng(9).normal(0, 0.05, hvi.shape).astype(np.float32)
+    ref = np.asarray(
+        hvi_to_rgb_pallas_hwcb(jnp.asarray(hvi.transpose(1, 2, 3, 0)), 0.2, interpret=True, **gates)
+    )
+    got = hvi_cuda.hvi_to_rgb(
+        torch.from_numpy(np.ascontiguousarray(hvi.transpose(0, 3, 1, 2))), torch.from_numpy(K),
+        **gates,
+    )
+    assert got.shape == (3, 16, 24, 3) and got.is_contiguous()
+    edges = assert_rgb_close(got.numpy(), ref, hvi)
+    assert edges <= 2, f"{edges} pixels on the hi == 6 edge"
+
+
 def test_hi6_edge_is_black_in_both():
     hvi = hi6_edge_hvi()
     ref = np.asarray(jax_hvi_to_rgb(jnp.asarray(hvi), jnp.asarray(K)))

@@ -6,10 +6,10 @@ machine without jax it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Shapes are small and odd (ragged grid tails, odd extents). K4 and K7 are
-held to bitwise equality (``torch.equal``) in fp32 and bf16: they run the
-twins' fp32 ops in the same order. Tolerances of the others as in
-``chip_smoke.py``: fp32 1e-6 (K1, K3) and 1e-5 (K2), bf16 one ulp at
+Shapes are small and odd (ragged grid tails, odd extents). K3, K4 and K7
+are held to bitwise equality (``torch.equal``) in fp32 and bf16: they run
+the twins' fp32 ops in the same order. Tolerances of the others as in
+``chip_smoke.py``: fp32 1e-6 (K1) and 1e-5 (K2), bf16 one ulp at
 magnitudes below 2 (2**-7). K5 and K6 sum
 over space or channels in another order than the twin's cuBLAS GEMM or
 torch reduction: fp32 2e-5 (K5) and 1e-5 (K6); bf16 two ulps relative,
@@ -73,15 +73,84 @@ def test_k2_matches_twin(cuda, dt, gates):
     torch.testing.assert_close(got, ref, atol=_tol(dt, 1e-5), rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 50, 150), (1, 3, 7, 9), (3, 2, 2, 2)])
+# K2 beyond the odd shape above: H * W a multiple of 4 but not of 8 (bf16
+# takes 8-byte plane loads), of 8 but a run that ends inside an image, the
+# 600 x 400 image at batch 1 and 3, every gate arm, and an input 2-4 bytes
+# past a 16-byte boundary ("edge": element loads)
+K2_GATES = [{}, {"gated": True, "alpha_s": 1.3}, {"gated2": True, "alpha": 0.84},
+            {"gated": True, "gated2": True, "alpha": 0.9, "alpha_s": 1.2}]
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 6, 10), (2, 3, 24, 41), (1, 3, 400, 600),
+                                   (3, 3, 400, 600), "edge"], ids=str)
+@pytest.mark.parametrize("gates", K2_GATES, ids=["none", "gated", "gated2", "both"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k2_matches_twin_at_every_plan(cuda, dt, gates, shape):
+    if shape == "edge":
+        hvi = _edge_tensor((1, 3, 5, 17), cuda, dt, -1.0, 1.0, seed=33)
+    else:
+        hvi = _rand(shape, cuda, dt, -1.0, 1.0, seed=33)
+    k = torch.full((1,), 0.2, device=cuda)
+    n = hc.HVI_TO_RGB.launches
+    got = hc.hvi_to_rgb(hvi, k, **gates)
+    assert hc.HVI_TO_RGB.launches == n + 1
+    b, _, h, w = hvi.shape
+    assert got.shape == (b, h, w, 3) and got.is_contiguous()
+    torch.testing.assert_close(got, hc.hvi_to_rgb_plain(hvi, k, **gates), atol=_tol(dt, 1e-5),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k2_keeps_the_hi6_pixels_black_and_equal(cuda, dt):
+    """HVI pixels whose inverse hue is a tiny negative angle: the floored
+    mod wraps it to 1 - tiny, which rounds to 1.0 -> hi == 6 -> black (as in
+    ``chip_smoke.py:hi6_hvi``), beside ordinary pixels."""
+    n = 64
+    i = torch.full((n,), 0.5)
+    h = torch.linspace(0.2, 0.6, n)
+    cs = (torch.sin(torch.tensor(0.25 * torch.pi)) + 1e-8) ** 0.2
+    v = -torch.linspace(1.2e-8, 2.0e-8, n) * cs
+    hvi = _rand((2, 3, 8, 24), "cpu", torch.float32, -1.0, 1.0, seed=34)
+    hvi[1, :, :4, :16] = torch.stack([h, v, i]).reshape(3, 4, 16)
+    hvi = hvi.to(cuda, dt)
+    k = torch.full((1,), 0.2, device=cuda)
+    got, ref = hc.hvi_to_rgb(hvi, k), hc.hvi_to_rgb_plain(hvi, k)
+    probe, probe_ref = got[1, :4, :16], ref[1, :4, :16]
+    if dt == torch.float32:
+        assert (probe_ref == 0).all(-1).sum() >= n // 2, "the probe must hit the hi == 6 edge"
+    assert torch.equal((probe == 0).all(-1), (probe_ref == 0).all(-1))
+    assert torch.equal(probe, probe_ref)
+    torch.testing.assert_close(got, ref, atol=_tol(dt, 1e-5), rtol=0)
+
+
+# K3 is bitwise equal to its twin (torch.equal): the small odd shapes, each
+# site shape of the 600 x 400 forward at batch 1 (16-, 8- and 4-byte bf16
+# source pitches; output widths 300, 150 and the odd 75), odd source widths,
+# h = 2 and w = 2, fewer planes than SMs, a tensor that starts 2-4 bytes
+# past a 16-byte boundary and ends at its allocation's end ("edge"), and an
+# even-width one two elements past it ("offset": 2-element loads)
+K3_SHAPES = [(2, 5, 50, 150), (1, 3, 7, 9), (3, 2, 2, 2),
+             (1, 36, 400, 600), (1, 72, 200, 300), (1, 144, 100, 150),
+             (2, 3, 14, 150), (1, 4, 9, 151), (2, 3, 2, 30), (1, 2, 31, 4), (1, 8, 64, 96),
+             "edge", "offset"]
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
 @pytest.mark.parametrize("dt", DTYPES)
 def test_k3_matches_twin(cuda, dt, shape):
-    x = _rand(shape, cuda, dt, -1.0, 1.0, seed=2)
+    if shape == "edge":
+        x = _edge_tensor((1, 1, 7, 73), cuda, dt, -1.0, 1.0, seed=2)
+    elif shape == "offset":
+        buf = _rand((2 + 2 * 8 * 64,), cuda, dt, -1.0, 1.0, seed=2)
+        x = buf[2:].view(1, 2, 8, 64)
+        assert x.data_ptr() % 16 in (4, 8)
+    else:
+        x = _rand(shape, cuda, dt, -1.0, 1.0, seed=2)
     a = torch.full((1,), 0.25, device=cuda)
     n = rc.HALF_PRELU.launches
     got = rc.half_prelu(x, a)
     assert rc.HALF_PRELU.launches == n + 1
-    torch.testing.assert_close(got, rc.half_prelu_plain(x, a), atol=_tol(dt, 1e-6), rtol=0)
+    assert torch.equal(got, rc.half_prelu_plain(x, a))
 
 
 # K4 and K7 are bitwise equal to their twins (torch.equal). Beyond the
@@ -138,6 +207,14 @@ def test_backward_runs_the_twins_autograd(cuda):
     g2 = torch.autograd.grad(hc.rgb_to_hvi_plain(img, k, torch.float32).square().sum(), (img, k))
     for u, v in zip(g1, g2):
         torch.testing.assert_close(u, v, atol=1e-5, rtol=1e-5)
+
+    hvi = _rand((2, 3, 6, 10), cuda, torch.float32, -1.0, 1.0, seed=6).requires_grad_()
+    gates = {"gated": True, "gated2": True, "alpha": 0.9, "alpha_s": 1.2}
+    n = hc.HVI_TO_RGB.launches
+    (g1,) = torch.autograd.grad(hc.hvi_to_rgb(hvi, k.detach(), **gates).square().sum(), (hvi,))
+    assert hc.HVI_TO_RGB.launches == n + 1
+    (g2,) = torch.autograd.grad(hc.hvi_to_rgb_plain(hvi, k.detach(), **gates).square().sum(), (hvi,))
+    torch.testing.assert_close(g1, g2, atol=1e-5, rtol=1e-5)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

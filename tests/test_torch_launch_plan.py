@@ -1,4 +1,5 @@
-"""The host-side launch plans of K4 (``ops/resize_cuda.py:double_plan``), K5
+"""The host-side launch plans of K2 (``ops/hvi_cuda.py:hvi_to_rgb_plan``), K3
+(``ops/resize_cuda.py:half_plan``), K4 (``ops/resize_cuda.py:double_plan``), K5
 (``ops/attention_cuda.py:attention_plan``), K6 (``ops/norm_cuda.py:
 layer_norm_plan``) and K7 (``ops/iel_cuda.py:iel_plan``), checked on the CPU.
 
@@ -7,7 +8,9 @@ Each test walks the plan the way the kernel walks it (the mapping that
 document, as the ``csrc/*.cu`` kernels implement it) and checks that every
 output (and, for K5, every column of the contraction and every entry of the
 score matrix) is covered exactly once, that the shared memory fits, that the
-batch-1 sites fill the card, and that no grid dimension overflows.
+batch-1 sites fill the card, and that no grid dimension overflows; for K2
+and K3 also that loads and stores take the widest vector the row pitches
+and the base allow.
 """
 
 import itertools
@@ -15,6 +18,7 @@ import itertools
 import numpy as np
 import pytest
 
+from hvi_cidnet_torch.ops import hvi_cuda as hc
 from hvi_cidnet_torch.ops import iel_cuda as ic
 from hvi_cidnet_torch.ops import resize_cuda as rc
 
@@ -26,6 +30,172 @@ K4_SIZES = [(50, 75), (100, 150), (200, 300), (90, 160), (180, 320), (360, 640),
 K7_SIZES = [(200, 300), (100, 150), (50, 75), (360, 640), (180, 320), (90, 160),
             (1, 1), (17, 33), (40, 70), (37, 151), (2, 640), (123, 1)]
 ITEMSIZES = [4, 2]  # fp32, bf16
+
+
+# K3's inputs (C, h, w) at 600 x 400 (block1, block2, block3), and (h, w)
+# of odd and small widths: odd source widths (output 75 from 150 and 151),
+# 7, 2, 75 (output 37), h = 2 and odd heights, 1280 x 720's block1
+K3_SITES = [(36, 400, 600), (72, 200, 300), (144, 100, 150)]
+K3_SIZES = [(50, 150), (51, 151), (9, 7), (2, 2), (2, 14), (3, 75), (31, 4), (720, 1280),
+            (2, 600), (17, 2)]
+
+
+def _half_walk(plan, h, w, itemsize, offset):
+    """Times each output (row, column) of one plane is written, following
+    the plan's threads; checks each thread's loads and stores on the way."""
+    ho, wo = h // 2, w // 2
+    _, gy, gz = plan.grid
+    rows = np.zeros(ho, np.int64)
+    cols = np.zeros(wo, np.int64)
+    for by in range(gy):
+        for ty in range(plan.ty):
+            i0 = (by * plan.ty + ty) * plan.rows_per_thread
+            for i in range(i0, min(ho, i0 + plan.rows_per_thread)):
+                rows[i] += 1
+    for bz in range(gz):
+        for tx in range(plan.tx):
+            c0 = (bz * plan.tx + tx) * plan.chunk
+            if c0 >= wo:
+                continue
+            s0 = 2 * c0  # whole vectors inside the row, aligned in every row and plane
+            vec = plan.load * itemsize
+            assert s0 + 2 * plan.chunk <= w and (2 * plan.chunk) % plan.load == 0
+            assert (offset + s0 * itemsize) % vec == 0 and (w * itemsize) % vec == 0
+            # one aligned vector store of the chunk, inside the row
+            assert c0 + plan.chunk <= wo and wo % plan.chunk == 0
+            cols[c0:c0 + plan.chunk] += 1
+    return rows, cols
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("site", K3_SITES, ids=str)
+def test_k3_plan_covers_each_output_once_at_the_sites(site, b, itemsize):
+    c, h, w = site
+    plan = rc.half_plan(b * c, h, w, itemsize)
+    rows, cols = _half_walk(plan, h, w, itemsize, 0)
+    assert (rows == 1).all() and (cols == 1).all()
+    assert plan.grid[0] == b * c and plan.tx * plan.ty <= rc.HALF_MAX_THREADS
+    assert plan.chunk == max(1, plan.load // 2)
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("h,w", K3_SIZES)
+def test_k3_plan_covers_each_output_once_at_odd_sizes(h, w, b, itemsize):
+    for offset in (0, itemsize, 4, 8):
+        plan = rc.half_plan(b * 3, h, w, itemsize, offset)
+        rows, cols = _half_walk(plan, h, w, itemsize, offset)
+        assert (rows == 1).all() and (cols == 1).all()
+        assert plan.tx * plan.ty <= rc.HALF_MAX_THREADS
+
+
+def _widest(size, offset, itemsize):
+    """The widest of 16, 8, 4, 2 bytes that divides a row of ``size``
+    elements and the base offset (the kernels' rule, written out)."""
+    return next(vec for vec in (16, 8, 4, 2, 1)
+                if (size * itemsize) % vec == 0 and offset % vec == 0 and vec % itemsize == 0)
+
+
+# (itemsize, w, base offset, load bytes, store bytes): a thread's chunk is
+# half its load and its store; at the sites (600, 300, 150) the store is the
+# widest the output pitch allows
+@pytest.mark.parametrize("itemsize,w,offset,load_bytes,store_bytes", [
+    (2, 600, 0, 16, 8), (2, 300, 0, 8, 4), (2, 150, 0, 4, 2), (2, 151, 0, 2, 2),
+    (2, 600, 2, 2, 2), (2, 600, 4, 4, 2), (2, 600, 8, 8, 4), (2, 1280, 0, 16, 8),
+    (2, 14, 0, 4, 2), (2, 2, 0, 4, 2), (2, 7, 0, 2, 2),
+    (4, 600, 0, 16, 8), (4, 300, 0, 16, 8), (4, 150, 0, 8, 4), (4, 151, 0, 4, 4),
+    (4, 600, 4, 4, 4), (4, 600, 8, 8, 4), (4, 2, 0, 8, 4),
+])
+def test_k3_plan_takes_the_widest_vectors_the_pitches_and_base_allow(itemsize, w, offset,
+                                                                     load_bytes, store_bytes):
+    plan = rc.half_plan(4, 8, w, itemsize, offset)
+    assert plan.load * itemsize == load_bytes == _widest(w, offset, itemsize)
+    assert plan.chunk * itemsize == store_bytes == max(itemsize, load_bytes // 2)
+    assert (w // 2) % plan.chunk == 0
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("site", K3_SITES, ids=str)
+def test_k3_plan_fills_the_card_at_batch_1(site, itemsize):
+    c, h, w = site
+    plan = rc.half_plan(c, h, w, itemsize)
+    _, gy, gz = plan.grid
+    assert c * gy * gz >= rc.SMS  # at least one block per SM, block3 included
+    threads = c * -(-(w // 2) // plan.chunk) * -(-(h // 2) // plan.rows_per_thread)
+    assert threads >= rc.HALF_MIN_THREADS or plan.rows_per_thread == 1
+
+
+def test_k3_plan_is_cached_and_stays_in_the_grid():
+    assert rc.half_plan(288, 400, 600, 2) is rc.half_plan(288, 400, 600, 2)
+    planes, gy, gz = rc.half_plan(128 * 144, 100, 150, 2).grid
+    assert planes * gy * gz <= rc.MAX_GRID_X
+    planes, gy, gz = rc.half_plan(1, 2 * 65535 * 8, 2 * 65535 * 4, 4).grid
+    assert planes * gy * gz <= rc.MAX_GRID_X
+    with pytest.raises(ValueError, match="blocks"):
+        rc.half_plan(2**24, 4096, 4096, 2)
+
+
+# K2's images (H * W): 600 x 400, 1280 x 720, odd (19 x 23), a multiple of
+# 4 but not 8 (6 x 10), of 8 but not of a block's run (24 x 41 = 984)
+K2_SIZES = [400 * 600, 720 * 1280, 19 * 23, 6 * 10, 24 * 41, 1, 2, 16]
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+@pytest.mark.parametrize("b", [1, 3, 8, 32])
+@pytest.mark.parametrize("hw", K2_SIZES)
+def test_k2_plan_covers_each_pixel_once(hw, b, itemsize):
+    for offset in (0, itemsize, 8):
+        plan = hc.hvi_to_rgb_plan(b, hw, itemsize, offset)
+        runs, images = plan.grid
+        run, threads, vec = plan.run, hc.RGB_THREADS, plan.vec
+        assert images == b and runs * run >= hw > (runs - 1) * run
+        assert run % vec == 0 and run % threads == 0 and (3 * run * itemsize) % 16 == 0
+        x = np.arange(runs)[:, None, None]
+        n = np.minimum(run, hw - x * run)  # pixels of each run
+        # the loads: thread t takes vectors t, t + threads, ... of the run,
+        # each whole and aligned in every plane
+        q = (np.arange(threads)[None, :, None] + threads * np.arange(run // (threads * vec) + 1)) * vec
+        active = np.broadcast_to(q < n, (runs, threads, q.shape[-1]))
+        assert np.broadcast_to(q + vec <= n, active.shape)[active].all()
+        starts = np.broadcast_to(x * run + q, active.shape)[active]
+        for c in range(3):
+            assert (((c * hw + starts) * itemsize + offset) % (vec * itemsize) == 0).all()
+        loaded = np.bincount((starts[:, None] + np.arange(vec)).ravel(), minlength=hw)
+        # the pixels: thread t converts t, t + threads, ...
+        p = np.arange(threads)[None, :, None] + threads * np.arange(run // threads)
+        done = np.broadcast_to(p < n, (runs, threads, p.shape[-1]))
+        converted = np.bincount(np.broadcast_to(x * run + p, done.shape)[done], minlength=hw)
+        assert (loaded == 1).all() and (converted == 1).all()
+        assert plan.smem_bytes == (6 * run + 16 // itemsize) * itemsize <= hc.RGB_SMEM
+
+
+@pytest.mark.parametrize("itemsize,hw,offset,vec_bytes", [
+    (2, 240000, 0, 16), (2, 60, 0, 8), (2, 437, 0, 2), (2, 240000, 2, 2), (2, 240000, 4, 4),
+    (2, 240000, 8, 8), (4, 240000, 0, 16), (4, 60, 0, 16), (4, 30, 0, 8), (4, 437, 0, 4),
+    (4, 240000, 4, 4), (4, 240000, 8, 8),
+])
+def test_k2_plan_takes_the_widest_load_the_pitch_and_base_allow(itemsize, hw, offset, vec_bytes):
+    plan = hc.hvi_to_rgb_plan(2, hw, itemsize, offset)
+    assert plan.vec * itemsize == vec_bytes == _widest(hw, offset, itemsize)
+
+
+@pytest.mark.parametrize("itemsize", ITEMSIZES)
+def test_k2_plan_fills_the_card_at_batch_1(itemsize):
+    # one pixel a thread: 938 blocks of 256 threads, over seven per SM
+    plan = hc.hvi_to_rgb_plan(1, 400 * 600, itemsize)
+    assert plan.run == hc.RGB_THREADS and plan.grid[0] >= 7 * hc.SMS
+    # batch 8 takes two pixels a thread, batch 32 four
+    plan = hc.hvi_to_rgb_plan(8, 400 * 600, itemsize)
+    assert plan.run == 2 * hc.RGB_THREADS and 8 * plan.grid[0] >= hc.RGB_MIN_BLOCKS
+    assert hc.hvi_to_rgb_plan(32, 400 * 600, itemsize).run == 4 * hc.RGB_THREADS
+
+
+def test_k2_plan_is_cached_and_stays_in_the_grid():
+    assert hc.hvi_to_rgb_plan(8, 240000, 2) is hc.hvi_to_rgb_plan(8, 240000, 2)
+    assert hc.hvi_to_rgb_plan(hc.MAX_GRID_Y, 64, 2).grid[1] == hc.MAX_GRID_Y
+    with pytest.raises(ValueError, match="grid"):
+        hc.hvi_to_rgb_plan(hc.MAX_GRID_Y + 1, 64, 2)
 
 
 def _double_writes(plan, h, w):

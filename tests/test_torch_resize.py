@@ -78,6 +78,16 @@ def test_half_prelu_plain_matches_pallas(shape):
     np.testing.assert_allclose(got.numpy(), _to_nchw(ref), atol=1e-6, rtol=0)
 
 
+def test_half_prelu_plain_matches_pallas_at_the_block3_site():
+    """K3's twin at block3's extents (100 x 150 -> 50 x 75, the odd output
+    width where the card's stores are 2 bytes wide), a few channels."""
+    x, xt = _hwcb((100, 150, 3, 2), 8)
+    ref = scale_half_pallas(jnp.asarray(x), prelu_alpha=ALPHA, interpret=True)
+    got = resize_cuda.half_prelu(xt, torch.tensor([ALPHA]))
+    assert got.shape == (2, 3, 50, 75)
+    np.testing.assert_allclose(got.numpy(), _to_nchw(ref), atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(8, 75, 3, 2), (25, 16, 4, 2)])
 def test_double_plain_matches_pallas(shape):
     x, xt = _hwcb(shape, 1)
