@@ -12,13 +12,15 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
 4. holds each kernel against its plain PyTorch twin on the card, in fp32
    and bf16, at every site shape the 600 x 400 forward gives it (batch 8),
    and prints the error, the kernel's and the twin's times (and, for K4,
-   the one PyTorch call that computes the same function); K5 also in its
+   the one PyTorch call that computes the same function; for K1 and K2 the
+   launch plan and the time the card takes to issue the SASS instructions
+   of the kernel's fast path); K5 also in its
    unnormalised and unfolded arms, and twice for identical bits, on q and
    k with shared structure; K5 must also be rejected on planted faults
-   (k rows met in the wrong place, a k tile dropped). K3, K4 and K7
+   (k rows met in the wrong place, a k tile dropped). K1, K3, K4 and K7
    must be bitwise equal to their twins; K4 and K7 are also timed at
    batch 1 at level 1, K5 and K6 at levels 1 and 3, K3 at block1 and
-   block3 and K2 at 1 x 3 x 400 x 600;
+   block3, K1 at 1 x 400 x 600 x 3 and K2 at 1 x 3 x 400 x 600;
 5. runs the full-width base and MSSA forwards on the card in fp32 (TF32
    off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result;
@@ -51,14 +53,14 @@ BATCH = 8                # batch of the kernel comparisons
 K = 0.2                  # density_k at init
 
 # tolerances, kernel vs its plain twin on the same inputs (on the card, but
-# for K5 in fp32 on the CPU: k5_twin_cpu). K3, K4 and
-# K7 run the twin's fp32 ops in the same order and must be bitwise equal
-# (torch.equal) in fp32 and bf16. K1 and K2 run the twin's ops but not all
+# for K5 in fp32 on the CPU: k5_twin_cpu). K1, K3, K4 and K7 run the twin's
+# fp32 ops in the same order (K1 with exact rewrites) and must be bitwise
+# equal (torch.equal) in fp32 and bf16. K2 runs the twin's ops but not all
 # of its library calls' bits (one fp32 ulp at most); K5
 # and K6 sum over space or channels in another order than the twin's GEMM
 # or reduction, so fp32 gets a few ulps of the sum.
-BITWISE = ("K3", "K4", "K7")
-TOL_FP32 = {"K1": 1e-6, "K2": 1e-5, "K5": 2e-5, "K6": 1e-5}
+BITWISE = ("K1", "K3", "K4", "K7")
+TOL_FP32 = {"K2": 1e-5, "K5": 2e-5, "K6": 1e-5}
 TOL_BF16 = 2.0**-7       # one bf16 ulp at magnitudes in [1, 2): both round once from fp32
 # K5-K7 in bf16: a last-bit fp32 difference can flip the bf16 rounding of
 # one intermediate (A, the LN scale/shift, t1), which moves the output by an
@@ -73,6 +75,12 @@ TOL_BF16_FORWARD_MEAN = 2e-2
 # the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+# instruction issue of the math-bound K1 and K2: SASS instructions a pixel on
+# the fast path under the batch-8 plan (cuobjdump -sass of the bf16 kernels,
+# PERF.md), one a clock on each of the 528 schedulers (132 SMs x 4) at
+# ~1.98 GHz
+SASS_PER_PIXEL = {"K1": 267, "K2": 264}
+WARP_INSTRUCTIONS_PER_S = 528 * 1.98e9
 VARIANTS = ("base", "mssa")
 # launches of one forward per kernel; MSSA also runs I_LCA5 (one more LCA)
 PER_FORWARD = {
@@ -166,18 +174,17 @@ def compare_hvi(results: dict, dev) -> None:
         {"gated": True, "gated2": True, "alpha": 1.0, "alpha_s": 1.0},
     ]
     for dt in (torch.float32, torch.bfloat16):
-        tol1 = TOL_FP32["K1"] if dt == torch.float32 else TOL_BF16
         tol2 = TOL_FP32["K2"] if dt == torch.float32 else TOL_BF16
         img = img32.to(dt)
-        got = hc.rgb_to_hvi_kernel(img, k, dt)
         ref = hc.rgb_to_hvi_plain(img, k, dt)
-        e1 = max_err(got, ref)
-        check(f"K1 {dt}", e1, tol1)
+        e1 = check_equal(f"K1 {dt}", hc.rgb_to_hvi_kernel(img, k, dt), ref)
         t_k = time_ms(lambda: hc.rgb_to_hvi_kernel(img, k, dt))
         t_p = time_ms(lambda: hc.rgb_to_hvi_plain(img, k, dt))
-        log(f"K1 rgb_to_hvi {tuple(img.shape)} {dt}: max_abs_err {e1:.3e}  "
-            f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
         bound = bound_ms("K1", img)
+        plan = hc.rgb_to_hvi_plan(BATCH, H * W, img.element_size(), img.element_size())
+        log(f"K1 rgb_to_hvi {tuple(img.shape)} {dt}: bitwise equal to the twin  kernel "
+            f"{t_k:.4f} ms  plain {t_p:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]}), issue "
+            f"~{issue_ms('K1', img):.4f} ms  plan {plan}")
         results["K1"].append({"dtype": str(dt), "err": e1, "ms": t_k, "plain_ms": t_p,
                               "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1]})
 
@@ -203,7 +210,7 @@ def compare_hvi(results: dict, dev) -> None:
             t_p = time_ms(lambda: hc.hvi_to_rgb_plain(hvi, k, **gates))
             log(f"K2 hvi_to_rgb {tuple(hvi.shape)} {dt} {gates or 'no gates'}: max_abs_err "
                 f"{e2:.3e} (edge pixels {int(edge.sum())}, flipped {flips})  "
-                f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
+                f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  issue ~{issue_ms('K2', hvi):.4f} ms")
             bound = bound_ms("K2", hvi)
             results["K2"].append({"dtype": str(dt), "err": e2, "ms": t_k, "plain_ms": t_p,
                                   "library_ms": None, "bound_ms": bound[0],
@@ -289,6 +296,12 @@ def bound_ms(key: str, x: torch.Tensor, *, heads: int = 1, fold: bool = True,
     peak = peak or ("bf16_tensor" if key == "K5" and x.dtype == torch.bfloat16 else "fp32")
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[peak]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def issue_ms(key: str, x: torch.Tensor) -> float:
+    """The time the card takes to issue K1's or K2's fast-path instructions
+    for the pixels of ``x`` (a warp's 32 pixels a warp instruction)."""
+    return 1e3 * x.numel() // 3 * SASS_PER_PIXEL[key] / 32 / WARP_INSTRUCTIONS_PER_S
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -464,10 +477,10 @@ def compare_lca(results: dict, dev) -> None:
 
 def batch1_info(dev) -> None:
     """K4 and K7 at the batch-1 level-1 shapes, K5 and K6 at the batch-1
-    level-1 and level-3 shapes, K3 at block1 and block3 and K2 at 1 x 3 x
-    400 x 600, in bf16 (information, beside the batch-8 lines; K3/K4/K7
-    bitwise equal to their twins here too, K5/K6 within two ulps relative,
-    K2 within one bf16 ulp)."""
+    level-1 and level-3 shapes, K3 at block1 and block3, K1 at 1 x 400 x 600
+    x 3 and K2 at 1 x 3 x 400 x 600, in bf16 (information, beside the
+    batch-8 lines; K1/K3/K4/K7 bitwise equal to their twins here too, K5/K6
+    within two ulps relative, K2 within one bf16 ulp)."""
     from hvi_cidnet_torch.ops import attention_cuda as ac
     from hvi_cidnet_torch.ops import hvi_cuda as hc
     from hvi_cidnet_torch.ops import iel_cuda as ic
@@ -489,6 +502,13 @@ def batch1_info(dev) -> None:
             f"bound {bound_ms('K3', x)[0]:.4f} ms")
     k = torch.full((1,), K, device=dev)
     img = torch.rand((1, H, W, 3), generator=gen).to(dev)
+    img_bf = img.to(dt)
+    check_equal("K1 batch 1", hc.rgb_to_hvi_kernel(img_bf, k, dt),
+                hc.rgb_to_hvi_plain(img_bf, k, dt))
+    log(f"K1 batch-1 {tuple(img_bf.shape)} {dt}: bitwise equal  kernel "
+        f"{time_ms(lambda: hc.rgb_to_hvi_kernel(img_bf, k, dt)):.4f} ms  plain "
+        f"{time_ms(lambda: hc.rgb_to_hvi_plain(img_bf, k, dt)):.4f} ms  "
+        f"bound {bound_ms('K1', img_bf)[0]:.4f} ms")
     hvi = hc.rgb_to_hvi_plain(img, k, torch.float32)
     hvi = (hvi + 0.05 * torch.randn(hvi.shape, generator=gen).to(dev)).to(dt).contiguous()
     edge = hue_edge(hvi, K)

@@ -6,9 +6,10 @@ demo.py:11-73): reflect-pad to x8, run with both HVI gates on, crop, save
         [--weight weights/SICE.pth | --random_init] [--gamma 1.0]
         [--alpha_s 1.0] [--alpha_i 1.0] [--variant base|mssa] [--cpu]
 
-Weights are a reference-layout ``.pth`` or ``.npz`` state dict; with
-``--random_init`` the model is drawn from a generator seeded 0. Runs on the
-card unless ``--cpu`` is given.
+Weights are a reference-layout ``.pth`` or ``.npz`` state dict, or the JAX
+trainer's ``.npz`` checkpoint (``param::`` keys); with ``--random_init`` the
+model is drawn from a generator seeded 0. Runs on the card unless ``--cpu``
+is given.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
-"""Device time per call of K3 (bilinear x0.5 + PReLU) and K2 (HVI -> RGB)
-at the 600 x 400 base forward's shapes.
+"""Device time per call of K3 (bilinear x0.5 + PReLU), K1 (RGB -> HVI) and
+K2 (HVI -> RGB) at the 600 x 400 base forward's shapes.
 
     python -m hvi_cidnet_torch.cli.kernel_times [--batch 8 1] [--out FILE.json]
 
 Runs on the card. For K3 at NormDownsample's three sites (36 x 400 x 600,
-72 x 200 x 300, 144 x 100 x 150 per image) and K2 at 3 x 400 x 600, per
-batch, in bf16 and fp32, it prints the kernel's device time per call from
+72 x 200 x 300, 144 x 100 x 150 per image), K1 at 400 x 600 x 3 and K2 at
+3 x 400 x 600, per batch, in bf16 and fp32 (K1 from and to the same type,
+as the forward calls it), it prints the kernel's device time per call from
 a CUDA graph of GRAPH_CALLS launches (no host work between them: at batch 1
 the wrapper's host work otherwise sets the pace), its time through the
 wrapper from CUDA events, its bytes bound (each input read once, each
@@ -40,7 +41,7 @@ ALPHA = 0.25   # a PReLU slope
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="time K3 and K2 per call on the card")
+    p = argparse.ArgumentParser(description="time K3, K1 and K2 per call on the card")
     p.add_argument("--batch", type=int, nargs="+", default=[8, 1])
     p.add_argument("--out", type=str, default="")
     return p.parse_args(argv)
@@ -107,7 +108,7 @@ def main(argv=None) -> dict:
     k = torch.full((1,), K, device=dev)
     result = {"device": torch.cuda.get_device_name(0), "package": hvi_cidnet_torch.__file__,
               "rows": []}
-    print(f"{result['device']}: K3 and K2 of {result['package']}")
+    print(f"{result['device']}: K3, K1 and K2 of {result['package']}")
     for dt in (torch.bfloat16, torch.float32):
         for b in args.batch:
             for site, c, h, w in K3_SITES:
@@ -117,6 +118,11 @@ def main(argv=None) -> dict:
                     lambda: resize_cuda.half_prelu_plain(x, alpha), x,
                     x.numel() * x.element_size() * 5 // 4, site=site, batch=b))
             img = torch.rand((b, H, W, 3), generator=gen).to(dev)
+            rgb = img.to(dt)
+            result["rows"].append(measure(
+                "K1", lambda: hvi_cuda.rgb_to_hvi_kernel(rgb, k, dt),
+                lambda: hvi_cuda.rgb_to_hvi_plain(rgb, k, dt), rgb,
+                2 * rgb.numel() * rgb.element_size(), batch=b))
             hvi = hvi_cuda.rgb_to_hvi_plain(img, k, torch.float32)
             hvi = (hvi + 0.05 * torch.randn(hvi.shape, generator=gen).to(dev)).to(dt).contiguous()
             result["rows"].append(measure(

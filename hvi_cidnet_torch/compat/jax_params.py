@@ -7,7 +7,11 @@ layout. So moving parameters across is a per-tensor layout change:
 * ``jax_params_to_torch``: 4-D HWIO -> OIHW, every other tensor as it is;
 * ``load_state_dict_file``: a reference-layout state dict from ``.pth``
   (``torch.load(weights_only=True)``, unwrapping ``{"state_dict": ...}``) or
-  ``.npz``;
+  ``.npz``; an ``.npz`` with ``param::`` keys is the JAX trainer's native
+  checkpoint (``hvi_cidnet_tpu/train/checkpoint.py:save_checkpoint``): its
+  HWIO parameters are taken, as that package's ``load_checkpoint`` takes
+  them, and its optimizer state (``opt::<i>``) and epoch (``meta::*``) are
+  dropped;
 * ``load_weights``: a strict load into a model, with the semantics of the
   JAX ``compat/torch_ckpt.py:74-94`` with ``strict=True`` (the reference's
   ``load_state_dict(strict=True)``, eval.py:42). The shape-filtered
@@ -40,12 +44,23 @@ def jax_params_to_torch(np_params: Mapping[str, np.ndarray]) -> Dict[str, torch.
     return out
 
 
+# key prefix of the parameters in a JAX trainer checkpoint; its other keys
+# are "opt::<i>" (optimizer state) and "meta::epoch"
+_JAX_PARAM = "param::"
+
+
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """Reference-layout (OIHW) state dict from a ``.pth`` or ``.npz`` file, fp32."""
+    """Reference-layout (OIHW) state dict from a ``.pth`` or ``.npz`` file, fp32.
+
+    An ``.npz`` with ``param::`` keys is a JAX trainer checkpoint: its
+    parameters, HWIO convs turned to OIHW; any other ``.npz`` is a state
+    dict with bare keys in the reference's layout."""
     if path.endswith(".npz"):
         with np.load(path) as z:
-            state = {k: torch.from_numpy(np.asarray(z[k], np.float32)) for k in z.files}
-        return state
+            if any(k.startswith(_JAX_PARAM) for k in z.files):
+                return jax_params_to_torch(
+                    {k[len(_JAX_PARAM):]: z[k] for k in z.files if k.startswith(_JAX_PARAM)})
+            return {k: torch.from_numpy(np.asarray(z[k], np.float32)) for k in z.files}
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "state_dict" in state:
         state = state["state_dict"]

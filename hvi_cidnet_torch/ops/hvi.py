@@ -31,6 +31,17 @@ def color_sensitive(intensity: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.pow(torch.sin(intensity * (0.5 * PI)) + _EPS, k)
 
 
+def hue_sextants(r, g, b, value, img_min, denom) -> torch.Tensor:
+    """The hue in sixths of a turn, [0, 6), of fp32 channels ``r, g, b``
+    with their max ``value``, min ``img_min`` and ``denom = value - img_min
+    + eps``: the reference's sequential boolean-mask writes, where later
+    writes win, so the last write is the outermost select."""
+    hue = torch.where(b == value, 4.0 + (r - g) / denom, 0.0)
+    hue = torch.where(g == value, 2.0 + (b - r) / denom, hue)
+    hue = torch.where(r == value, torch.remainder((g - b) / denom, 6.0), hue)
+    return torch.where(img_min == value, 0.0, hue)
+
+
 def rgb_to_hvi(img: torch.Tensor, k: torch.Tensor, *, channel_dim: int = -1) -> torch.Tensor:
     """RGB -> HVI. ``img``: [0, 1] RGB with 3 channels on ``channel_dim``
     (default NHWC). ``k``: density_k, a one-element tensor.
@@ -45,13 +56,7 @@ def rgb_to_hvi(img: torch.Tensor, k: torch.Tensor, *, channel_dim: int = -1) -> 
     img_min = x.amin(dim=channel_dim)
     denom = value - img_min + _EPS
 
-    # sequential boolean-mask writes of the reference: later writes win, so
-    # the last write is the outermost select
-    hue = torch.where(b == value, 4.0 + (r - g) / denom, 0.0)
-    hue = torch.where(g == value, 2.0 + (b - r) / denom, hue)
-    hue = torch.where(r == value, torch.remainder((g - b) / denom, 6.0), hue)
-    hue = torch.where(img_min == value, 0.0, hue)
-    hue = hue / 6.0
+    hue = hue_sextants(r, g, b, value, img_min, denom) / 6.0
 
     saturation = (value - img_min) / (value + _EPS)
     saturation = torch.where(value == 0, 0.0, saturation)

@@ -40,9 +40,10 @@ class Enhancer:
 
     ``weights``: a ``CIDNet`` (taken over: moved to ``device``, conv weights
     cast to ``compute_dtype``; ``config``, if given, must be its config) or
-    the path of a reference-layout state dict (``.pth`` / ``.npz``), loaded
-    strictly into a fresh ``CIDNet(config)`` (default ``CIDNetConfig()``),
-    as the JAX ``Evaluator`` takes its ``config``.
+    the path of a reference-layout state dict (``.pth`` / ``.npz``) or of a
+    JAX trainer checkpoint (``.npz`` with ``param::`` keys), loaded strictly
+    into a fresh ``CIDNet(config)`` (default ``CIDNetConfig()``), as the JAX
+    ``Evaluator`` takes its ``config``.
     """
 
     def __init__(

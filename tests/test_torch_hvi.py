@@ -85,6 +85,48 @@ def test_rgb_to_hvi_matches_jax_twin():
     np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
 
 
+def _rgb_grid() -> torch.Tensor:
+    """(N, 3) fp32 RGB: every channel at the 65 steps of 1/64 (all ties,
+    grays and orders), the bf16 values of [0, 1] in each channel against
+    fixed others, and uniform draws."""
+    steps = torch.linspace(0.0, 1.0, 65)
+    grid = torch.cartesian_prod(steps, steps, steps)
+    bf16 = torch.arange(0x3F81, dtype=torch.int16).view(torch.bfloat16).float()  # [0, 1]
+    fixed = lambda u: torch.full_like(bf16, u)
+    sweeps = [torch.stack([bf16, fixed(u), fixed(v)], -1).roll(c, -1)
+              for c in range(3) for u, v in ((0.3, 0.7), (0.5, 0.5), (0.0, 1.0))]
+    rng = np.random.default_rng(7)
+    draws = torch.from_numpy(rng.uniform(0, 1, (200_000, 3)).astype(np.float32))
+    return torch.cat([grid, *sweeps, draws])
+
+
+def test_k1_hue_rewrites_equal_the_twin():
+    """K1's hue (``csrc/hvi.cu:rgb_to_hvi_pixel``) in torch ops: the
+    numerator picked in the select chain's priority and divided once, the
+    floored mod(x, 6) as x < 0 ? x + 6 : x. Both are exact: bitwise the
+    twin's hue in sextants. Then the kernel multiplies by fp32(1 / 6), as
+    the card's twin does for its "/ 6.0"; the CPU's twin divides, and the
+    two differ by at most one ulp."""
+    special = torch.from_numpy(special_pixels().reshape(-1, 3))
+    rgb = torch.cat([special, _rgb_grid()])
+    r, g, b = rgb.unbind(-1)
+    value, img_min = rgb.amax(-1), rgb.amin(-1)
+    denom = value - img_min + 1e-8
+    r_max, g_max = r == value, g == value
+    q = torch.where(r_max, g - b, torch.where(g_max, b - r, r - g)) / denom
+    assert q.abs().max() <= 1.0
+    offset = torch.where(g_max, 2.0, 4.0)
+    hue = torch.where(r_max, torch.where(q < 0, q + 6.0, q), offset + q)
+    hue = torch.where(img_min == value, 0.0, hue)
+    twin = port.hue_sextants(r, g, b, value, img_min, denom)
+    assert torch.equal(hue, twin)
+    assert torch.equal(torch.signbit(hue), torch.signbit(twin))  # -0 stays -0
+    assert (hue < 0).sum() == 0 and (hue == 0).sum() > 65
+    scaled = hue * torch.tensor(1.0 / 6.0, dtype=torch.float32)
+    ulp = torch.finfo(torch.float32).eps * (twin / 6.0).abs().clamp_min(2.0**-126)
+    assert ((scaled - twin / 6.0).abs() <= ulp).all()
+
+
 def test_rgb_to_hvi_dispatch_matches_pallas_hwcb():
     """K1's twin as the model calls it (NHWC in, NCHW out) vs the Pallas
     kernel's HWCB output, interpret mode."""

@@ -6,11 +6,11 @@ machine without jax it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Shapes are small and odd (ragged grid tails, odd extents). K3, K4 and K7
-are held to bitwise equality (``torch.equal``) in fp32 and bf16: they run
-the twins' fp32 ops in the same order. Tolerances of the others as in
-``chip_smoke.py``: fp32 1e-6 (K1) and 1e-5 (K2), bf16 one ulp at
-magnitudes below 2 (2**-7). K5 and K6 sum
+Shapes are small and odd (ragged grid tails, odd extents). K1, K3, K4 and
+K7 are held to bitwise equality (``torch.equal``) in fp32 and bf16: they
+run the twins' fp32 ops in the same order (K1 with exact rewrites).
+Tolerances of the others as in ``chip_smoke.py``: fp32 1e-5 (K2), bf16 one
+ulp at magnitudes below 2 (2**-7). K5 and K6 sum
 over space or channels in another order than the twin's cuBLAS GEMM or
 torch reduction: fp32 2e-5 (K5) and 1e-5 (K6); bf16 two ulps relative,
 |err| <= 2**-6 * max(1, |ref|) (a last-bit difference in an fp32 value can
@@ -59,7 +59,54 @@ def test_k1_matches_twin(cuda, dt):
     got = hc.rgb_to_hvi(img, k, dt)
     assert hc.RGB_TO_HVI.launches == n + 1
     ref = hc.rgb_to_hvi_plain(img, k, dt)
-    torch.testing.assert_close(got, ref, atol=_tol(dt, 1e-6), rtol=0)
+    assert torch.equal(got, ref)
+
+
+# the select chain's ties, gray, zero, one, a negative hue, a tiny value
+K1_SPECIAL = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.5, 0.5], [0.7, 0.7, 0.2], [0.7, 0.2, 0.7],
+              [0.2, 0.7, 0.7], [0.2, 0.2, 0.7], [0.2, 0.7, 0.2], [0.7, 0.2, 0.2], [0.3, 0.2, 0.25],
+              [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0], [1e-8, 0.0, 0.0]]
+
+
+def _k1_input(shape, dev, dt, seed):
+    """Uniform RGB with K1_SPECIAL planted in the first pixels. "edge": a
+    (1, 5, 17, 3) tensor 2-4 bytes past a 16-byte boundary that ends at its
+    allocation's end; "offset": a (2, 9, 13, 3) view three elements into a
+    buffer (6 or 12 bytes past a boundary, so every block's NHWC line
+    starts off alignment)."""
+    if shape == "edge":
+        return _edge_tensor((1, 5, 17, 3), dev, dt, 0.0, 1.0, seed)
+    if shape == "offset":
+        buf = _rand((3 + 2 * 9 * 13 * 3,), dev, dt, seed=seed)
+        img = buf[3:].view(2, 9, 13, 3)
+        assert img.data_ptr() % 16 != 0
+        return img
+    img = _rand(shape, dev, dt, seed=seed)
+    flat = img.view(-1, 3)
+    m = min(len(K1_SPECIAL), flat.shape[0])
+    flat[:m] = torch.tensor(K1_SPECIAL[:m], device=dev, dtype=dt)
+    return img
+
+
+# K1 at odd sizes (H * W odd: 2-byte bf16 or 4-byte fp32 plane stores), a
+# run that ends inside an image, the 600 x 400 image at batch 1, batch 33,
+# inputs off 16-byte alignment, and the two mixed dtype pairs: bitwise equal
+# to the twin on the card
+@pytest.mark.parametrize("shape", [(3, 17, 29, 3), (2, 24, 41, 3), (1, 1, 1, 3), (33, 5, 7, 3),
+                                   (33, 16, 24, 3), (1, 400, 600, 3), "edge", "offset"], ids=str)
+@pytest.mark.parametrize("dts", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                 (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)],
+                         ids=["fp32", "bf16", "fp32-bf16", "bf16-fp32"])
+def test_k1_matches_twin_at_every_plan(cuda, dts, shape):
+    dt_in, dt_out = dts
+    img = _k1_input(shape, cuda, dt_in, seed=35)
+    k = torch.full((1,), 0.2, device=cuda)
+    n = hc.RGB_TO_HVI.launches
+    got = hc.rgb_to_hvi(img, k, dt_out)
+    assert hc.RGB_TO_HVI.launches == n + 1
+    b, h, w, _ = img.shape
+    assert got.shape == (b, 3, h, w) and got.dtype == dt_out and got.is_contiguous()
+    assert torch.equal(got, hc.rgb_to_hvi_plain(img, k, dt_out))
 
 
 @pytest.mark.parametrize("gates", [{}, {"gated": True, "alpha_s": 1.3}, {"gated2": True, "alpha": 0.84}])

@@ -1,4 +1,5 @@
-"""The host-side launch plans of K2 (``ops/hvi_cuda.py:hvi_to_rgb_plan``), K3
+"""The host-side launch plans of K1 (``ops/hvi_cuda.py:rgb_to_hvi_plan``), K2
+(``ops/hvi_cuda.py:hvi_to_rgb_plan``), K3
 (``ops/resize_cuda.py:half_plan``), K4 (``ops/resize_cuda.py:double_plan``), K5
 (``ops/attention_cuda.py:attention_plan``), K6 (``ops/norm_cuda.py:
 layer_norm_plan``) and K7 (``ops/iel_cuda.py:iel_plan``), checked on the CPU.
@@ -8,12 +9,13 @@ Each test walks the plan the way the kernel walks it (the mapping that
 document, as the ``csrc/*.cu`` kernels implement it) and checks that every
 output (and, for K5, every column of the contraction and every entry of the
 score matrix) is covered exactly once, that the shared memory fits, that the
-batch-1 sites fill the card, and that no grid dimension overflows; for K2
-and K3 also that loads and stores take the widest vector the row pitches
-and the base allow.
+batch-1 sites fill the card, and that no grid dimension overflows; for K1,
+K2 and K3 also that loads and stores take the widest vector the row
+pitches and the base allow.
 """
 
 import itertools
+import math
 
 import numpy as np
 import pytest
@@ -196,6 +198,113 @@ def test_k2_plan_is_cached_and_stays_in_the_grid():
     assert hc.hvi_to_rgb_plan(hc.MAX_GRID_Y, 64, 2).grid[1] == hc.MAX_GRID_Y
     with pytest.raises(ValueError, match="grid"):
         hc.hvi_to_rgb_plan(hc.MAX_GRID_Y + 1, 64, 2)
+
+
+# (input, output) itemsizes of K1: fp32 and bf16, and the two mixed pairs
+K1_ITEMSIZES = [(4, 4), (2, 2), (4, 2), (2, 4)]
+
+
+def _k1_walk(plan, b, hw, in_itemsize, out_itemsize, in_offset, out_offset):
+    """Follows K1's threads over the images of ``plan`` (``csrc/hvi.cu``)
+    whose tensors start ``in_offset`` / ``out_offset`` bytes past a 16-byte
+    boundary: checks that every input element is loaded once, in aligned
+    16-byte vectors where the vector lies inside the block's line and
+    element by element at its ragged ends, that every pixel is converted
+    once, and that every plane element is stored once in an aligned
+    ``plan.vec`` vector. The line's offset from a 16-byte boundary repeats
+    every 16 / gcd(16, 3 * hw * in_itemsize) images: so many are walked."""
+    runs, images = plan.grid
+    run, threads, vec = plan.run, hc.RGB_THREADS, plan.vec
+    v16 = 16 // in_itemsize
+    x = np.arange(runs)[:, None]
+    n = np.minimum(run, hw - x * run)  # pixels of each run
+    for y in range(min(images, 16 // math.gcd(16, 3 * hw * in_itemsize))):
+        start = (y * hw + x * run) * 3  # the line's first element
+        shift = (in_offset + start * in_itemsize) % 16 // in_itemsize
+        end = shift + 3 * n
+        # the loads: thread t takes the whole 16-byte vectors t, t + threads,
+        # ... from `first` (the line's first 16-byte boundary at or after
+        # `shift`) to `last`; threads 0, 1, ... take one element each of the
+        # head [shift, min(first, end)) and the tail [max(last, head_end), end)
+        first, last = np.where(shift > 0, v16, 0), end // v16 * v16
+        head_end = np.minimum(first, end)
+        tail = np.maximum(last, head_end)
+        assert (head_end - shift < v16).all() and (end - tail < v16).all()
+        slot = np.arange(-(-3 * run // (threads * v16)) * threads)
+        t, it = slot % threads, slot // threads
+        e0 = first + ((t + threads * it) * v16)[None, :]
+        whole = e0 < last
+        g0 = start - shift + e0  # element of the tensor at e0
+        assert ((in_offset + g0[whole] * in_itemsize) % 16 == 0).all()
+        vec_elems = np.broadcast_to(g0[..., None] + np.arange(v16), whole.shape + (v16,))
+        e = np.arange(v16)[None, :]  # thread t's element of the head and the tail
+        ends = [(shift + e, shift + e < head_end), (tail + e, tail + e < end)]
+        elem = np.concatenate([vec_elems[whole].ravel()]
+                              + [np.broadcast_to(start - shift + i, i.shape)[m] for i, m in ends])
+        assert (np.bincount(elem - y * hw * 3, minlength=3 * hw) == 1).all()
+        # the pixels: thread t converts t, t + threads, ...
+        p = np.arange(run)[None, :]
+        assert (np.bincount(np.broadcast_to(x * run + p, (runs, run))[p < n],
+                            minlength=hw) == 1).all()
+        # the stores: thread t takes vectors t, t + threads, ... of each plane
+        q = (np.arange(threads)[None, :, None]
+             + threads * np.arange(run // (threads * vec) + 1)) * vec
+        xq = x[..., None]
+        done = np.broadcast_to(q < n[..., None], (runs, threads, q.shape[-1]))
+        assert np.broadcast_to(q + vec <= n[..., None], done.shape)[done].all()
+        first = np.broadcast_to(xq * run + q, done.shape)[done]
+        for c in range(3):
+            assert (((out_offset + ((y * 3 + c) * hw + first) * out_itemsize)
+                     % (vec * out_itemsize)) == 0).all()
+        stored = np.bincount((first[:, None] + np.arange(vec)).ravel(), minlength=hw)
+        assert (stored == 1).all()
+
+
+@pytest.mark.parametrize("itemsizes", K1_ITEMSIZES, ids=str)
+@pytest.mark.parametrize("b", [1, 3, 8, 32])
+@pytest.mark.parametrize("hw", K2_SIZES)
+def test_k1_plan_loads_and_stores_each_element_once(hw, b, itemsizes):
+    in_itemsize, out_itemsize = itemsizes
+    for in_offset, out_offset in ((0, 0), (in_itemsize, out_itemsize), (8, 8),
+                                  (16 - in_itemsize, 0)):
+        plan = hc.rgb_to_hvi_plan(b, hw, in_itemsize, out_itemsize, out_offset)
+        runs, images = plan.grid
+        assert images == b and runs * plan.run >= hw > (runs - 1) * plan.run
+        # what the C entry demands of a plan
+        assert plan.run % plan.vec == 0 and plan.run % 8 == 0
+        line_bytes = (3 * plan.run + 16 // in_itemsize) * in_itemsize
+        assert plan.smem_bytes == 3 * plan.run * out_itemsize + line_bytes <= hc.RGB_SMEM
+        _k1_walk(plan, b, hw, in_itemsize, out_itemsize, in_offset, out_offset)
+
+
+@pytest.mark.parametrize("in_itemsize,out_itemsize,hw,offset,vec_bytes", [
+    (2, 2, 240000, 0, 16), (2, 2, 60, 0, 8), (2, 2, 437, 0, 2), (2, 2, 240000, 2, 2),
+    (2, 2, 240000, 4, 4), (2, 2, 240000, 8, 8), (4, 4, 240000, 0, 16), (4, 4, 30, 0, 8),
+    (4, 4, 437, 0, 4), (4, 4, 240000, 4, 4), (4, 4, 240000, 8, 8), (4, 2, 240000, 0, 16),
+    (4, 2, 437, 0, 2), (2, 4, 240000, 0, 16), (2, 4, 30, 8, 8),
+])
+def test_k1_plan_takes_the_widest_store_the_pitch_and_base_allow(in_itemsize, out_itemsize, hw,
+                                                                 offset, vec_bytes):
+    plan = hc.rgb_to_hvi_plan(2, hw, in_itemsize, out_itemsize, offset)
+    assert plan.vec * out_itemsize == vec_bytes == _widest(hw, offset, out_itemsize)
+
+
+@pytest.mark.parametrize("itemsizes", K1_ITEMSIZES, ids=str)
+def test_k1_plan_fills_the_card_at_batch_1(itemsizes):
+    # one pixel a thread: 938 blocks of 256 threads, over seven per SM
+    plan = hc.rgb_to_hvi_plan(1, 400 * 600, *itemsizes)
+    assert plan.run == hc.RGB_THREADS and plan.grid[0] >= 7 * hc.SMS
+    # batch 8 takes two pixels a thread, batch 32 four
+    plan = hc.rgb_to_hvi_plan(8, 400 * 600, *itemsizes)
+    assert plan.run == 2 * hc.RGB_THREADS and 8 * plan.grid[0] >= hc.RGB_MIN_BLOCKS
+    assert hc.rgb_to_hvi_plan(32, 400 * 600, *itemsizes).run == 4 * hc.RGB_THREADS
+
+
+def test_k1_plan_is_cached_and_stays_in_the_grid():
+    assert hc.rgb_to_hvi_plan(8, 240000, 2, 2) is hc.rgb_to_hvi_plan(8, 240000, 2, 2)
+    assert hc.rgb_to_hvi_plan(hc.MAX_GRID_Y, 64, 4, 2).grid[1] == hc.MAX_GRID_Y
+    with pytest.raises(ValueError, match="grid"):
+        hc.rgb_to_hvi_plan(hc.MAX_GRID_Y + 1, 64, 2, 2)
 
 
 def _double_writes(plan, h, w):
