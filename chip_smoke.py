@@ -21,11 +21,16 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    must be bitwise equal to their twins; K4 and K7 are also timed at
    batch 1 at level 1, K5 and K6 at levels 1 and 3, K3 at block1 and
    block3, K1 at 1 x 400 x 600 x 3 and K2 at 1 x 3 x 400 x 600;
-5. runs the full-width base and MSSA forwards on the card in fp32 (TF32
-   off) against the same weights' plain forward on the CPU at
-   1 x 400 x 600, and bf16 against that fp32 result;
+5. runs the full-width base, MSSA and TNSM forwards on the card in fp32
+   (TF32 off) against the same weights' plain forward on the CPU at
+   1 x 400 x 600, and bf16 against that fp32 result; TNSM also with
+   ``training=True`` (the fused noise map, card vs CPU, and its launches:
+   K5 24, K6 84), and K5's unnormalised arm on the q, k, v and temperature
+   captured from the full-width TNSM forward at each of its three site
+   shapes, against its twin run on the CPU in fp32;
 6. checks the launches of one forward: base K1 1, K2 1, K3 6, K4 6, K5 11,
-   K6 33, K7 22; MSSA the same with K5 12, K6 36, K7 24;
+   K6 33, K7 22; MSSA the same with K5 12, K6 36, K7 24; TNSM K5 23, K6
+   80, K7 24;
 7. serves requests through ``serve.Enhancer`` (gates on, gamma != 1) at
    sizes that are not multiples of 8, for each variant, counting every
    kernel's launches (the main path);
@@ -71,6 +76,20 @@ TOL_BF16_REL = 2.0**-6
 TOL_FORWARD_MAX = 1e-4
 TOL_FORWARD_MEAN = 1e-6
 TOL_BF16_FORWARD_MEAN = 2e-2
+# TNSM: its attention is unnormalised, so its softmax rows take raw sums
+# over up to 60,000 pixels (|score| up to ~1.6e4 at 288 x 432, more at 400 x
+# 600) and are nearly one-hot; a last-bit change moves more of the output
+# than in base. Set from the reference's own sensitivity at full width,
+# 1 x 96 x 144 / 192 x 288 / 288 x 432 on the CPU (tests/tnsm_sensitivity.py,
+# PERF.md): the JAX package's fp32 forward vs the port's fp32 forward max
+# 1.1e-5 / 2.7e-6 / 1.1e-5, mean 8.6e-7 / 4.0e-7 / 6.9e-7 (base: 8.6e-7 max,
+# 3.2e-8 mean, so base's mean bar would not hold); the port's forward on an
+# input moved by one ulp max 1.1e-5, mean 6.8e-7; the fused noise map 1.2e-7
+# max; the JAX package's own bf16 forward vs its fp32 mean 3.5e-3 / 1.74e-2
+# / 1.65e-2 (a bf16 q or k moves a raw score by units, which flips a near-
+# tied row's winner; base 1.1e-3). The fp32 bars are 9-12x the largest of
+# those (the noise map's 80x), the bf16 mean 3x; base and MSSA keep theirs.
+TOL_TNSM = {"max": 1e-4, "mean": 1e-5, "bf16_mean": 5e-2, "noise_max": 1e-5}
 
 # the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -81,12 +100,16 @@ PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
 # ~1.98 GHz
 SASS_PER_PIXEL = {"K1": 267, "K2": 264}
 WARP_INSTRUCTIONS_PER_S = 528 * 1.98e9
-VARIANTS = ("base", "mssa")
-# launches of one forward per kernel; MSSA also runs I_LCA5 (one more LCA)
+VARIANTS = ("base", "mssa", "tnsm")
+# launches of one forward per kernel; MSSA also runs I_LCA5 (one more LCA);
+# TNSM runs 12 LCAs (3 K6, 1 K5, 2 K7 each) and 11 TNSM blocks (4 K6, 1 K5
+# each: I_TNSM5 reaches nothing when serving), and with training=True all 12
 PER_FORWARD = {
     "base": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 11, "K6": 33, "K7": 22},
     "mssa": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 12, "K6": 36, "K7": 24},
+    "tnsm": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 23, "K6": 80, "K7": 24},
 }
+TNSM_TRAINING = {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 24, "K6": 84, "K7": 24}
 
 
 def log(msg: str) -> None:
@@ -309,17 +332,32 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1.0)).max().item()
 
 
-# (level, C, heads, H, W, CAB sites in base, in MSSA) of the LCA blocks at
-# 600 x 400: LCA1/6 at H/2, LCA2/5 at H/4 (base skips I_LCA5), LCA3/4 at H/8.
-# Per CAB site: one K5, three K6 (norm of x, y and x + CAB), two K7.
+# (level, C, heads, H, W, LCA blocks per path) at 600 x 400: LCA1/6 at H/2,
+# LCA2/5 at H/4 (base skips I_LCA5), LCA3/4 at H/8. Per LCA block: one K5,
+# three K6 (norm of x, y and x + CAB), two K7.
 def lca_sites(ch=(36, 36, 72, 144), heads=(1, 2, 4, 8)):
     _, c2, c3, c4 = ch
     _, h2, h3, h4 = heads
-    return [(1, c2, h2, H // 2, W // 2, 4, 4), (2, c3, h3, H // 4, W // 4, 3, 4),
-            (3, c4, h4, H // 8, W // 8, 4, 4)]
+    return [(1, c2, h2, H // 2, W // 2, {"base": 4, "mssa": 4, "tnsm": 4}),
+            (2, c3, h3, H // 4, W // 4, {"base": 3, "mssa": 4, "tnsm": 4}),
+            (3, c4, h4, H // 8, W // 8, {"base": 4, "mssa": 4, "tnsm": 4})]
 
 
-SITE_FACTOR = {"K5": 1, "K6": 3, "K7": 2}
+# TNSM blocks of a serving forward per level: TNSM1/6, TNSM2 and HV_TNSM5,
+# TNSM3/4. Per block: one K5 (unnormalised) and four K6 (norm1 of x and y,
+# norm2, the filter's norm).
+TNSM_BLOCKS = {1: 4, 2: 3, 3: 4}
+
+
+def site_launches(key: str, level: int, lcas: dict, arm: str = "forward") -> dict:
+    """Launches per forward of each path at one LCA-level site shape: K5's
+    normalised arm in the LCAs, its unnormalised arm in the TNSM blocks."""
+    tnsm = {v: TNSM_BLOCKS[level] if v == "tnsm" else 0 for v in VARIANTS}
+    if key == "K5":
+        return tnsm if arm == "unnormalised" else dict(lcas)
+    if key == "K6":
+        return {v: 3 * lcas[v] + 4 * tnsm[v] for v in VARIANTS}
+    return {v: 2 * lcas[v] for v in VARIANTS}  # K7
 
 
 def k5_inputs(gen, shape, heads, dev, dt, normalised: bool):
@@ -398,21 +436,23 @@ def compare_lca(results: dict, dev) -> None:
                                  f"tolerance {TOL_BF16_REL:.1e}")
         return err, rel
 
-    def record(key, dt, site, err, rel, kern, plain, x, **bound_kw):
+    def record(key, dt, site, err, rel, kern, plain, x, arm="forward", **bound_kw):
         t_k, t_p = time_ms(kern), time_ms(plain)
         bound = bound_ms(key, x, **bound_kw)
         row = {"dtype": str(dt), "err": err, "rel": rel, "ms": t_k, "plain_ms": t_p,
-               "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1], "site": site}
+               "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1], "site": site,
+               "arm": arm, "per_forward": site_launches(key, site["level"], site["lcas"], arm)}
         if key == "K5":
             row["bound_cuda_core_ms"] = bound_ms(key, x, peak="fp32", **bound_kw)[0]
         results[key].append(row)
-        log(f"{key} {site} {tuple(x.shape)} {dt}: max_abs_err {err:.3e} (rel {rel:.3e})  kernel "
-            f"{t_k:.4f} ms  plain {t_p:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})"
+        log(f"{key} {arm if key == 'K5' else ''} {site} {tuple(x.shape)} {dt}: max_abs_err "
+            f"{err:.3e} (rel {rel:.3e})  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  bound "
+            f"{bound[0]:.4f} ms ({bound[1]})"
             + (f", CUDA-core bound {row['bound_cuda_core_ms']:.4f} ms" if key == "K5" else ""))
 
     for dt in (torch.float32, torch.bfloat16):
-        for level, c, heads, h, w, n_base, n_mssa in lca_sites():
-            site = {"level": level, "base": n_base, "mssa": n_mssa}
+        for level, c, heads, h, w, lcas in lca_sites():
+            site = {"level": level, "lcas": lcas}
             # K5: the forward's arm (q/k normalised, project_out folded), then
             # the unfolded arm and TNSM's unnormalised arm; q and k share
             # structure (k5_inputs), and each planted fault must be rejected
@@ -450,8 +490,8 @@ def compare_lca(results: dict, dev) -> None:
                     caught.append(f"{fault} {f_rel:.3f}")
                 log(f"K5 {arm} level {level} {dt}: planted faults rejected, rel err "
                     + ", ".join(caught))
-                if arm == "forward":
-                    record("K5", dt, site, err, rel, run, plain, q, heads=heads, fold=True)
+                if arm in ("forward", "unnormalised"):  # the arms of the LCA and TNSM sites
+                    record("K5", dt, site, err, rel, run, plain, qq, arm, heads=heads, fold=True)
                 else:
                     log(f"K5 {arm} level {level} {dt}: max_abs_err {err:.3e} (rel {rel:.3e}), "
                         f"bitwise repeatable")
@@ -536,7 +576,7 @@ def batch1_info(dev) -> None:
         f"{time_ms(lambda: ic.iel_branch_plain(y, w1, w2)):.4f} ms  "
         f"bound {bound_ms('K7', y)[0]:.4f} ms")
     rnd = lambda shape, lo, hi, t: (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, t)
-    for level, c, heads, h, w, _, _ in lca_sites():
+    for level, c, heads, h, w, _ in lca_sites():
         if level == 2:
             continue
         q, k, temp = k5_inputs(gen, (1, c, h, w), heads, dev, dt, True)
@@ -562,22 +602,64 @@ def batch1_info(dev) -> None:
             f"bound {bound_ms('K6', x)[0]:.4f} ms")
 
 
-def compare_forward(dev, variant: str):
-    """Card fp32 vs CPU fp32 with the same weights; bf16 card vs fp32 card."""
+def rgb_of(variant: str, out):
+    """The RGB of a forward: TNSM returns (rgb, noise or None)."""
+    return out[0] if variant == "tnsm" else out
+
+
+def capture_tnsm_attention(fn) -> list:
+    """Runs ``fn`` and returns the inputs of every noise-aware attention call
+    it makes (TNSM's K5 sites): (q, k, v, temperature, heads, w_proj)."""
+    from hvi_cidnet_torch.models import tnsm
+
+    calls, original = [], tnsm.channel_attention
+
+    def record(q, k, v, temperature, heads, **kw):
+        calls.append((q, k, v, temperature.detach(), heads, kw["w_proj"].detach()))
+        return original(q, k, v, temperature, heads, **kw)
+
+    tnsm.channel_attention = record
+    try:
+        fn()
+    finally:
+        tnsm.channel_attention = original
+    return calls
+
+
+def compare_forward(dev, variant: str, kernels: dict):
+    """Card fp32 vs CPU fp32 with the same weights; bf16 card vs fp32 card.
+    TNSM also: the training forward's noise map and launches, and K5 on the
+    attention inputs captured from the card's forwards. Returns the bf16
+    model."""
     from hvi_cidnet_torch.models.cidnet import (
         CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward, cidnet_hvi,
     )
 
+    tnsm = variant == "tnsm"
+    tol_max, tol_mean, tol_bf16 = ((TOL_TNSM["max"], TOL_TNSM["mean"], TOL_TNSM["bf16_mean"])
+                                   if tnsm else
+                                   (TOL_FORWARD_MAX, TOL_FORWARD_MEAN, TOL_BF16_FORWARD_MEAN))
     cfg = CIDNetConfig(variant=variant)
     cpu_model = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
     gpu_model = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
     x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, H, W, 3)).astype(np.float32))
+    fp32_sites, ref_noise = [], None
     with torch.no_grad():
         t0 = time.perf_counter()
-        ref = cidnet_forward(cpu_model, x)
+        # TNSM: training=True adds the noise map and leaves the rgb as it is
+        # (bitwise on the CPU: tests/test_torch_tnsm.py)
+        ref = cidnet_forward(cpu_model, x, training=tnsm)
+        if tnsm:
+            ref, ref_noise = ref
         ref_hvi = cidnet_hvi(cpu_model, x)
         cpu_s = time.perf_counter() - t0
-        got = cidnet_forward(gpu_model, x.to(dev)).cpu()
+        run = lambda: rgb_of(variant, cidnet_forward(gpu_model, x.to(dev))).cpu()
+        if tnsm:
+            out = []
+            fp32_sites = capture_tnsm_attention(lambda: out.append(run()))
+            got = out[0]
+        else:
+            got = run()
         got_hvi = cidnet_hvi(gpu_model, x.to(dev)).cpu()
     for t in (got, ref):
         if t.shape != (1, H, W, 3) or not torch.isfinite(t).all():
@@ -590,23 +672,105 @@ def compare_forward(dev, variant: str):
     log(f"{variant} forward fp32 (1, {H}, {W}, 3): card vs CPU max_abs_err {err:.3e} (hue-edge "
         f"pixels {int(edge.sum())} excluded), mean_abs_err {mean:.3e}, output-HVI max_abs_err "
         f"{hvi_err:.3e}  [CPU fp32 forward x2: {cpu_s:.1f} s]")
-    check(f"{variant} forward fp32 card vs CPU", err, TOL_FORWARD_MAX)
-    check(f"{variant} forward fp32 card vs CPU (mean)", mean, TOL_FORWARD_MEAN)
-    check(f"{variant} forward output HVI card vs CPU", hvi_err, TOL_FORWARD_MAX)
+    check(f"{variant} forward fp32 card vs CPU", err, tol_max)
+    check(f"{variant} forward fp32 card vs CPU (mean)", mean, tol_mean)
+    check(f"{variant} forward output HVI card vs CPU", hvi_err, tol_max)
+    if tnsm:
+        compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise)
 
     bf_model = cast_conv_weights(
         CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev), torch.bfloat16
     ).eval()
+    out = []
     with torch.no_grad():
-        bf = cidnet_forward(bf_model, x.to(dev, torch.bfloat16), compute_dtype=torch.bfloat16)
+        bf_run = lambda: out.append(rgb_of(variant, cidnet_forward(
+            bf_model, x.to(dev, torch.bfloat16), compute_dtype=torch.bfloat16)))
+        bf16_sites = capture_tnsm_attention(bf_run) if tnsm else bf_run()
+    bf = out[0]
     if not torch.isfinite(bf.float()).all():
         raise AssertionError(f"{variant} bf16 forward is not finite")
     bf_mean = (bf.float().cpu() - got).abs().mean().item()
     bf_max = (bf.float().cpu() - got).abs().max().item()
     log(f"{variant} forward bf16 vs fp32 on the card: mean_abs_err {bf_mean:.3e}, "
         f"max_abs_err {bf_max:.3e}")
-    check(f"{variant} forward bf16 vs fp32 (mean)", bf_mean, TOL_BF16_FORWARD_MEAN)
+    check(f"{variant} forward bf16 vs fp32 (mean)", bf_mean, tol_bf16)
+    if tnsm:
+        compare_k5_captured(fp32_sites, bf16_sites)
     return bf_model
+
+
+def compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise) -> None:
+    """The TNSM forward with training=True on the card: its launches (I_TNSM5
+    runs, for its noise map), its rgb against the serving forward's ``got``,
+    and its fused noise map against the CPU's ``ref_noise``."""
+    from hvi_cidnet_torch.models.cidnet import cidnet_forward
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset(kernels)
+        rgb, noise = cidnet_forward(gpu_model, x.to(dev), training=True)
+        torch.cuda.synchronize()
+        launched = counts(kernels)
+    log(f"tnsm training=True launches per forward: {launched}")
+    if launched != TNSM_TRAINING:
+        raise AssertionError(f"tnsm training launches {launched} != {TNSM_TRAINING}")
+    noise = noise.cpu()
+    if noise.shape != (1, H, W, 3) or not torch.isfinite(noise).all():
+        raise AssertionError(f"tnsm fused noise map bad: {tuple(noise.shape)}")
+    check("tnsm training=True rgb vs serving rgb on the card", max_err(rgb.cpu(), got),
+          TOL_TNSM["max"])
+    err, mean = max_err(noise, ref_noise), (noise - ref_noise).abs().mean().item()
+    log(f"tnsm fused noise map (1, {H}, {W}, 3) fp32: card vs CPU max_abs_err {err:.3e}, "
+        f"mean_abs_err {mean:.3e}, range [{noise.min().item():.4f}, {noise.max().item():.4f}]")
+    check("tnsm fused noise map card vs CPU", err, TOL_TNSM["noise_max"])
+
+
+def attention_f64(q, k, v, temperature, heads, w_proj):
+    """K5's unnormalised, folded arm in float64 on the CPU (the twin's
+    algebra, ``ops/attention.py``), and the masked scores it softmaxes."""
+    b, c, h, w = q.shape
+    cp = c // heads
+    q64, k64, v64 = (t.cpu().reshape(b, c, h * w).double() for t in (q, k, v))
+    scores = torch.bmm(q64, k64.transpose(1, 2))
+    scores = scores * temperature.cpu().reshape(heads).double().repeat_interleave(cp)[None, :, None]
+    head = torch.arange(c) // cp
+    scores = scores.masked_fill(head[:, None] != head[None, :], float("-inf"))
+    attn = torch.matmul(w_proj.cpu().reshape(c, c).double(), torch.softmax(scores, dim=-1))
+    return torch.bmm(attn, v64).reshape(b, c, h, w), scores
+
+
+def compare_k5_captured(fp32_sites: list, bf16_sites: list) -> None:
+    """K5's unnormalised arm at each TNSM site shape on the q, k, v and
+    temperature the full-width forward gave it: fp32 against its twin run on
+    the CPU in fp32 (TOL_FP32["K5"]), with the twin's and the kernel's gap
+    to float64 beside it; bf16 against the twin on the same bf16 inputs, on
+    the CPU (two bf16 ulps relative, as every bf16 K5 check)."""
+    from hvi_cidnet_torch.ops import attention_cuda as ac
+
+    for dt, sites in ((torch.float32, fp32_sites), (torch.bfloat16, bf16_sites)):
+        seen = set()
+        for q, k, v, temp, heads, wp in sites:
+            if q.shape in seen:
+                continue
+            seen.add(q.shape)
+            got = ac.channel_attention_kernel(q, k, v, temp, heads, normalize_qk=False, w_proj=wp)
+            ref = k5_twin_cpu(q, k, v, temp, heads, False, wp)
+            exact, scores = attention_f64(q, k, v, temp, heads, wp)
+            top2 = scores.topk(2, dim=-1).values
+            gap = (top2[..., 0] - top2[..., 1]).min().item()
+            err, rel = max_err(got, ref), rel_err(got, ref)
+            log(f"K5 unnormalised, captured from the tnsm forward {tuple(q.shape)} heads {heads} "
+                f"{dt}: |score| up to {scores[torch.isfinite(scores)].abs().max().item():.1f}, "
+                f"smallest top-2 gap {gap:.3e}; kernel vs CPU twin max_abs_err {err:.3e} (rel "
+                f"{rel:.3e}); vs float64: kernel {max_err(got.cpu().double(), exact):.3e}, CPU "
+                f"twin {max_err(ref.cpu().double(), exact):.3e}")
+            if dt == torch.float32:
+                check(f"K5 captured {tuple(q.shape)} fp32", err, TOL_FP32["K5"])
+            elif not rel <= TOL_BF16_REL:
+                raise AssertionError(f"K5 captured {tuple(q.shape)} bf16: rel err {rel:.3e} > "
+                                     f"{TOL_BF16_REL:.1e}")
+        if len(seen) != 3:
+            raise AssertionError(f"K5 captured {dt}: {len(seen)} site shapes, expected 3")
 
 
 def counts(kernels) -> dict:
@@ -620,17 +784,18 @@ def reset(kernels) -> None:
 
 def summarise(key: str, rows: list, launches: dict) -> dict:
     """One kernel's line: errors over both dtypes; times and bounds summed
-    over the kernel's sites in one base forward, 600 x 400, batch 8, bf16."""
+    over the kernel's sites in one forward, 600 x 400, batch 8, bf16: base
+    in ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms``, each path in
+    ``*_by_path``."""
     bf = [r for r in rows if r["dtype"] == "torch.bfloat16"]
     if key == "K2":
         bf = bf[:1]  # the no-gates arm, as the forward runs by default
 
-    def per_forward(field):
+    def per_forward(field, path="base"):
         if bf[0].get(field) is None:
             return None
-        if key in SITE_FACTOR:
-            return sum(r[field] * r["site"]["base"] * SITE_FACTOR[key] for r in bf)
-        return sum(r[field] for r in bf)
+        # K1-K4: each row is one launch of every path's forward
+        return sum(r[field] * r.get("per_forward", {}).get(path, 1) for r in bf)
 
     sources = {"K1": ("rgb_to_hvi", "hvi.cu", "hvi_pallas.py:57"),
                "K2": ("hvi_to_rgb", "hvi.cu", "hvi_pallas.py:102"),
@@ -655,6 +820,9 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
         "bound_ms": per_forward("bound_ms"),
         "bound_by": worst["bound_by"],
         "library_ms": per_forward("library_ms"),
+        "ms_by_path": {v: per_forward("ms", v) for v in VARIANTS},
+        "plain_ms_by_path": {v: per_forward("plain_ms", v) for v in VARIANTS},
+        "bound_ms_by_path": {v: per_forward("bound_ms", v) for v in VARIANTS},
     }
     if key == "K5":
         line["bound_cuda_core_ms"] = per_forward("bound_cuda_core_ms")
@@ -694,7 +862,7 @@ def main() -> int:
     compare_lca(results, dev)
     batch1_info(dev)
     torch.cuda.empty_cache()
-    bf_models = {v: compare_forward(dev, v) for v in VARIANTS}
+    bf_models = {v: compare_forward(dev, v, kernels) for v in VARIANTS}
 
     # launches of one forward (the bf16 serving models, 1 x 400 x 600)
     x = torch.rand((1, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev, torch.bfloat16)
@@ -740,9 +908,8 @@ def main() -> int:
                 dev, torch.bfloat16)
             torch.cuda.reset_peak_memory_stats()
             with torch.no_grad():
-                ms = time_ms(
-                    lambda: cidnet_forward(model, xb, compute_dtype=torch.bfloat16).clamp_(0, 1),
-                    iters=5, warmup=2)
+                ms = time_ms(lambda: rgb_of(variant, cidnet_forward(
+                    model, xb, compute_dtype=torch.bfloat16)).clamp_(0, 1), iters=5, warmup=2)
             peak = torch.cuda.max_memory_allocated() / 2**30
             log(f"{variant} forward 600x400 bf16 batch {b}: {ms:.2f} ms, {1000 * b / ms:.1f} img/s, "
                 f"peak {peak:.2f} GiB")

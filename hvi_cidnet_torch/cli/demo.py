@@ -4,12 +4,14 @@ demo.py:11-73): reflect-pad to x8, run with both HVI gates on, crop, save
 
     python -m hvi_cidnet_torch.cli.demo --input IMG [--output_dir output]
         [--weight weights/SICE.pth | --random_init] [--gamma 1.0]
-        [--alpha_s 1.0] [--alpha_i 1.0] [--variant base|mssa] [--cpu]
+        [--alpha_s 1.0] [--alpha_i 1.0] [--variant base|mssa|tnsm] [--cpu]
 
-Weights are a reference-layout ``.pth`` or ``.npz`` state dict, or the JAX
-trainer's ``.npz`` checkpoint (``param::`` keys); with ``--random_init`` the
-model is drawn from a generator seeded 0. Runs on the card unless ``--cpu``
-is given.
+Weights are a reference-layout ``.pth``, ``.npz`` or ``.safetensors``
+state dict, the JAX trainer's ``.npz`` checkpoint (``param::`` keys) or an
+HF folder, whose ``config.json`` gives the model's config in place of
+``--variant``; TNSM loads them shape-filtered and non-strict, as the TNSM
+evaluator does. With ``--random_init`` the model is drawn from a generator
+seeded 0. Runs on the card unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ def main(argv=None) -> str:
         weights = args.weight
     # the reference demo enables both gates (demo.py:32-33, 41-42)
     gates = HVIGates(gated=True, gated2=True, alpha=args.alpha_i, alpha_s=args.alpha_s)
+    if not args.random_init and os.path.isdir(args.weight):
+        config = None  # the folder's config.json
     enhancer = Enhancer(weights, gates, config=config, gamma=args.gamma,
                         device="cpu" if args.cpu else "cuda")
 

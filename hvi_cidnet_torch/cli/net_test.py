@@ -2,7 +2,7 @@
 counterpart of ``cli/net_test.py`` (reference net_test.py:1-21).
 
     python -m hvi_cidnet_torch.cli.net_test [--size 256] [--batch 1]
-        [--dtype float32|bfloat16] [--iters 10] [--variant base|mssa] [--cpu]
+        [--dtype float32|bfloat16] [--iters 10] [--variant base|mssa|tnsm] [--cpu]
 
 Runs on the card unless ``--cpu`` is given. The time is host wall clock
 around forwards that end in a device synchronise.
@@ -50,13 +50,17 @@ def main(argv=None) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def forward():
+        out = cidnet_forward(model, x, compute_dtype=dt)
+        return out[0] if args.variant == "tnsm" else out  # TNSM: (rgb, None)
+
     with torch.no_grad():
         with FlopCounterMode(display=False) as counter:
-            out = cidnet_forward(model, x, compute_dtype=dt)  # also the warm-up
+            out = forward()  # also the warm-up
         sync()
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            out = cidnet_forward(model, x, compute_dtype=dt)
+            out = forward()
         sync()
         seconds = (time.perf_counter() - t0) / args.iters
 

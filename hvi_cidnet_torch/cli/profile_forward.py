@@ -1,6 +1,6 @@
 """Where the forward's device time goes: one ``torch.profiler`` run.
 
-    python -m hvi_cidnet_torch.cli.profile_forward [--variant base|mssa]
+    python -m hvi_cidnet_torch.cli.profile_forward [--variant base|mssa|tnsm]
         [--batch 1 8] [--out FILE.json]
 
 Runs on the card (600 x 400, bf16, random weights from seed 0). For each

@@ -1,32 +1,36 @@
-"""CIDNet, base and MSSA: the module tree, its initialisation and its forward.
+"""CIDNet, base, MSSA and TNSM: the module tree, its initialisation and its
+forward.
 
 Counterpart of ``hvi_cidnet_tpu/models/cidnet.py`` for the base variant
-(reference net/CIDNet.py) and the MSSA variant (net/CIDNet_MSSA.py), which
+(reference net/CIDNet.py), the MSSA variant (net/CIDNet_MSSA.py), which
 adds a spatial-attention gate after each decoder upsample and feeds
-``I_LCA5``'s output to ``ID_block2``. TNSM is not ported yet. The
-reference's graph quirks are kept, because released checkpoints were
-trained with them:
+``I_LCA5``'s output to ``ID_block2``, and the TNSM variant
+(net/CIDNet_TNSM.py), which runs a noise-suppression block
+(``models/tnsm.py``) after each LCA and, in training, fuses the twelve
+noise maps into a three-channel map. The reference's graph quirks are kept,
+because released checkpoints were trained with them:
 
 (a) the level-3 downsamples consume the pre-LCA features (CIDNet.py:94-95);
-(b) base only: ``I_LCA5``'s output is discarded, ``ID_block2`` re-derives
-    from ``i_dec3`` (CIDNet.py:105, 109);
+(b) base and TNSM: ``ID_block2`` re-derives from ``i_dec3``
+    (CIDNet.py:105, 109), so ``I_LCA5``'s output reaches nothing in base,
+    and in TNSM only ``HV_TNSM5`` (as its ``y``);
 (c) ``head1``/``ch1`` never feed an LCA (CIDNet.py:17-18).
 
 The public layout is NHWC in [0, 1] in and NHWC out, as in JAX; inside, the
 activations are NCHW. On the card the HVI transform runs as the CUDA
 kernels K1 and K2 (``ops/hvi_cuda.py``) and the blocks as K3-K7
-(``models/layers.py``); attention softmax and LN statistics are fp32,
-everything else ``compute_dtype``. Only the 4-D conv weights take
-the compute dtype (``cast_conv_weights``): LayerNorm, PReLU, temperature
-and density_k stay fp32 (``.to(bfloat16)`` on the whole module would round
-density_k 0.2 to 0.2002).
+(``models/layers.py``, ``models/tnsm.py``); attention softmax and LN
+statistics are fp32, everything else ``compute_dtype``. Only the 4-D conv
+weights take the compute dtype (``cast_conv_weights``): LayerNorm, PReLU,
+temperature and density_k stay fp32 (``.to(bfloat16)`` on the whole module
+would round density_k 0.2 to 0.2002).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -39,19 +43,22 @@ from hvi_cidnet_torch.models.layers import (
     NormUpsample,
     SpatialAttention,
 )
-from hvi_cidnet_torch.ops.conv import conv3x3_replpad
+from hvi_cidnet_torch.models.tnsm import TNSM
+from hvi_cidnet_torch.ops.conv import conv2d, conv3x3_replpad
 from hvi_cidnet_torch.ops.hvi_cuda import hvi_to_rgb, rgb_to_hvi
+from hvi_cidnet_torch.ops.resize import resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
 class CIDNetConfig:
-    """Defaults mirror net/CIDNet.py:9-12. ``variant``: "base" or "mssa"
-    ("tnsm" is not ported yet)."""
+    """Defaults mirror net/CIDNet.py:9-12. ``variant``: "base", "mssa" or
+    "tnsm"; ``use_tnsm`` applies to "tnsm" only (net/CIDNet_TNSM.py:19)."""
 
     channels: Tuple[int, int, int, int] = (36, 36, 72, 144)
     heads: Tuple[int, int, int, int] = (1, 2, 4, 8)
     norm: bool = False
     variant: str = "base"
+    use_tnsm: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +79,13 @@ class RGB_HVI(nn.Module):
         self.density_k = nn.Parameter(torch.full((1,), 0.2))
 
 
-VARIANTS = ("base", "mssa")
+VARIANTS = ("base", "mssa", "tnsm")
 SA_NAMES = ("sa_hv3", "sa_i3", "sa_hv2", "sa_i2", "sa_hv1", "sa_i1")
+
+
+def uses_tnsm(config: CIDNetConfig) -> bool:
+    """Whether ``config`` has the TNSM blocks and the noise fusion."""
+    return config.variant == "tnsm" and config.use_tnsm
 
 
 class CIDNet(nn.Module):
@@ -88,9 +100,7 @@ class CIDNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if config.variant not in VARIANTS:
-            raise NotImplementedError(
-                f"variant {config.variant!r} is not ported; only {', '.join(VARIANTS)}"
-            )
+            raise ValueError(f"variant {config.variant!r} is not one of {', '.join(VARIANTS)}")
         self.config = config
         ch1, ch2, ch3, ch4 = config.channels
         _, h2, h3, h4 = config.heads
@@ -120,9 +130,16 @@ class CIDNet(nn.Module):
             self.add_module(f"I_LCA{idx}", I_LCA(dim, heads))
 
         self.trans = RGB_HVI()
-        if config.variant == "mssa":  # after the base tree: base draws stay as they were
+        # the variants' modules come after the base tree: base draws stay as they were
+        if config.variant == "mssa":
             for name in SA_NAMES:
                 self.add_module(name, SpatialAttention())
+        if uses_tnsm(config):
+            for idx, (dim, heads) in dims.items():
+                self.add_module(f"HV_TNSM{idx}", TNSM(dim, heads))
+                self.add_module(f"I_TNSM{idx}", TNSM(dim, heads))
+            # the twelve noise maps (two a level) -> 3 (CIDNet_TNSM.py:262)
+            self.noise_fusion = nn.Sequential(Conv(12, 3, 3))
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -165,11 +182,33 @@ def _check_x8(x: torch.Tensor) -> None:
 def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
     """The forward up to PHVIT: NHWC RGB -> the output HVI map, NCHW
     (B, 3, H, W) in ``compute_dtype`` (net/CIDNet.py:71-119; MSSA:
-    net/CIDNet_MSSA.py)."""
+    net/CIDNet_MSSA.py; TNSM: net/CIDNet_TNSM.py)."""
+    return _hvi_and_noise(model, x, compute_dtype, training=False)[0]
+
+
+def _hvi_and_noise(
+    model: CIDNet, x: torch.Tensor, compute_dtype, *, training: bool
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The output HVI map and, for TNSM, the per-level noise maps in the
+    reference's order (I before HV, levels 1-6; ``I_TNSM5``'s only with
+    ``training``)."""
     _check_x8(x)
     m = model
     mssa = m.config.variant == "mssa"
+    tnsm = uses_tnsm(m.config)
     gate = (lambda name, t: getattr(m, name)(t)) if mssa else (lambda name, t: t)
+    noise_maps: List[torch.Tensor] = []
+
+    def suppress(idx, i_x, hv_x):
+        """The level's TNSM pair after its LCA pair (CIDNet_TNSM.py:122-132):
+        each reads the other's LCA output, not its TNSM output."""
+        if not tnsm:
+            return i_x, hv_x
+        i_t, i_n = getattr(m, f"I_TNSM{idx}")(i_x, hv_x)
+        hv_t, hv_n = getattr(m, f"HV_TNSM{idx}")(hv_x, i_x)
+        noise_maps.extend([i_n, hv_n])
+        return i_t, hv_t
+
     hvi = rgb_to_hvi(x, m.trans.density_k, compute_dtype)  # K1; CIDNet.py:73
     i_img = hvi[:, 2:3]                                    # :74
 
@@ -181,12 +220,14 @@ def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32) -
 
     i_enc2 = m.I_LCA1(i_enc1, hv_1)  # :83
     hv_2 = m.HV_LCA1(hv_1, i_enc1)
+    i_enc2, hv_2 = suppress(1, i_enc2, hv_2)
     v_jump1, hv_jump1 = i_enc2, hv_2
     i_enc2 = m.IE_block2(i_enc2)
     hv_2 = m.HVE_block2(hv_2)
 
     i_enc3 = m.I_LCA2(i_enc2, hv_2)  # :90
     hv_3 = m.HV_LCA2(hv_2, i_enc2)
+    i_enc3, hv_3 = suppress(2, i_enc3, hv_3)
     v_jump2, hv_jump2 = i_enc3, hv_3
     # quirk (a): level-3 downsamples consume the PRE-LCA features (:94-95)
     i_enc3 = m.IE_block3(i_enc2)
@@ -194,31 +235,42 @@ def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32) -
 
     i_enc4 = m.I_LCA3(i_enc3, hv_3)  # :97
     hv_4 = m.HV_LCA3(hv_3, i_enc3)
+    i_enc4, hv_4 = suppress(3, i_enc4, hv_4)
 
     i_dec4 = m.I_LCA4(i_enc4, hv_4)  # :100
     hv_4 = m.HV_LCA4(hv_4, i_enc4)
+    i_dec4, hv_4 = suppress(4, i_dec4, hv_4)
 
     hv_3 = gate("sa_hv3", m.HVD_block3(hv_4, hv_jump2))  # :103; MSSA :133
     i_dec3 = gate("sa_i3", m.ID_block3(i_dec4, v_jump2))  # MSSA :135
 
-    # base: quirk (b) discards I_LCA5's output (:105), so it is not computed;
-    # XLA's dead-code elimination drops it from the JAX program the same way
-    i_dec2 = m.I_LCA5(i_dec3, hv_3) if mssa else i_dec3
+    # quirk (b): in base I_LCA5's output reaches nothing, so it is not
+    # computed (XLA's dead-code elimination drops it from the JAX program the
+    # same way); MSSA feeds it to ID_block2, TNSM to HV_TNSM5 as its y
+    i_dec2 = m.I_LCA5(i_dec3, hv_3) if mssa or tnsm else i_dec3
     hv_2 = m.HV_LCA5(hv_3, i_dec3)
+    if tnsm:
+        # I_TNSM5's output is discarded (quirk (b)); only training reads its
+        # noise map, so serving skips the block, as XLA's dead-code elimination does
+        if training:
+            noise_maps.append(m.I_TNSM5(i_dec2, hv_2)[1])
+        hv_2, hv_n5 = m.HV_TNSM5(hv_2, i_dec2)
+        noise_maps.append(hv_n5)
 
     hv_2 = gate("sa_hv2", m.HVD_block2(hv_2, hv_jump1))  # :108
-    # base, quirk (b): from i_dec3 (:109); MSSA feeds I_LCA5's output (:143)
-    i_dec2 = gate("sa_i2", m.ID_block2(i_dec2, v_jump1))
+    # base and TNSM, quirk (b): from i_dec3 (:109); MSSA feeds I_LCA5's output (:143)
+    i_dec2 = gate("sa_i2", m.ID_block2(i_dec2 if mssa else i_dec3, v_jump1))
 
     i_dec1 = m.I_LCA6(i_dec2, hv_2)  # :111
     hv_1 = m.HV_LCA6(hv_2, i_dec2)
+    i_dec1, hv_1 = suppress(6, i_dec1, hv_1)
 
     i_dec1 = gate("sa_i1", m.ID_block1(i_dec1, i_jump0))  # :114
     i_dec0 = conv3x3_replpad(i_dec1, m.ID_block0[1].weight)
     hv_1 = gate("sa_hv1", m.HVD_block1(hv_1, hv_jump0))
     hv_0 = conv3x3_replpad(hv_1, m.HVD_block0[1].weight)
 
-    return torch.cat([hv_0, i_dec0], dim=1) + hvi  # :119
+    return torch.cat([hv_0, i_dec0], dim=1) + hvi, noise_maps  # :119
 
 
 def cidnet_forward(
@@ -227,13 +279,28 @@ def cidnet_forward(
     gates: HVIGates = HVIGates(),
     *,
     compute_dtype=torch.float32,
-) -> torch.Tensor:
+    training: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """CIDNet forward (the model's variant). ``x``: NHWC RGB in [0, 1] with
     H, W multiples of 8, on the model's device. Returns NHWC RGB in
-    ``compute_dtype``."""
-    out_hvi = cidnet_hvi(model, x, compute_dtype=compute_dtype)
+    ``compute_dtype``; TNSM returns ``(rgb, noise)``, where ``noise`` is None
+    unless ``training`` (and ``use_tnsm``): then the twelve noise maps
+    resized to the output size (bilinear, ``align_corners=False``), fused by
+    ``noise_fusion`` (zero SAME padding) and a sigmoid, NHWC (B, H, W, 3)
+    (net/CIDNet_TNSM.py:248-294). Forward only: ``training`` runs no
+    training-mode layer, it only adds the noise output."""
+    out_hvi, noise_maps = _hvi_and_noise(model, x, compute_dtype, training=training)
     # PHVIT read the detached Python float this_k (HVI_transform.py:38, 59)
-    return hvi_to_rgb(  # K2
+    rgb = hvi_to_rgb(  # K2
         out_hvi, model.trans.density_k.detach(),
         gated=gates.gated, gated2=gates.gated2, alpha=gates.alpha, alpha_s=gates.alpha_s,
     )
+    if model.config.variant != "tnsm":
+        return rgb
+    if not (training and noise_maps):
+        return rgb, None
+    h, w = rgb.shape[1], rgb.shape[2]
+    stacked = torch.cat(
+        [resize_bilinear(nm, h, w) for nm in noise_maps], dim=1)
+    fused = torch.sigmoid(conv2d(stacked, model.noise_fusion[0].weight, padding=1))
+    return rgb, fused.permute(0, 2, 3, 1)

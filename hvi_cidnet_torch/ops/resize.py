@@ -1,5 +1,6 @@
 """Bilinear x0.5 / x2 with ``align_corners=True`` in plain PyTorch, with
-the interpolation weights the CUDA kernels use.
+the interpolation weights the CUDA kernels use, and the general resize
+(any size, ``align_corners=False``) that TNSM's noise maps take.
 
 Reference: ``nn.UpsamplingBilinear2d(scale_factor=0.5 / 2)`` inside
 NormDownsample / NormUpsample (net/transformer_utils.py:38-40, 57-59), i.e.
@@ -17,6 +18,12 @@ package is not importable without jax). They compute the per-tap weights in
 float64 and store fp32, and a test checks that they are bitwise equal to
 the JAX ones: K3 and K4 (``ops/resize_cuda.py``) run with exactly these
 weights.
+
+``resize_bilinear`` is the JAX ``resize_bilinear_hwcb(..., align_corners=
+False)`` (``hvi_cidnet_tpu/ops/resize.py:142-167``) on NCHW: the dense
+matrix of each axis, H first,
+applied as a product in the activation's dtype. It is plain PyTorch on every
+device, as JAX runs it as plain XLA: no Pallas kernel computes it there.
 """
 
 from __future__ import annotations
@@ -28,15 +35,19 @@ import torch
 
 
 @functools.lru_cache(maxsize=None)
-def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(out_size, in_size) row-stochastic bilinear interpolation matrix,
-    ``align_corners=True`` (the general resize TNSM needs is not ported)."""
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool = True) -> np.ndarray:
+    """(out_size, in_size) row-stochastic bilinear interpolation matrix. The
+    source position is a Python float; the matrix is stored in fp32."""
     m = np.zeros((out_size, in_size), dtype=np.float32)
     if in_size == 1:
         m[:, 0] = 1.0
         return m
     for i in range(out_size):
-        src = i * (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        if align_corners:
+            src = i * (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        else:
+            # torch's half-pixel convention, clamped to >= 0
+            src = max((i + 0.5) * in_size / out_size - 0.5, 0.0)
         lo = min(int(np.floor(src)), in_size - 1)
         hi = min(lo + 1, in_size - 1)
         frac = src - lo
@@ -127,3 +138,17 @@ def scale_half_f32(x: torch.Tensor) -> torch.Tensor:
 def scale_double_f32(x: torch.Tensor) -> torch.Tensor:
     """``UpsamplingBilinear2d(2)`` on NCHW ``x``, in fp32, H pass first."""
     return _double_axis(_double_axis(x.float(), -2), -1)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x`` to (out_h, out_w), ``align_corners=False``
+    (the TNSM noise maps, net/CIDNet_TNSM.py:258): per axis, H first, a
+    product with the fp32 interpolation matrix taken to ``x.dtype``; an axis
+    already at its size is left alone."""
+    if x.shape[-2] != out_h:
+        m = torch.from_numpy(_interp_matrix(x.shape[-2], out_h, False))
+        x = torch.einsum("oh,bchw->bcow", m.to(x.device, x.dtype), x)
+    if x.shape[-1] != out_w:
+        m = torch.from_numpy(_interp_matrix(x.shape[-1], out_w, False))
+        x = torch.einsum("pw,bchw->bchp", m.to(x.device, x.dtype), x)
+    return x

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import os
+
 import numpy as np
 import torch
 
@@ -21,6 +23,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cast_conv_weights,
     cidnet_forward,
 )
+from hvi_cidnet_torch.utils.hf_config import config_from_hf_json
 
 
 def _bucket(h: int, w: int, factor: int = 8):
@@ -36,14 +39,19 @@ def _pad_to(img: np.ndarray, bh: int, bw: int) -> np.ndarray:
 
 
 class Enhancer:
-    """Serves CIDNet (base or MSSA) on ``device``.
+    """Serves CIDNet (base, MSSA or TNSM) on ``device``.
 
     ``weights``: a ``CIDNet`` (taken over: moved to ``device``, conv weights
     cast to ``compute_dtype``; ``config``, if given, must be its config) or
-    the path of a reference-layout state dict (``.pth`` / ``.npz``) or of a
-    JAX trainer checkpoint (``.npz`` with ``param::`` keys), loaded strictly
-    into a fresh ``CIDNet(config)`` (default ``CIDNetConfig()``), as the JAX
-    ``Evaluator`` takes its ``config``.
+    the path of a reference-layout state dict (``.pth`` / ``.npz`` /
+    ``.safetensors``), of a JAX trainer checkpoint (``.npz`` with
+    ``param::`` keys) or of an HF folder (``model.safetensors`` beside a
+    ``config.json``), loaded into a fresh ``CIDNet(config)``. ``config``
+    defaults to the folder's ``config.json``, else ``CIDNetConfig()``, as
+    the JAX ``Evaluator`` takes its ``config``. ``strict`` defaults to True,
+    and to False for TNSM: the shape-filtered load of the TNSM evaluator
+    (cli/eval_tnsm.py), where every tensor the file lacks keeps its seeded
+    init.
     """
 
     def __init__(
@@ -52,6 +60,7 @@ class Enhancer:
         gates: HVIGates = HVIGates(),
         *,
         config: Optional[CIDNetConfig] = None,
+        strict: Optional[bool] = None,
         gamma: float = 1.0,
         compute_dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device] = "cuda",
@@ -61,7 +70,12 @@ class Enhancer:
                 raise ValueError(f"model config {weights.config} != serving config {config}")
             model = weights
         else:
-            model = load_weights(CIDNet(config or CIDNetConfig()), weights)
+            if config is None:  # an HF folder's config.json, else the default
+                hf = os.path.join(weights, "config.json")
+                config = config_from_hf_json(hf) if os.path.isfile(hf) else CIDNetConfig()
+            if strict is None:
+                strict = config.variant != "tnsm"
+            model = load_weights(CIDNet(config), weights, strict=strict)
         self.config = model.config
         self.device = torch.device(device)
         self.model = cast_conv_weights(model.to(self.device), compute_dtype).eval()
@@ -75,6 +89,8 @@ class Enhancer:
         if self.gamma != 1.0:
             t = t**self.gamma  # eval.py:64
         out = cidnet_forward(self.model, t, self.gates, compute_dtype=self.compute_dtype)
+        if self.config.variant == "tnsm":
+            out = out[0]  # (rgb, None) when serving
         return out.float().clamp(0.0, 1.0)  # eval.py:69
 
     def enhance(self, img: np.ndarray) -> np.ndarray:

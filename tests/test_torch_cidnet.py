@@ -145,9 +145,9 @@ def test_bf16_forward_runs_on_cpu(tiny):
     assert (out.float() - ref).abs().mean().item() < 2e-2
 
 
-def test_other_variants_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        CIDNet(CIDNetConfig(variant="tnsm"))
+def test_unknown_variant_raises():
+    with pytest.raises(ValueError, match="'foo' is not one of base, mssa, tnsm"):
+        CIDNet(CIDNetConfig(variant="foo"))
 
 
 def test_entry_twin_shapes():

@@ -513,3 +513,36 @@ def test_lca_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         w3 = torch.rand((8, 1, 3, 3), device=cuda)
         ic.iel_branch(t.transpose(2, 3), w3, w3)
+
+
+def test_tnsm_full_width_forward_matches_cpu(cuda):
+    """The full-width TNSM forward (1 x 96 x 144) on the card against the same
+    weights' forward on the CPU, fp32, at chip_smoke.py's TNSM bars (set from
+    the reference's own fp32 sensitivity, tests/tnsm_sensitivity.py): the
+    output HVI map (free of the RGB hue wrap) max 1e-4, the RGB mean 1e-5,
+    the training forward's fused noise map max 1e-5; and the launches of a
+    serving forward (K5 23, K6 80, K7 24) and a training one (K5 24, K6 84)."""
+    import numpy as np
+
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cidnet_forward, cidnet_hvi
+
+    cfg = CIDNetConfig(variant="tnsm")
+    cpu = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    gpu = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 96, 144, 3)).astype(np.float32))
+    kernels = (ac.ATTENTION, nc.LAYER_NORM, ic.IEL_BRANCH)
+    with torch.no_grad():
+        ref_rgb, ref_noise = cidnet_forward(cpu, x, training=True)
+        ref_hvi = cidnet_hvi(cpu, x)
+        start = [k.launches for k in kernels]
+        rgb, none = cidnet_forward(gpu, x.to(cuda))
+        served = [k.launches - n for k, n in zip(kernels, start)]
+        start = [k.launches for k in kernels]
+        _, noise = cidnet_forward(gpu, x.to(cuda), training=True)
+        trained = [k.launches - n for k, n in zip(kernels, start)]
+        hvi = cidnet_hvi(gpu, x.to(cuda))
+    assert none is None and served == [23, 80, 24] and trained == [24, 84, 24]
+    assert (hvi.cpu() - ref_hvi).abs().max().item() <= 1e-4
+    assert (rgb.cpu() - ref_rgb).abs().mean().item() <= 1e-5
+    assert noise.shape == (1, 96, 144, 3)
+    assert (noise.cpu() - ref_noise).abs().max().item() <= 1e-5
