@@ -8,7 +8,8 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
 
 1. fails unless ``torch.cuda.is_available()``;
 2. prints the card's name and power limit (``nvidia-smi``);
-3. builds the kernels K1-K7 and prints the build time;
+3. builds the kernels K1-K7 and the fused block route's P2/P3, P4 and P5
+   (one ``nvcc`` a source, all started together) and prints the build time;
 4. holds each kernel against its plain PyTorch twin on the card, in fp32
    and bf16, at every site shape the 600 x 400 forward gives it (batch 8),
    and prints the error, the kernel's and the twin's times (and, for K4,
@@ -21,6 +22,15 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    must be bitwise equal to their twins; K4 and K7 are also timed at
    batch 1 at level 1, K5 and K6 at levels 1 and 3, K3 at block1 and
    block3, K1 at 1 x 400 x 600 x 3 and K2 at 1 x 3 x 400 x 600;
+4b. holds the fused block route's kernels against their plain versions at
+   every site shape of the 600 x 400 batch-8 forward, fp32 and bf16: P2/P3
+   (LayerNorm + IEL, residual on and off) at the three LCA levels, P4 at
+   the stems, heads and NormUpsample convs (replication and zero pad), P5
+   at the three NormDownsamples; fp32 within 1e-5 relative, bf16 within one
+   bf16 ulp of the plain version's rounding (or the fp32 bar); with each
+   kernel's time, its plain version's, its bound and what the unfused route
+   runs in its place (P4: ``F.conv2d``, cuDNN; P5: cuDNN + K3; P2/P3: K6,
+   the 1x1 convs, 2 x K7 and the product);
 5. runs the full-width base, MSSA and TNSM forwards on the card in fp32
    (TF32 off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result; TNSM also with
@@ -28,14 +38,19 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    K5 24, K6 84), and K5's unnormalised arm on the q, k, v and temperature
    captured from the full-width TNSM forward at each of its three site
    shapes, against its twin run on the CPU in fp32;
+5b. the same three forwards on the fused block route (card fp32 vs CPU
+   fp32 at each variant's bars, bf16 vs fp32; TNSM's training forward and
+   its launches);
 6. checks the launches of one forward: base K1 1, K2 1, K3 6, K4 6, K5 11,
    K6 33, K7 22; MSSA the same with K5 12, K6 36, K7 24; TNSM K5 23, K6
-   80, K7 24;
+   80, K7 24; on the fused route base P2/P3 11, P4 10, P5 6, K3 0, K4 6,
+   K5 11, K6 22, K7 0, MSSA and TNSM P2/P3 12 and K6 24 and 68;
 7. serves requests through ``serve.Enhancer`` (gates on, gamma != 1) at
    sizes that are not multiples of 8, for each variant, counting every
-   kernel's launches (the main path);
+   kernel's launches (the main path), then again on the fused route (this
+   slice's path: its counts are set to 0 before and read after);
 8. prints each variant's images per second at 600 x 400 bf16, batch 1, 8
-   and 32 (information);
+   and 32, on the default and the fused route (information);
 9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -67,6 +82,13 @@ K = 0.2                  # density_k at init
 BITWISE = ("K1", "K3", "K4", "K7")
 TOL_FP32 = {"K2": 1e-5, "K5": 2e-5, "K6": 1e-5}
 TOL_BF16 = 2.0**-7       # one bf16 ulp at magnitudes in [1, 2): both round once from fp32
+# the fused route's kernels P2/P3, P4 and P5 compute in fp32 inside as their
+# plain versions do and round once: fp32 within TOL_FUSED of max(1, |ref|)
+# (sums over C, the hidden width or the taps in another order), bf16 within
+# one bf16 ulp at max(|got|, |ref|), or the fp32 bar where that is larger
+# (a last-bit fp32 difference may flip the one rounding)
+FUSED = ("P2/P3", "P4", "P5")
+TOL_FUSED = 1e-5
 # K5-K7 in bf16: a last-bit fp32 difference can flip the bf16 rounding of
 # one intermediate (A, the LN scale/shift, t1), which moves the output by an
 # ulp: two ulps relative, |err| <= TOL_BF16_REL * max(1, |ref|)
@@ -104,12 +126,25 @@ VARIANTS = ("base", "mssa", "tnsm")
 # launches of one forward per kernel; MSSA also runs I_LCA5 (one more LCA);
 # TNSM runs 12 LCAs (3 K6, 1 K5, 2 K7 each) and 11 TNSM blocks (4 K6, 1 K5
 # each: I_TNSM5 reaches nothing when serving), and with training=True all 12
+NONE_FUSED = {"P2/P3": 0, "P4": 0, "P5": 0}
 PER_FORWARD = {
-    "base": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 11, "K6": 33, "K7": 22},
-    "mssa": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 12, "K6": 36, "K7": 24},
-    "tnsm": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 23, "K6": 80, "K7": 24},
+    "base": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 11, "K6": 33, "K7": 22, **NONE_FUSED},
+    "mssa": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 12, "K6": 36, "K7": 24, **NONE_FUSED},
+    "tnsm": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 23, "K6": 80, "K7": 24, **NONE_FUSED},
 }
-TNSM_TRAINING = {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 24, "K6": 84, "K7": 24}
+TNSM_TRAINING = {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 24, "K6": 84, "K7": 24, **NONE_FUSED}
+# on the fused block route: one P2/P3 an LCA in place of its IEL's K6 and
+# two K7; P5 in place of each NormDownsample's conv and K3; P4 at the 4
+# stems and heads and the 6 NormUpsamples
+PER_FORWARD_FUSED = {
+    "base": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 11, "K6": 22, "K7": 0,
+             "P2/P3": 11, "P4": 10, "P5": 6},
+    "mssa": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 12, "K6": 24, "K7": 0,
+             "P2/P3": 12, "P4": 10, "P5": 6},
+    "tnsm": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 23, "K6": 68, "K7": 0,
+             "P2/P3": 12, "P4": 10, "P5": 6},
+}
+TNSM_TRAINING_FUSED = dict(PER_FORWARD_FUSED["tnsm"], K5=24, K6=72)
 
 
 def log(msg: str) -> None:
@@ -602,6 +637,141 @@ def batch1_info(dev) -> None:
             f"bound {bound_ms('K6', x)[0]:.4f} ms")
 
 
+# (site, C_in, C_out, h, w, pad, uses per forward) of P4 and (site, C_in,
+# C_out, h, w, uses) of P5 at 600 x 400: the replication-padded stems and
+# heads, NormUpsample's folded 3x3 (HV and I), NormDownsample (HV and I)
+def fused_conv_sites(ch=(36, 36, 72, 144)):
+    c1, c2, c3, c4 = ch
+    p4 = [("stem_hv", 3, c1, H, W, "edge", 1), ("stem_i", 1, c1, H, W, "edge", 1),
+          ("head_hv", c1, 2, H, W, "edge", 1), ("head_i", c1, 1, H, W, "edge", 1),
+          ("up3", c4, c3, H // 8, W // 8, "zero", 2), ("up2", c3, c2, H // 4, W // 4, "zero", 2),
+          ("up1", c2, c1, H // 2, W // 2, "zero", 2)]
+    p5 = [("down1", c1, c2, H, W, 2), ("down2", c2, c3, H // 2, W // 2, 2),
+          ("down3", c3, c4, H // 4, W // 4, 2)]
+    return p4, p5
+
+
+def fused_bound_ms(key: str, x: torch.Tensor, cout: int = 0) -> tuple:
+    """(least time in ms, "bytes" or "operations") of P2/P3, P4 or P5 on
+    input ``x``: x read once, the output and the weights once, over 3.35
+    TB/s, against the operations over the fp32 CUDA-core peak (the kernels'
+    arithmetic; at these widths their operations bound them)."""
+    it = x.element_size()
+    b, c, h, w = x.shape
+    px = b * h * w
+    if key == "P2/P3":
+        hid = int(c * 2.66)
+        nbytes = 2 * x.numel() * it + (3 * hid * c + 36 * hid) * it + 8 * c
+        # LN, the two 1x1 products, both depthwise convs of both halves,
+        # tanh + add, the product, the residual
+        ops = px * (8 * c + 2 * 3 * hid * c + 4 * 2 * hid * 9 + 4 * hid + hid + c)
+    else:
+        oh, ow = (h, w) if key == "P4" else (h // 2, w // 2)
+        nbytes = (x.numel() + b * cout * oh * ow + 9 * c * cout) * it
+        ops = 2 * px * cout * c * 9 + (24 * b * cout * oh * ow if key == "P5" else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["fp32"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fused_excess(got: torch.Tensor, ref: torch.Tensor, dt) -> float:
+    """max(|got - ref| - allowed): TOL_FUSED * max(1, |ref|), and for bf16 at
+    least one bf16 ulp at max(|got|, |ref|). The check passes at <= 0."""
+    got, ref = got.float(), ref.float()
+    allowed = TOL_FUSED * ref.abs().clamp_min(1.0)
+    if dt == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.abs(), ref.abs()))
+        allowed = torch.maximum(allowed, torch.ldexp(torch.ones_like(got), e - 8))
+    return ((got - ref).abs() - allowed).max().item()
+
+
+def compare_fused(results: dict, dev) -> None:
+    """P2/P3, P4 and P5 against their plain versions at every site shape of
+    the 600 x 400 batch-8 forward, fp32 and bf16, each with its time, its
+    plain version's, its bound and the unfused route's ops in its place."""
+    from hvi_cidnet_torch.models.layers import IEL, LayerNorm
+    from hvi_cidnet_torch.ops import conv3x3_cuda as cc
+    from hvi_cidnet_torch.ops import ln_iel_cuda as lc
+    from hvi_cidnet_torch.ops import resize_cuda as rc
+    from hvi_cidnet_torch.ops.conv import conv3x3_same
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    alpha = torch.full((1,), 0.25, device=dev)
+
+    def rnd(shape, lo, hi, dt):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
+
+    def judge(name, got, ref, dt):
+        excess = fused_excess(got, ref, dt)
+        err = max_err(got, ref)
+        if not excess <= 0:
+            raise AssertionError(f"{name}: max abs err {err:.3e}, over the bar by {excess:.3e}")
+        return err
+
+    def record(key, dt, site, err, kern, plain, x, per_forward, unfused=None, library=None,
+               cout=0, info=""):
+        t_k, t_p = time_ms(kern), time_ms(plain)
+        t_u = time_ms(unfused) if unfused is not None else None
+        t_l = time_ms(library) if library is not None else None
+        bound = fused_bound_ms(key, x, cout)
+        results[key].append({"dtype": str(dt), "err": err, "ms": t_k, "plain_ms": t_p,
+                             "unfused_ms": t_u, "library_ms": t_l, "bound_ms": bound[0],
+                             "bound_by": bound[1], "site": site, "per_forward": per_forward})
+        log(f"{key} {site}{info} {tuple(x.shape)} {dt}: max_abs_err {err:.3e}  kernel "
+            f"{t_k:.4f} ms  plain {t_p:.4f} ms  "
+            + (f"unfused {t_u:.4f} ms  " if t_u is not None else "")
+            + (f"F.conv2d {t_l:.4f} ms  " if t_l is not None else "")
+            + f"bound {bound[0]:.4f} ms ({bound[1]})")
+
+    p4_sites, p5_sites = fused_conv_sites()
+    for dt in (torch.float32, torch.bfloat16):
+        for level, c, _, h, w, lcas in lca_sites():
+            iel, norm = IEL(c), LayerNorm(c)
+            with torch.no_grad():
+                for prm in iel.parameters():
+                    bound = prm[0].numel() ** -0.5
+                    prm.copy_(torch.rand(prm.shape, generator=gen) * 2 * bound - bound)
+                norm.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                norm.bias.copy_(torch.rand(c, generator=gen) * 0.6 - 0.3)
+            iel, norm = iel.to(dev, dt), norm.to(dev)
+            wts = (norm.weight, norm.bias, iel.project_in.weight, iel.dwconv.weight,
+                   iel.dwconv1.weight, iel.dwconv2.weight, iel.project_out.weight)
+            x = rnd((BATCH, c, h, w), -2.0, 2.5, dt)
+            with torch.no_grad():
+                for residual in (True, False):
+                    run = lambda: lc.ln_iel_kernel(x, *wts, residual)
+                    plain = lambda: lc.ln_iel_plain(x, *wts, residual)
+                    err = judge(f"P2/P3 level {level} residual {residual} {dt}", run(), plain(),
+                                dt)
+                    if residual:  # I_LCA's arm; HV_LCA's runs the same work
+                        record("P2/P3", dt, {"level": level}, err, run, plain, x, lcas,
+                               unfused=lambda: x + iel(norm(x)))
+                    else:
+                        log(f"P2/P3 level {level} no residual {tuple(x.shape)} {dt}: max_abs_err "
+                            f"{err:.3e}")
+            del x
+        for site, cin, cout, h, w, pad, uses in p4_sites:
+            x = rnd((BATCH, cin, h, w), -1.0, 1.0, dt)
+            wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5, dt)
+            run = lambda: cc.conv3x3_kernel(x, wt, pad)
+            plain = lambda: cc.conv3x3_plain(x, wt, pad)
+            err = judge(f"P4 {site} {dt}", run(), plain(), dt)
+            # the library yardstick: cuDNN's zero-padded conv, the same work
+            # (the replication pad of the edge sites would be a second call)
+            record("P4", dt, site, err, run, plain, x, {v: uses for v in VARIANTS},
+                   library=lambda: torch.nn.functional.conv2d(x, wt, padding=1), cout=cout,
+                   info=f" ({pad} pad)")
+            del x
+        for site, cin, cout, h, w, uses in p5_sites:
+            x = rnd((BATCH, cin, h, w), -1.0, 1.0, dt)
+            wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5, dt)
+            run = lambda: cc.conv3x3_half_prelu_kernel(x, wt, alpha)
+            plain = lambda: cc.conv3x3_half_prelu_plain(x, wt, alpha)
+            err = judge(f"P5 {site} {dt}", run(), plain(), dt)
+            record("P5", dt, site, err, run, plain, x, {v: uses for v in VARIANTS},
+                   unfused=lambda: rc.half_prelu(conv3x3_same(x, wt), alpha), cout=cout)
+            del x
+
+
 def rgb_of(variant: str, out):
     """The RGB of a forward: TNSM returns (rgb, noise or None)."""
     return out[0] if variant == "tnsm" else out
@@ -626,9 +796,10 @@ def capture_tnsm_attention(fn) -> list:
     return calls
 
 
-def compare_forward(dev, variant: str, kernels: dict):
-    """Card fp32 vs CPU fp32 with the same weights; bf16 card vs fp32 card.
-    TNSM also: the training forward's noise map and launches, and K5 on the
+def compare_forward(dev, variant: str, kernels: dict, routes=None):
+    """Card fp32 vs CPU fp32 with the same weights; bf16 card vs fp32 card;
+    both on ``routes`` (None: the default route). TNSM also: the training
+    forward's noise map and launches, and, on the default route, K5 on the
     attention inputs captured from the card's forwards. Returns the bf16
     model."""
     from hvi_cidnet_torch.models.cidnet import (
@@ -636,6 +807,8 @@ def compare_forward(dev, variant: str, kernels: dict):
     )
 
     tnsm = variant == "tnsm"
+    route = "fused route" if routes is not None else "default route"
+    forward = lambda *a, **kw: cidnet_forward(*a, routes=routes, **kw)
     tol_max, tol_mean, tol_bf16 = ((TOL_TNSM["max"], TOL_TNSM["mean"], TOL_TNSM["bf16_mean"])
                                    if tnsm else
                                    (TOL_FORWARD_MAX, TOL_FORWARD_MEAN, TOL_BF16_FORWARD_MEAN))
@@ -648,19 +821,19 @@ def compare_forward(dev, variant: str, kernels: dict):
         t0 = time.perf_counter()
         # TNSM: training=True adds the noise map and leaves the rgb as it is
         # (bitwise on the CPU: tests/test_torch_tnsm.py)
-        ref = cidnet_forward(cpu_model, x, training=tnsm)
+        ref = forward(cpu_model, x, training=tnsm)
         if tnsm:
             ref, ref_noise = ref
-        ref_hvi = cidnet_hvi(cpu_model, x)
+        ref_hvi = cidnet_hvi(cpu_model, x, routes=routes)
         cpu_s = time.perf_counter() - t0
-        run = lambda: rgb_of(variant, cidnet_forward(gpu_model, x.to(dev))).cpu()
-        if tnsm:
+        run = lambda: rgb_of(variant, forward(gpu_model, x.to(dev))).cpu()
+        if tnsm and routes is None:
             out = []
             fp32_sites = capture_tnsm_attention(lambda: out.append(run()))
             got = out[0]
         else:
             got = run()
-        got_hvi = cidnet_hvi(gpu_model, x.to(dev)).cpu()
+        got_hvi = cidnet_hvi(gpu_model, x.to(dev), routes=routes).cpu()
     for t in (got, ref):
         if t.shape != (1, H, W, 3) or not torch.isfinite(t).all():
             raise AssertionError(f"{variant} forward output bad: {tuple(t.shape)}")
@@ -669,51 +842,52 @@ def compare_forward(dev, variant: str, kernels: dict):
     diff = (got - ref).abs().amax(-1)
     err = diff[~edge].max().item()
     mean = (got - ref).abs().mean().item()
-    log(f"{variant} forward fp32 (1, {H}, {W}, 3): card vs CPU max_abs_err {err:.3e} (hue-edge "
+    log(f"{variant} {route} forward fp32 (1, {H}, {W}, 3): card vs CPU max_abs_err {err:.3e} (hue-edge "
         f"pixels {int(edge.sum())} excluded), mean_abs_err {mean:.3e}, output-HVI max_abs_err "
         f"{hvi_err:.3e}  [CPU fp32 forward x2: {cpu_s:.1f} s]")
-    check(f"{variant} forward fp32 card vs CPU", err, tol_max)
-    check(f"{variant} forward fp32 card vs CPU (mean)", mean, tol_mean)
-    check(f"{variant} forward output HVI card vs CPU", hvi_err, tol_max)
+    check(f"{variant} {route} forward fp32 card vs CPU", err, tol_max)
+    check(f"{variant} {route} forward fp32 card vs CPU (mean)", mean, tol_mean)
+    check(f"{variant} {route} forward output HVI card vs CPU", hvi_err, tol_max)
     if tnsm:
-        compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise)
+        compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes)
 
     bf_model = cast_conv_weights(
         CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev), torch.bfloat16
     ).eval()
     out = []
     with torch.no_grad():
-        bf_run = lambda: out.append(rgb_of(variant, cidnet_forward(
+        bf_run = lambda: out.append(rgb_of(variant, forward(
             bf_model, x.to(dev, torch.bfloat16), compute_dtype=torch.bfloat16)))
-        bf16_sites = capture_tnsm_attention(bf_run) if tnsm else bf_run()
+        bf16_sites = capture_tnsm_attention(bf_run) if tnsm and routes is None else bf_run()
     bf = out[0]
     if not torch.isfinite(bf.float()).all():
         raise AssertionError(f"{variant} bf16 forward is not finite")
     bf_mean = (bf.float().cpu() - got).abs().mean().item()
     bf_max = (bf.float().cpu() - got).abs().max().item()
-    log(f"{variant} forward bf16 vs fp32 on the card: mean_abs_err {bf_mean:.3e}, "
+    log(f"{variant} {route} forward bf16 vs fp32 on the card: mean_abs_err {bf_mean:.3e}, "
         f"max_abs_err {bf_max:.3e}")
-    check(f"{variant} forward bf16 vs fp32 (mean)", bf_mean, tol_bf16)
-    if tnsm:
+    check(f"{variant} {route} forward bf16 vs fp32 (mean)", bf_mean, tol_bf16)
+    if tnsm and routes is None:
         compare_k5_captured(fp32_sites, bf16_sites)
     return bf_model
 
 
-def compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise) -> None:
+def compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes) -> None:
     """The TNSM forward with training=True on the card: its launches (I_TNSM5
     runs, for its noise map), its rgb against the serving forward's ``got``,
     and its fused noise map against the CPU's ``ref_noise``."""
     from hvi_cidnet_torch.models.cidnet import cidnet_forward
 
+    want = TNSM_TRAINING if routes is None else TNSM_TRAINING_FUSED
     with torch.no_grad():
         torch.cuda.synchronize()
         reset(kernels)
-        rgb, noise = cidnet_forward(gpu_model, x.to(dev), training=True)
+        rgb, noise = cidnet_forward(gpu_model, x.to(dev), training=True, routes=routes)
         torch.cuda.synchronize()
         launched = counts(kernels)
-    log(f"tnsm training=True launches per forward: {launched}")
-    if launched != TNSM_TRAINING:
-        raise AssertionError(f"tnsm training launches {launched} != {TNSM_TRAINING}")
+    log(f"tnsm training=True launches per forward{' (fused route)' if routes else ''}: {launched}")
+    if launched != want:
+        raise AssertionError(f"tnsm training launches {launched} != {want}")
     noise = noise.cpu()
     if noise.shape != (1, H, W, 3) or not torch.isfinite(noise).all():
         raise AssertionError(f"tnsm fused noise map bad: {tuple(noise.shape)}")
@@ -785,8 +959,10 @@ def reset(kernels) -> None:
 def summarise(key: str, rows: list, launches: dict) -> dict:
     """One kernel's line: errors over both dtypes; times and bounds summed
     over the kernel's sites in one forward, 600 x 400, batch 8, bf16: base
-    in ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms``, each path in
-    ``*_by_path``."""
+    in ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` (for P2/P3 and
+    P5, which no one PyTorch call computes, the unfused route's ops in their
+    place in ``unfused_ms``), each path in ``*_by_path``. ``launches``: the
+    serving run of the kernel's path (the fused route's for P2/P3, P4, P5)."""
     bf = [r for r in rows if r["dtype"] == "torch.bfloat16"]
     if key == "K2":
         bf = bf[:1]  # the no-gates arm, as the forward runs by default
@@ -803,14 +979,18 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
                "K4": ("double_bilinear", "resize.cu", "resize_pallas.py:143"),
                "K5": ("channel_attention", "attention.cu", "attention.py:181"),
                "K6": ("layer_norm", "norm.cu", "norm_pallas.py:53"),
-               "K7": ("iel_branch", "iel.cu", "iel_pallas.py:72")}
+               "K7": ("iel_branch", "iel.cu", "iel_pallas.py:72"),
+               "P2/P3": ("ln_iel", "ln_iel.cu",
+                         "experiments/iel_pallas_nhcw.py:104 and experiments/iel_fused_pallas.py:75"),
+               "P4": ("conv3x3", "conv3x3.cu", "experiments/conv_pallas_nhcw.py:64"),
+               "P5": ("conv3x3_half_prelu", "conv3x3.cu", "experiments/fused_pallas_nhcw.py:67")}
     name, src, tpu = sources[key]
     worst = max(bf, key=lambda r: r["bound_ms"])
     line = {
         "name": name,
         "route": "cuda",
         "source": f"hvi_cidnet_torch/csrc/{src}",
-        "replaces": f"hvi_cidnet_tpu/ops/{tpu}",
+        "replaces": tpu if key in FUSED else f"hvi_cidnet_tpu/ops/{tpu}",
         "launches": sum(launches[v][key] for v in VARIANTS),
         "launches_by_path": {v: launches[v][key] for v in VARIANTS},
         "max_abs_err": max(r["err"] for r in rows if r["dtype"] == "torch.float32"),
@@ -826,6 +1006,8 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
     }
     if key == "K5":
         line["bound_cuda_core_ms"] = per_forward("bound_cuda_core_ms")
+    if key in FUSED:
+        line["unfused_ms"] = per_forward("unfused_ms")
     return line
 
 
@@ -836,7 +1018,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from hvi_cidnet_torch.models.cidnet import HVIGates, cidnet_forward
     from hvi_cidnet_torch.ops import _build
-    from hvi_cidnet_torch.ops import attention_cuda, hvi_cuda, iel_cuda, norm_cuda, resize_cuda
+    from hvi_cidnet_torch.ops import (
+        attention_cuda, conv3x3_cuda, hvi_cuda, iel_cuda, ln_iel_cuda, norm_cuda, resize_cuda,
+    )
+    from hvi_cidnet_torch.ops.routes import FUSED as FUSED_ROUTE
     from hvi_cidnet_torch.serve import Enhancer
 
     torch.backends.cudnn.allow_tf32 = False
@@ -855,66 +1040,82 @@ def main() -> int:
     kernels = {"K1": hvi_cuda.RGB_TO_HVI, "K2": hvi_cuda.HVI_TO_RGB,
                "K3": resize_cuda.HALF_PRELU, "K4": resize_cuda.DOUBLE,
                "K5": attention_cuda.ATTENTION, "K6": norm_cuda.LAYER_NORM,
-               "K7": iel_cuda.IEL_BRANCH}
+               "K7": iel_cuda.IEL_BRANCH, "P2/P3": ln_iel_cuda.LN_IEL,
+               "P4": conv3x3_cuda.CONV3X3, "P5": conv3x3_cuda.CONV3X3_HALF_PRELU}
     results = {k: [] for k in kernels}
+    compare_fused(results, dev)
     compare_hvi(results, dev)
     compare_resize(results, dev)
     compare_lca(results, dev)
     batch1_info(dev)
     torch.cuda.empty_cache()
+    routes = {"default": (None, PER_FORWARD), "fused": (FUSED_ROUTE, PER_FORWARD_FUSED)}
     bf_models = {v: compare_forward(dev, v, kernels) for v in VARIANTS}
+    for v in VARIANTS:
+        compare_forward(dev, v, kernels, FUSED_ROUTE)
+    torch.cuda.empty_cache()
 
     # launches of one forward (the bf16 serving models, 1 x 400 x 600)
     x = torch.rand((1, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev, torch.bfloat16)
-    for variant, model in bf_models.items():
-        reset(kernels)
-        with torch.no_grad():
-            cidnet_forward(model, x, compute_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        per_forward = counts(kernels)
-        log(f"{variant} launches per forward: {per_forward}")
-        if per_forward != PER_FORWARD[variant]:
-            raise AssertionError(f"{variant} launches per forward {per_forward} != "
-                                 f"{PER_FORWARD[variant]}")
+    for name, (route, want) in routes.items():
+        for variant, model in bf_models.items():
+            reset(kernels)
+            with torch.no_grad():
+                cidnet_forward(model, x, compute_dtype=torch.bfloat16, routes=route)
+            torch.cuda.synchronize()
+            per_forward = counts(kernels)
+            log(f"{variant} {name} route launches per forward: {per_forward}")
+            if per_forward != want[variant]:
+                raise AssertionError(f"{variant} {name} route launches per forward {per_forward} "
+                                     f"!= {want[variant]}")
 
-    # the main path: requests through the serving entry point, each variant
+    # the main path: requests through the serving entry point, each variant,
+    # on the default route and on the fused one (this slice's path)
     gates = HVIGates(gated=True, gated2=True, alpha=0.95, alpha_s=1.1)
     rng = np.random.default_rng(3)
     requests = [rng.uniform(0, 0.4, (h, w, 3)).astype(np.float32)
                 for h, w in [(400, 600), (389, 517), (600, 400), (389, 517)]]
     n = len(requests)
-    served = {}
-    for variant, model in bf_models.items():
-        enhancer = Enhancer(model, gates, gamma=0.8, compute_dtype=torch.bfloat16, device=dev)
-        reset(kernels)
-        t0 = time.perf_counter()
-        outs = [enhancer.enhance(img) for img in requests]
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        served[variant] = counts(kernels)
-        for img, out in zip(requests, outs):
-            if out.shape != img.shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
-                raise AssertionError(f"{variant} served {img.shape} -> {out.shape}: bad output")
-        log(f"{variant} served {n} requests {[r.shape[:2] for r in requests]} in {serve_s:.3f} s "
-            f"(first includes warm-up); launches {served[variant]}")
-        want = {k: n * v for k, v in PER_FORWARD[variant].items()}
-        if served[variant] != want:
-            raise AssertionError(f"{variant} serving launches {served[variant]} != {want}")
+    served = {name: {} for name in routes}
+    for name, (route, want) in routes.items():
+        for variant, model in bf_models.items():
+            enhancer = Enhancer(model, gates, gamma=0.8, compute_dtype=torch.bfloat16, device=dev,
+                                routes=route)
+            reset(kernels)
+            t0 = time.perf_counter()
+            outs = [enhancer.enhance(img) for img in requests]
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            served[name][variant] = counts(kernels)
+            for img, out in zip(requests, outs):
+                if (out.shape != img.shape or not np.isfinite(out).all() or out.min() < 0
+                        or out.max() > 1):
+                    raise AssertionError(f"{variant} {name} route served {img.shape} -> "
+                                         f"{out.shape}: bad output")
+            log(f"{variant} {name} route served {n} requests {[r.shape[:2] for r in requests]} "
+                f"in {serve_s:.3f} s (first includes warm-up); launches {served[name][variant]}")
+            expect = {k: n * v for k, v in want[variant].items()}
+            if served[name][variant] != expect:
+                raise AssertionError(f"{variant} {name} route serving launches "
+                                     f"{served[name][variant]} != {expect}")
 
     # throughput at 600 x 400 bf16 (information)
-    for variant, model in bf_models.items():
-        for b in (1, 8, 32):
-            xb = torch.rand((b, H, W, 3), generator=torch.Generator().manual_seed(b)).to(
-                dev, torch.bfloat16)
-            torch.cuda.reset_peak_memory_stats()
-            with torch.no_grad():
-                ms = time_ms(lambda: rgb_of(variant, cidnet_forward(
-                    model, xb, compute_dtype=torch.bfloat16)).clamp_(0, 1), iters=5, warmup=2)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            log(f"{variant} forward 600x400 bf16 batch {b}: {ms:.2f} ms, {1000 * b / ms:.1f} img/s, "
-                f"peak {peak:.2f} GiB")
+    for name, (route, _) in routes.items():
+        for variant, model in bf_models.items():
+            for b in (1, 8, 32):
+                xb = torch.rand((b, H, W, 3), generator=torch.Generator().manual_seed(b)).to(
+                    dev, torch.bfloat16)
+                torch.cuda.reset_peak_memory_stats()
+                with torch.no_grad():
+                    ms = time_ms(lambda: rgb_of(variant, cidnet_forward(
+                        model, xb, compute_dtype=torch.bfloat16, routes=route)).clamp_(0, 1),
+                        iters=5, warmup=2)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                log(f"{variant} {name} route forward 600x400 bf16 batch {b}: {ms:.2f} ms, "
+                    f"{1000 * b / ms:.1f} img/s, peak {peak:.2f} GiB")
 
-    summary = [summarise(key, results[key], served) for key in kernels]
+    summary = [summarise(key, results[key], served["fused" if key in FUSED else "default"])
+               for key in kernels]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Device time per call of K3 (bilinear x0.5 + PReLU), K1 (RGB -> HVI) and
-K2 (HVI -> RGB) at the 600 x 400 base forward's shapes.
+K2 (HVI -> RGB) at the 600 x 400 base forward's shapes; with ``--fused``,
+of the fused block route's kernels P2/P3, P4 and P5 instead.
 
-    python -m hvi_cidnet_torch.cli.kernel_times [--batch 8 1] [--out FILE.json]
+    python -m hvi_cidnet_torch.cli.kernel_times [--batch 8 1] [--fused] [--out FILE.json]
 
 Runs on the card. For K3 at NormDownsample's three sites (36 x 400 x 600,
 72 x 200 x 300, 144 x 100 x 150 per image), K1 at 400 x 600 x 3 and K2 at
@@ -12,6 +13,12 @@ the wrapper's host work otherwise sets the pace), its time through the
 wrapper from CUDA events, its bytes bound (each input read once, each
 output written once, over 3.35 TB/s), and its agreement with the plain twin
 (bitwise equal, else the max error).
+
+With ``--fused``: P2/P3 (LayerNorm + IEL + residual) at the three LCA
+levels, P4 at the stems, heads and NormUpsample convs, P5 at the three
+NormDownsample sites, each beside what the unfused route runs in its place,
+timed the same way (P2/P3: K6, the 1x1 convs, 2 x K7, the product; P4:
+``F.conv2d``, cuDNN; P5: cuDNN's conv and K3).
 
 It uses only the kernels' wrappers and twins, so another checkout (a
 parent commit unpacked with ``git archive``) is timed by running this file
@@ -30,6 +37,7 @@ import torch
 
 import hvi_cidnet_torch
 from hvi_cidnet_torch.ops import hvi_cuda, resize_cuda
+from hvi_cidnet_torch.ops.conv import conv3x3_same
 
 H, W = 400, 600
 K3_SITES = (("block1", 36, H, W), ("block2", 72, H // 2, W // 2), ("block3", 144, H // 4, W // 4))
@@ -44,6 +52,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="time K3, K1 and K2 per call on the card")
     p.add_argument("--batch", type=int, nargs="+", default=[8, 1])
     p.add_argument("--out", type=str, default="")
+    p.add_argument("--fused", action="store_true",
+                   help="time P2/P3, P4 and P5 and the unfused route's ops in their place")
     return p.parse_args(argv)
 
 
@@ -98,12 +108,86 @@ def measure(name: str, kernel, plain, x: torch.Tensor, bytes_moved: int, **info)
     return row
 
 
+# (site, C_in, C_out, h, w, pad) of P4 and P5 at 600 x 400, and P2/P3's
+# (level, C, h, w)
+P4_SITES = (("stem_hv", 3, 36, H, W, "edge"), ("stem_i", 1, 36, H, W, "edge"),
+            ("head_hv", 36, 2, H, W, "edge"), ("head_i", 36, 1, H, W, "edge"),
+            ("up3", 144, 72, H // 8, W // 8, "zero"), ("up2", 72, 36, H // 4, W // 4, "zero"),
+            ("up1", 36, 36, H // 2, W // 2, "zero"))
+P5_SITES = (("block1", 36, 36, H, W), ("block2", 36, 72, H // 2, W // 2),
+            ("block3", 72, 144, H // 4, W // 4))
+LN_IEL_SITES = ((1, 36, H // 2, W // 2), (2, 72, H // 4, W // 4), (3, 144, H // 8, W // 8))
+
+
+def measure_fused(name, kernel, unfused, x, **info) -> dict:
+    """A fused kernel's device time per call beside the unfused route's ops
+    in its place (both from CUDA graphs), and their max difference."""
+    got, ref = kernel(), unfused()
+    row = {"kernel": name, **info, "dtype": str(x.dtype).removeprefix("torch."),
+           "shape": list(x.shape),
+           "max_abs_diff_to_unfused": (got.float() - ref.float()).abs().max().item(),
+           "graph_ms": graph_ms(kernel), "wrapper_ms": wrapper_ms(kernel),
+           "unfused_graph_ms": graph_ms(unfused)}
+    print(f"{name} {info} {row['dtype']} {tuple(x.shape)}: {1e3 * row['graph_ms']:.2f} us a call "
+          f"(graph), {1e3 * row['wrapper_ms']:.2f} us through the wrapper; unfused "
+          f"{1e3 * row['unfused_graph_ms']:.2f} us; max diff {row['max_abs_diff_to_unfused']:.3e}",
+          flush=True)
+    return row
+
+
+def fused_rows(dev, gen, batches) -> list:
+    from hvi_cidnet_torch.models.layers import IEL, LayerNorm
+    from hvi_cidnet_torch.ops import conv3x3_cuda
+
+    def rnd(shape, lo, hi, dt):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
+
+    rows = []
+    alpha = torch.full((1,), ALPHA, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        for b in batches:
+            for level, c, h, w in LN_IEL_SITES:
+                iel, norm = IEL(c), LayerNorm(c)
+                with torch.no_grad():
+                    for p in iel.parameters():  # U(+-1/sqrt(fan_in)), as the model's init
+                        bound = p[0].numel() ** -0.5
+                        p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
+                iel, norm = iel.to(dev, dt), norm.to(dev)
+                x = rnd((b, c, h, w), -2.0, 2.0, dt)
+                with torch.no_grad():
+                    rows.append(measure_fused(
+                        "P2/P3", lambda: iel.fused(x, norm, True), lambda: x + iel(norm(x)), x,
+                        level=level, batch=b))
+            for site, cin, cout, h, w, pad in P4_SITES:
+                x = rnd((b, cin, h, w), -1.0, 1.0, dt)
+                wt = rnd((cout, cin, 3, 3), -cin**-0.5 / 3, cin**-0.5 / 3, dt)
+                rows.append(measure_fused(
+                    "P4", lambda: conv3x3_cuda.conv3x3_kernel(x, wt, pad),
+                    lambda: conv3x3_cuda.conv3x3_plain(x, wt, pad), x, site=site, batch=b))
+            for site, cin, cout, h, w in P5_SITES:
+                x = rnd((b, cin, h, w), -1.0, 1.0, dt)
+                wt = rnd((cout, cin, 3, 3), -cin**-0.5 / 3, cin**-0.5 / 3, dt)
+                rows.append(measure_fused(
+                    "P5", lambda: conv3x3_cuda.conv3x3_half_prelu_kernel(x, wt, alpha),
+                    lambda: resize_cuda.half_prelu(conv3x3_same(x, wt), alpha), x, site=site,
+                    batch=b))
+    return rows
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
+    if args.fused:
+        torch.backends.cudnn.allow_tf32 = False
+        result = {"device": torch.cuda.get_device_name(0), "package": hvi_cidnet_torch.__file__,
+                  "rows": fused_rows(dev, gen, args.batch)}
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        return result
     alpha = torch.full((1,), ALPHA, device=dev)
     k = torch.full((1,), K, device=dev)
     result = {"device": torch.cuda.get_device_name(0), "package": hvi_cidnet_torch.__file__,

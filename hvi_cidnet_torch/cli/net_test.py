@@ -3,8 +3,11 @@ counterpart of ``cli/net_test.py`` (reference net_test.py:1-21).
 
     python -m hvi_cidnet_torch.cli.net_test [--size 256] [--batch 1]
         [--dtype float32|bfloat16] [--iters 10] [--variant base|mssa|tnsm] [--cpu]
+        [--fused]
 
-Runs on the card unless ``--cpu`` is given. The time is host wall clock
+Runs on the card unless ``--cpu`` is given; ``--fused`` takes the fused
+block route (``ops/routes.py``), else the defaults with the environment's
+overrides. The time is host wall clock
 around forwards that end in a device synchronise.
 """
 
@@ -24,6 +27,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cast_conv_weights,
     cidnet_forward,
 )
+from hvi_cidnet_torch.ops.routes import FUSED
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -34,6 +38,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
+    p.add_argument("--fused", action="store_true",
+                   help="take the fused block route (P2/P3, P4, P5; ops/routes.py)")
     return p.parse_args(argv)
 
 
@@ -51,7 +57,7 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
 
     def forward():
-        out = cidnet_forward(model, x, compute_dtype=dt)
+        out = cidnet_forward(model, x, compute_dtype=dt, routes=FUSED if args.fused else None)
         return out[0] if args.variant == "tnsm" else out  # TNSM: (rgb, None)
 
     with torch.no_grad():

@@ -1,7 +1,7 @@
 """Where the forward's device time goes: one ``torch.profiler`` run.
 
     python -m hvi_cidnet_torch.cli.profile_forward [--variant base|mssa|tnsm]
-        [--batch 1 8] [--out FILE.json]
+        [--batch 1 8] [--fused] [--out FILE.json]
 
 Runs on the card (600 x 400, bf16, random weights from seed 0). For each
 batch it prints the forward's time from CUDA events (unprofiled), then,
@@ -9,7 +9,8 @@ over ITERS profiled forwards: the device-busy share of the wall time (the
 kernels' summed device time over the host wall clock; one stream, so
 kernels do not overlap), the kernel launches per forward, and the kernels
 by summed device time (the TOP longest) with their share and launches per
-forward. ``--out`` writes the same as JSON.
+forward. ``--fused`` takes the fused block route (``ops/routes.py``).
+``--out`` writes the same as JSON.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cast_conv_weights,
     cidnet_forward,
 )
+from hvi_cidnet_torch.ops.routes import FUSED
 
 H, W = 400, 600
 ITERS = 3
@@ -41,6 +43,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     p.add_argument("--out", type=str, default="")
+    p.add_argument("--fused", action="store_true",
+                   help="take the fused block route (P2/P3, P4, P5; ops/routes.py)")
     return p.parse_args(argv)
 
 
@@ -51,8 +55,8 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def profile_batch(model, x) -> dict:
-    fwd = lambda: cidnet_forward(model, x, compute_dtype=torch.bfloat16)
+def profile_batch(model, x, routes=None) -> dict:
+    fwd = lambda: cidnet_forward(model, x, compute_dtype=torch.bfloat16, routes=routes)
     with torch.no_grad():
         for _ in range(2):
             fwd()
@@ -93,12 +97,14 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda", 0)
     model = CIDNet(CIDNetConfig(variant=args.variant), generator=torch.Generator().manual_seed(0))
     model = cast_conv_weights(model.to(dev), torch.bfloat16).eval()
+    routes = FUSED if args.fused else None
     result = {"device": torch.cuda.get_device_name(0), "variant": args.variant, "size": [H, W],
-              "batches": []}
-    print(f"{result['device']}: {args.variant} forward {W}x{H} bf16")
+              "fused": args.fused, "batches": []}
+    print(f"{result['device']}: {args.variant} forward {W}x{H} bf16"
+          + (" (fused block route)" if args.fused else ""))
     for b in args.batch:
         x = torch.from_numpy(np.random.default_rng(b).uniform(0, 1, (b, H, W, 3)))
-        r = profile_batch(model, x.to(dev, torch.bfloat16))
+        r = profile_batch(model, x.to(dev, torch.bfloat16), routes)
         result["batches"].append(r)
         print(f"batch {b}: {r['forward_ms']:.2f} ms/forward unprofiled; profiled "
               f"{r['profiled_wall_ms_per_forward']:.2f} ms wall, device busy "

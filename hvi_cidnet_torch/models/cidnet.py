@@ -20,7 +20,10 @@ The public layout is NHWC in [0, 1] in and NHWC out, as in JAX; inside, the
 activations are NCHW. On the card the HVI transform runs as the CUDA
 kernels K1 and K2 (``ops/hvi_cuda.py``) and the blocks as K3-K7
 (``models/layers.py``, ``models/tnsm.py``); attention softmax and LN
-statistics are fp32, everything else ``compute_dtype``. Only the 4-D conv
+statistics are fp32, everything else ``compute_dtype``. The fused block
+route (``routes``, ``ops/routes.py``; off unless asked for) runs the LCAs'
+LayerNorm + IEL as P2/P3, the NormDownsamples as P5 and the other dense 3x3
+convs (stems, heads, NormUpsample) as P4, each in fp32 inside. Only the 4-D conv
 weights take the compute dtype (``cast_conv_weights``): LayerNorm, PReLU,
 temperature and density_k stay fp32 (``.to(bfloat16)`` on the whole module
 would round density_k 0.2 to 0.2002).
@@ -42,11 +45,13 @@ from hvi_cidnet_torch.models.layers import (
     NormDownsample,
     NormUpsample,
     SpatialAttention,
+    dense3x3,
 )
 from hvi_cidnet_torch.models.tnsm import TNSM
-from hvi_cidnet_torch.ops.conv import conv2d, conv3x3_replpad
+from hvi_cidnet_torch.ops.conv import conv2d
 from hvi_cidnet_torch.ops.hvi_cuda import hvi_to_rgb, rgb_to_hvi
 from hvi_cidnet_torch.ops.resize import resize_bilinear
+from hvi_cidnet_torch.ops.routes import Routes, resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,21 +184,23 @@ def _check_x8(x: torch.Tensor) -> None:
         )
 
 
-def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32) -> torch.Tensor:
+def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32,
+               routes: Optional[Routes] = None) -> torch.Tensor:
     """The forward up to PHVIT: NHWC RGB -> the output HVI map, NCHW
     (B, 3, H, W) in ``compute_dtype`` (net/CIDNet.py:71-119; MSSA:
     net/CIDNet_MSSA.py; TNSM: net/CIDNet_TNSM.py)."""
-    return _hvi_and_noise(model, x, compute_dtype, training=False)[0]
+    return _hvi_and_noise(model, x, compute_dtype, training=False, routes=resolve(routes))[0]
 
 
 def _hvi_and_noise(
-    model: CIDNet, x: torch.Tensor, compute_dtype, *, training: bool
+    model: CIDNet, x: torch.Tensor, compute_dtype, *, training: bool, routes: Routes
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The output HVI map and, for TNSM, the per-level noise maps in the
     reference's order (I before HV, levels 1-6; ``I_TNSM5``'s only with
-    ``training``)."""
+    ``training``), through the blocks on ``routes``."""
     _check_x8(x)
     m = model
+    r = routes
     mssa = m.config.variant == "mssa"
     tnsm = uses_tnsm(m.config)
     gate = (lambda name, t: getattr(m, name)(t)) if mssa else (lambda name, t: t)
@@ -212,43 +219,43 @@ def _hvi_and_noise(
     hvi = rgb_to_hvi(x, m.trans.density_k, compute_dtype)  # K1; CIDNet.py:73
     i_img = hvi[:, 2:3]                                    # :74
 
-    i_enc0 = conv3x3_replpad(i_img, m.IE_block0[1].weight)  # :76
-    i_enc1 = m.IE_block1(i_enc0)
-    hv_0 = conv3x3_replpad(hvi, m.HVE_block0[1].weight)
-    hv_1 = m.HVE_block1(hv_0)
+    i_enc0 = dense3x3(i_img, m.IE_block0[1].weight, r, "edge")  # :76
+    i_enc1 = m.IE_block1(i_enc0, r)
+    hv_0 = dense3x3(hvi, m.HVE_block0[1].weight, r, "edge")
+    hv_1 = m.HVE_block1(hv_0, r)
     i_jump0, hv_jump0 = i_enc0, hv_0
 
-    i_enc2 = m.I_LCA1(i_enc1, hv_1)  # :83
-    hv_2 = m.HV_LCA1(hv_1, i_enc1)
+    i_enc2 = m.I_LCA1(i_enc1, hv_1, r)  # :83
+    hv_2 = m.HV_LCA1(hv_1, i_enc1, r)
     i_enc2, hv_2 = suppress(1, i_enc2, hv_2)
     v_jump1, hv_jump1 = i_enc2, hv_2
-    i_enc2 = m.IE_block2(i_enc2)
-    hv_2 = m.HVE_block2(hv_2)
+    i_enc2 = m.IE_block2(i_enc2, r)
+    hv_2 = m.HVE_block2(hv_2, r)
 
-    i_enc3 = m.I_LCA2(i_enc2, hv_2)  # :90
-    hv_3 = m.HV_LCA2(hv_2, i_enc2)
+    i_enc3 = m.I_LCA2(i_enc2, hv_2, r)  # :90
+    hv_3 = m.HV_LCA2(hv_2, i_enc2, r)
     i_enc3, hv_3 = suppress(2, i_enc3, hv_3)
     v_jump2, hv_jump2 = i_enc3, hv_3
     # quirk (a): level-3 downsamples consume the PRE-LCA features (:94-95)
-    i_enc3 = m.IE_block3(i_enc2)
-    hv_3 = m.HVE_block3(hv_2)
+    i_enc3 = m.IE_block3(i_enc2, r)
+    hv_3 = m.HVE_block3(hv_2, r)
 
-    i_enc4 = m.I_LCA3(i_enc3, hv_3)  # :97
-    hv_4 = m.HV_LCA3(hv_3, i_enc3)
+    i_enc4 = m.I_LCA3(i_enc3, hv_3, r)  # :97
+    hv_4 = m.HV_LCA3(hv_3, i_enc3, r)
     i_enc4, hv_4 = suppress(3, i_enc4, hv_4)
 
-    i_dec4 = m.I_LCA4(i_enc4, hv_4)  # :100
-    hv_4 = m.HV_LCA4(hv_4, i_enc4)
+    i_dec4 = m.I_LCA4(i_enc4, hv_4, r)  # :100
+    hv_4 = m.HV_LCA4(hv_4, i_enc4, r)
     i_dec4, hv_4 = suppress(4, i_dec4, hv_4)
 
-    hv_3 = gate("sa_hv3", m.HVD_block3(hv_4, hv_jump2))  # :103; MSSA :133
-    i_dec3 = gate("sa_i3", m.ID_block3(i_dec4, v_jump2))  # MSSA :135
+    hv_3 = gate("sa_hv3", m.HVD_block3(hv_4, hv_jump2, r))  # :103; MSSA :133
+    i_dec3 = gate("sa_i3", m.ID_block3(i_dec4, v_jump2, r))  # MSSA :135
 
     # quirk (b): in base I_LCA5's output reaches nothing, so it is not
     # computed (XLA's dead-code elimination drops it from the JAX program the
     # same way); MSSA feeds it to ID_block2, TNSM to HV_TNSM5 as its y
-    i_dec2 = m.I_LCA5(i_dec3, hv_3) if mssa or tnsm else i_dec3
-    hv_2 = m.HV_LCA5(hv_3, i_dec3)
+    i_dec2 = m.I_LCA5(i_dec3, hv_3, r) if mssa or tnsm else i_dec3
+    hv_2 = m.HV_LCA5(hv_3, i_dec3, r)
     if tnsm:
         # I_TNSM5's output is discarded (quirk (b)); only training reads its
         # noise map, so serving skips the block, as XLA's dead-code elimination does
@@ -257,18 +264,18 @@ def _hvi_and_noise(
         hv_2, hv_n5 = m.HV_TNSM5(hv_2, i_dec2)
         noise_maps.append(hv_n5)
 
-    hv_2 = gate("sa_hv2", m.HVD_block2(hv_2, hv_jump1))  # :108
+    hv_2 = gate("sa_hv2", m.HVD_block2(hv_2, hv_jump1, r))  # :108
     # base and TNSM, quirk (b): from i_dec3 (:109); MSSA feeds I_LCA5's output (:143)
-    i_dec2 = gate("sa_i2", m.ID_block2(i_dec2 if mssa else i_dec3, v_jump1))
+    i_dec2 = gate("sa_i2", m.ID_block2(i_dec2 if mssa else i_dec3, v_jump1, r))
 
-    i_dec1 = m.I_LCA6(i_dec2, hv_2)  # :111
-    hv_1 = m.HV_LCA6(hv_2, i_dec2)
+    i_dec1 = m.I_LCA6(i_dec2, hv_2, r)  # :111
+    hv_1 = m.HV_LCA6(hv_2, i_dec2, r)
     i_dec1, hv_1 = suppress(6, i_dec1, hv_1)
 
-    i_dec1 = gate("sa_i1", m.ID_block1(i_dec1, i_jump0))  # :114
-    i_dec0 = conv3x3_replpad(i_dec1, m.ID_block0[1].weight)
-    hv_1 = gate("sa_hv1", m.HVD_block1(hv_1, hv_jump0))
-    hv_0 = conv3x3_replpad(hv_1, m.HVD_block0[1].weight)
+    i_dec1 = gate("sa_i1", m.ID_block1(i_dec1, i_jump0, r))  # :114
+    i_dec0 = dense3x3(i_dec1, m.ID_block0[1].weight, r, "edge")
+    hv_1 = gate("sa_hv1", m.HVD_block1(hv_1, hv_jump0, r))
+    hv_0 = dense3x3(hv_1, m.HVD_block0[1].weight, r, "edge")
 
     return torch.cat([hv_0, i_dec0], dim=1) + hvi, noise_maps  # :119
 
@@ -280,6 +287,7 @@ def cidnet_forward(
     *,
     compute_dtype=torch.float32,
     training: bool = False,
+    routes: Optional[Routes] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """CIDNet forward (the model's variant). ``x``: NHWC RGB in [0, 1] with
     H, W multiples of 8, on the model's device. Returns NHWC RGB in
@@ -288,8 +296,11 @@ def cidnet_forward(
     resized to the output size (bilinear, ``align_corners=False``), fused by
     ``noise_fusion`` (zero SAME padding) and a sigmoid, NHWC (B, H, W, 3)
     (net/CIDNet_TNSM.py:248-294). Forward only: ``training`` runs no
-    training-mode layer, it only adds the noise output."""
-    out_hvi, noise_maps = _hvi_and_noise(model, x, compute_dtype, training=training)
+    training-mode layer, it only adds the noise output. ``routes``: the
+    fused block route (``ops/routes.py``); None takes the defaults (all
+    off) with the environment's overrides."""
+    out_hvi, noise_maps = _hvi_and_noise(model, x, compute_dtype, training=training,
+                                         routes=resolve(routes))
     # PHVIT read the detached Python float this_k (HVI_transform.py:38, 59)
     rgb = hvi_to_rgb(  # K2
         out_hvi, model.trans.density_k.detach(),

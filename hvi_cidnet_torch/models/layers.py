@@ -17,6 +17,11 @@ apply them through ``ops/`` and keep the JAX package's exact rewrites:
 Activations are NCHW-contiguous. On the card the LCA interior runs as
 kernels: LayerNorm K6, the CAB's channel attention K5, the IEL branch K7;
 NormDownsample's tail K3 and NormUpsample's x2 K4.
+
+The fused block route (``ops/routes.py``, off by default) takes, in the
+blocks that get a ``routes`` argument: the IEL with its LayerNorm and I_LCA's
+residual as P2/P3; NormDownsample's conv, x0.5 and PReLU as P5; the other
+dense 3x3 convs as P4. The LCA's shared ``norm`` still serves the CAB.
 """
 
 from __future__ import annotations
@@ -25,10 +30,30 @@ import torch
 from torch import nn
 
 from hvi_cidnet_torch.ops.attention_cuda import channel_attention
-from hvi_cidnet_torch.ops.conv import conv1x1, conv2d, conv3x3_same, dwconv3x3, prelu
+from hvi_cidnet_torch.ops.conv import (
+    conv1x1,
+    conv2d,
+    conv3x3_replpad,
+    conv3x3_same,
+    dwconv3x3,
+    prelu,
+)
+from hvi_cidnet_torch.ops.conv3x3_cuda import conv3x3, conv3x3_half_prelu
 from hvi_cidnet_torch.ops.iel_cuda import iel_branch
+from hvi_cidnet_torch.ops.ln_iel_cuda import ln_iel
 from hvi_cidnet_torch.ops.norm_cuda import layer_norm
 from hvi_cidnet_torch.ops.resize_cuda import double_bilinear, half_prelu
+from hvi_cidnet_torch.ops.routes import UNFUSED, Routes
+
+
+def dense3x3(x: torch.Tensor, w: torch.Tensor, routes: Routes, pad_mode: str = "zero") -> torch.Tensor:
+    """A dense 3x3 conv, zero SAME padding or the replication pad ("edge"):
+    P4 on the ``conv3x3`` route (on a contiguous copy where ``x`` is a view,
+    as the I stem's input, channel 2 of the HVI map, is at batch > 1), else
+    the plain conv (cuDNN on the card)."""
+    if routes.conv3x3:
+        return conv3x3(x.contiguous(), w, pad_mode)
+    return conv3x3_same(x, w) if pad_mode == "zero" else conv3x3_replpad(x, w)
 
 
 class Conv(nn.Module):
@@ -54,7 +79,8 @@ class LayerNorm(nn.Module):
 
 class NormDownsample(nn.Module):
     """3x3 conv -> bilinear x0.5 -> PReLU -> optional LN
-    (net/transformer_utils.py:31-48). The x0.5 + PReLU tail is K3."""
+    (net/transformer_utils.py:31-48). The x0.5 + PReLU tail is K3; on the
+    ``down`` route the conv, x0.5 and PReLU are P5."""
 
     def __init__(self, cin: int, cout: int, use_norm: bool = False):
         super().__init__()
@@ -62,9 +88,12 @@ class NormDownsample(nn.Module):
         self.prelu = nn.PReLU()
         self.norm = LayerNorm(cout) if use_norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv3x3_same(x, self.down[0].weight)
-        x = half_prelu(x, self.prelu.weight)
+    def forward(self, x: torch.Tensor, routes: Routes = UNFUSED) -> torch.Tensor:
+        w = self.down[0].weight
+        if routes.down:
+            x = conv3x3_half_prelu(x, w, self.prelu.weight)
+        else:
+            x = half_prelu(dense3x3(x, w, routes), self.prelu.weight)
         if self.norm is not None:
             x = self.norm(x)
         return x
@@ -81,7 +110,7 @@ class NormUpsample(nn.Module):
         self.prelu = nn.PReLU()
         self.norm = LayerNorm(cout) if use_norm else None
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, routes: Routes = UNFUSED) -> torch.Tensor:
         w3 = self.up_scale[0].weight
         w_up = self.up.weight
         cout = w_up.shape[0]
@@ -89,7 +118,7 @@ class NormUpsample(nn.Module):
         # with the x2 and composes into the 3x3: conv1x1(double(conv3(x, w3)),
         # W1) == double(conv3(x, W1 . w3)), exact up to reassociation
         w3 = torch.einsum("om,mihw->oihw", w_up[:, :cout, 0, 0].float(), w3.float()).to(w3.dtype)
-        x = double_bilinear(conv3x3_same(x, w3))
+        x = double_bilinear(dense3x3(x, w3, routes))
         x = x + conv1x1(y, w_up[:, cout:])
         x = prelu(x, self.prelu.weight)
         if self.norm is not None:
@@ -142,10 +171,18 @@ class IEL(nn.Module):
         x2 = iel_branch(conv1x1(x, w_pi[hidden:]), w_dw[hidden:], self.dwconv2.weight)
         return conv1x1(x1 * x2, self.project_out.weight)
 
+    def fused(self, x: torch.Tensor, norm: LayerNorm, residual: bool) -> torch.Tensor:
+        """``IEL(norm(x))`` [+ x] as one pass: P2/P3 on the card."""
+        return ln_iel(x, norm.weight, norm.bias, self.project_in.weight, self.dwconv.weight,
+                      self.dwconv1.weight, self.dwconv2.weight, self.project_out.weight, residual)
+
 
 class HV_LCA(nn.Module):
     """``x + CAB(LN(x), LN(y))`` then IEL(LN(x)), with NO residual on the IEL
-    (net/LCA.py:71-81)."""
+    (net/LCA.py:71-81). On the ``ln_iel`` route the IEL with its LayerNorm
+    is P2/P3."""
+
+    residual = False
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -153,17 +190,18 @@ class HV_LCA(nn.Module):
         self.norm = LayerNorm(dim)
         self.ffn = CAB(dim, heads)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, routes: Routes = UNFUSED) -> torch.Tensor:
         x = x + self.ffn(self.norm(x), self.norm(y))
-        return self.gdfn(self.norm(x))
+        if routes.ln_iel:
+            return self.gdfn.fused(x, self.norm, self.residual)
+        out = self.gdfn(self.norm(x))
+        return x + out if self.residual else out
 
 
 class I_LCA(HV_LCA):
     """Like ``HV_LCA`` but with a residual on the IEL (net/LCA.py:83-93)."""
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        x = x + self.ffn(self.norm(x), self.norm(y))
-        return x + self.gdfn(self.norm(x))
+    residual = True
 
 
 class SpatialAttention(nn.Module):

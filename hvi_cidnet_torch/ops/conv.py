@@ -8,8 +8,24 @@ border-corrected replication-pad conv, LN moments on the MXU) stays behind.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """TF32 off for the cuDNN convolutions and cuBLAS products inside (the
+    plain versions of the fused kernels compute in full fp32); the previous
+    settings come back on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, padding=0, groups: int = 1) -> torch.Tensor:

@@ -23,6 +23,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cast_conv_weights,
     cidnet_forward,
 )
+from hvi_cidnet_torch.ops.routes import Routes
 from hvi_cidnet_torch.utils.hf_config import config_from_hf_json
 
 
@@ -51,7 +52,9 @@ class Enhancer:
     the JAX ``Evaluator`` takes its ``config``. ``strict`` defaults to True,
     and to False for TNSM: the shape-filtered load of the TNSM evaluator
     (cli/eval_tnsm.py), where every tensor the file lacks keeps its seeded
-    init.
+    init. ``routes``: the fused block route of every forward
+    (``ops/routes.py``); None takes the defaults with the environment's
+    overrides.
     """
 
     def __init__(
@@ -64,6 +67,7 @@ class Enhancer:
         gamma: float = 1.0,
         compute_dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device] = "cuda",
+        routes: Optional[Routes] = None,
     ):
         if isinstance(weights, CIDNet):
             if config is not None and config != weights.config:
@@ -82,13 +86,15 @@ class Enhancer:
         self.gates = gates
         self.gamma = gamma
         self.compute_dtype = compute_dtype
+        self.routes = routes
 
     @torch.no_grad()
     def _forward(self, x: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device, self.compute_dtype)
         if self.gamma != 1.0:
             t = t**self.gamma  # eval.py:64
-        out = cidnet_forward(self.model, t, self.gates, compute_dtype=self.compute_dtype)
+        out = cidnet_forward(self.model, t, self.gates, compute_dtype=self.compute_dtype,
+                             routes=self.routes)
         if self.config.variant == "tnsm":
             out = out[0]  # (rgb, None) when serving
         return out.float().clamp(0.0, 1.0)  # eval.py:69

@@ -546,3 +546,154 @@ def test_tnsm_full_width_forward_matches_cpu(cuda):
     assert (rgb.cpu() - ref_rgb).abs().mean().item() <= 1e-5
     assert noise.shape == (1, 96, 144, 3)
     assert (noise.cpu() - ref_noise).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the fused block route: P2/P3 (LayerNorm + IEL + residual), P4 (dense 3x3),
+# P5 (conv 3x3 + x0.5 + PReLU). Each computes in fp32 inside, as its plain
+# version does, and rounds once: fp32 within 1e-5 relative (sums over C,
+# the hidden width or the taps in another order), bf16 within one bf16 ulp
+# of the plain version's rounding (or the fp32 bar, where that is larger).
+# ---------------------------------------------------------------------------
+
+from hvi_cidnet_torch.ops import conv3x3_cuda as cc  # noqa: E402
+from hvi_cidnet_torch.ops import ln_iel_cuda as lc  # noqa: E402
+
+
+def _fused_close(got, ref, dt):
+    """max(|got - ref| - allowed) <= 0, allowed = max(fp32 bar, one bf16
+    ulp at max(|got|, |ref|) for bf16)."""
+    got, ref = got.float(), ref.float()
+    allowed = 1e-5 * ref.abs().clamp_min(1.0)
+    if dt == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.abs(), ref.abs()))
+        allowed = torch.maximum(allowed, torch.ldexp(torch.ones_like(got), e - 8))
+    excess = ((got - ref).abs() - allowed).max().item()
+    assert excess <= 0, f"max excess over the bar {excess:.3e}"
+
+
+def _ln_iel_args(shape, dev, dt, seed):
+    b, c, h, w = shape
+    hid = int(c * 2.66)
+    r = lambda s, lo, hi, t=dt, k=0: _rand(s, dev, t, lo, hi, seed=seed + k)
+    x = r((b, c, h, w), -2.0, 2.5)
+    return (x, r((c,), 0.5, 1.5, torch.float32, 1), r((c,), -0.3, 0.3, torch.float32, 2),
+            r((2 * hid, c, 1, 1), -c**-0.5, c**-0.5, dt, 3), r((2 * hid, 1, 3, 3), -0.4, 0.4, dt, 4),
+            r((hid, 1, 3, 3), -0.4, 0.4, dt, 5), r((hid, 1, 3, 3), -0.4, 0.4, dt, 6),
+            r((c, hid, 1, 1), -hid**-0.5, hid**-0.5, dt, 7))
+
+
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no_residual"])
+@pytest.mark.parametrize("shape", [(2, 36, 19, 37), (1, 72, 9, 17), (1, 144, 7, 21),
+                                   (3, 8, 1, 1), (1, 12, 20, 36), (1, 144, 50, 75)], ids=str)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p23_matches_plain(cuda, dt, shape, residual):
+    args = _ln_iel_args(shape, cuda, dt, sum(shape))
+    n = lc.LN_IEL.launches
+    got = lc.ln_iel(*args, residual)
+    assert lc.LN_IEL.launches == n + 1
+    assert got.shape == shape and got.dtype == dt
+    _fused_close(got, lc.ln_iel_plain(*args, residual), dt)
+
+
+P4_SHAPES = [((2, 3, 19, 37), 36), ((1, 36, 17, 33), 2), ((1, 36, 9, 9), 1),
+             ((2, 144, 7, 9), 72), ((1, 5, 1, 1), 13), ((1, 36, 40, 60), 36)]
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("case", P4_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p4_matches_plain(cuda, dt, case, pad_mode):
+    shape, cout = case
+    x = _rand(shape, cuda, dt, -1.0, 1.0, seed=cout)
+    w = _rand((cout, shape[1], 3, 3), cuda, dt, -0.2, 0.2, seed=cout + 1)
+    n = cc.CONV3X3.launches
+    got = cc.conv3x3(x, w, pad_mode)
+    assert cc.CONV3X3.launches == n + 1
+    assert got.shape == (shape[0], cout, *shape[2:]) and got.dtype == dt
+    _fused_close(got, cc.conv3x3_plain(x, w, pad_mode), dt)
+
+
+P5_SHAPES = [((2, 36, 20, 38), 36), ((1, 72, 10, 16), 144), ((1, 3, 7, 9), 5), ((1, 8, 2, 2), 16),
+             ((1, 36, 80, 120), 72)]
+
+
+@pytest.mark.parametrize("case", P5_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p5_matches_plain(cuda, dt, case):
+    shape, cout = case
+    x = _rand(shape, cuda, dt, -1.0, 1.0, seed=cout)
+    w = _rand((cout, shape[1], 3, 3), cuda, dt, -0.2, 0.2, seed=cout + 1)
+    alpha = torch.full((1,), 0.25, device=cuda)
+    n = cc.CONV3X3_HALF_PRELU.launches
+    got = cc.conv3x3_half_prelu(x, w, alpha)
+    assert cc.CONV3X3_HALF_PRELU.launches == n + 1
+    assert got.shape == (shape[0], cout, shape[2] // 2, shape[3] // 2) and got.dtype == dt
+    _fused_close(got, cc.conv3x3_half_prelu_plain(x, w, alpha), dt)
+
+
+def test_fused_kernels_backward_runs_the_plain_autograd(cuda):
+    x, *weights = _ln_iel_args((1, 12, 6, 10), cuda, torch.float32, 3)
+    x = x.requires_grad_()
+    lc.ln_iel(x, *weights, True).square().sum().backward()
+    xc = x.detach().clone().requires_grad_()
+    lc.ln_iel_plain(xc, *weights, True).square().sum().backward()
+    torch.testing.assert_close(x.grad, xc.grad, rtol=1e-4, atol=1e-5)
+    w = _rand((8, 12, 3, 3), cuda, torch.float32, -0.2, 0.2).requires_grad_()
+    alpha = torch.full((1,), 0.25, device=cuda, requires_grad=True)
+    for fn, plain, extra in ((cc.conv3x3, cc.conv3x3_plain, ("edge",)),
+                             (cc.conv3x3_half_prelu, cc.conv3x3_half_prelu_plain, (alpha,))):
+        g1 = torch.autograd.grad(fn(x, w, *extra).sum(), (x, w))
+        g2 = torch.autograd.grad(plain(x, w, *extra).sum(), (x, w))
+        for a, b in zip(g1, g2):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x, *weights = _ln_iel_args((1, 12, 6, 10), cuda, torch.float32, 3)
+    with pytest.raises(ValueError, match="w_po"):
+        lc.ln_iel_kernel(x, *weights[:-1], weights[-1][:, :-1], False)
+    with pytest.raises(ValueError, match="ln_w"):
+        lc.ln_iel_kernel(x, weights[0].double(), *weights[1:], False)
+    with pytest.raises(ValueError, match="contiguous"):
+        lc.ln_iel_kernel(x.transpose(2, 3), *weights, False)
+    w = _rand((8, 12, 3, 3), cuda, torch.float32)
+    with pytest.raises(ValueError, match="pad_mode"):
+        cc.conv3x3(x, w, "reflect")
+    with pytest.raises(ValueError, match="weight"):
+        cc.conv3x3_kernel(x, w[:, :6], "zero")
+    with pytest.raises(ValueError, match="prelu slope"):
+        cc.conv3x3_half_prelu_kernel(x, w, torch.full((2,), 0.25, device=cuda))
+    with pytest.raises(ValueError, match="H, W >= 2"):
+        cc.conv3x3_half_prelu_kernel(x[:, :, :1].contiguous(), w,
+                                     torch.full((1,), 0.25, device=cuda))
+
+
+@pytest.mark.parametrize("variant", ["base", "mssa", "tnsm"])
+def test_fused_route_forward_matches_cpu(cuda, variant):
+    """The full-width forward with every route on, 1 x 64 x 96, card fp32
+    against the same weights' CPU fp32 forward (the forward's bars, max
+    1e-4, mean 1e-6; TNSM's mean 1e-5), and its launches: every LCA a
+    P2/P3, the 6 NormDownsamples P5, the stems, heads and NormUpsamples P4,
+    no K3 or K7."""
+    import numpy as np
+
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cidnet_forward
+    from hvi_cidnet_torch.ops.routes import FUSED
+
+    cfg = CIDNetConfig(variant=variant)
+    cpu = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    gpu = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 64, 96, 3)).astype(np.float32))
+    kernels = (lc.LN_IEL, cc.CONV3X3, cc.CONV3X3_HALF_PRELU, rc.HALF_PRELU, ic.IEL_BRANCH,
+               nc.LAYER_NORM)
+    pick = (lambda o: o[0]) if variant == "tnsm" else (lambda o: o)
+    with torch.no_grad():
+        ref = pick(cidnet_forward(cpu, x, routes=FUSED))
+        start = [k.launches for k in kernels]
+        got = pick(cidnet_forward(gpu, x.to(cuda), routes=FUSED)).cpu()
+        launched = [k.launches - n for k, n in zip(kernels, start)]
+    lcas = 11 if variant == "base" else 12
+    assert launched == [lcas, 10, 6, 0, 0, 2 * lcas + (44 if variant == "tnsm" else 0)]
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert (got - ref).abs().mean().item() <= (1e-5 if variant == "tnsm" else 1e-6)

@@ -11,7 +11,9 @@ output (and, for K5, every column of the contraction and every entry of the
 score matrix) is covered exactly once, that the shared memory fits, that the
 batch-1 sites fill the card, and that no grid dimension overflows; for K1,
 K2 and K3 also that loads and stores take the widest vector the row
-pitches and the base allow.
+pitches and the base allow. The fused block route's kernels too: P2/P3
+(``ops/ln_iel_cuda.py:ln_iel_plan``), P4 (``ops/conv3x3_cuda.py:
+conv3x3_plan``) and P5 (``ops/conv3x3_cuda.py:half_plan``).
 """
 
 import itertools
@@ -20,7 +22,9 @@ import math
 import numpy as np
 import pytest
 
+from hvi_cidnet_torch.ops import conv3x3_cuda as cc
 from hvi_cidnet_torch.ops import hvi_cuda as hc
+from hvi_cidnet_torch.ops import ln_iel_cuda as lc
 from hvi_cidnet_torch.ops import iel_cuda as ic
 from hvi_cidnet_torch.ops import resize_cuda as rc
 
@@ -634,3 +638,102 @@ def test_k6_plan_grid_stays_in_limits():
         nc.layer_norm_plan(2**20, 8, 2**22, 4)
     with pytest.raises(ValueError, match="C must be"):
         nc.layer_norm_plan(1, 257, 64, 2)
+
+
+# ---------------------------------------------------------------------------
+# the fused block route: P2/P3, P4, P5
+# ---------------------------------------------------------------------------
+
+# (C, h, w) of the LCA levels at 600 x 400 and 1280 x 720, and odd ones
+LN_IEL_SITES = [(36, 200, 300), (72, 100, 150), (144, 50, 75), (36, 360, 640), (144, 90, 160),
+                (12, 20, 36), (8, 1, 1), (256, 7, 33), (95, 17, 3)]
+
+
+def _tiles_cover(n: int, tile: int, tiles: int) -> None:
+    """Tiles [t * tile, (t + 1) * tile) for t < tiles cover [0, n) once, none
+    of them empty."""
+    seen = np.zeros(n, np.int64)
+    for t in range(tiles):
+        assert t * tile < n
+        seen[t * tile:(t + 1) * tile] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", LN_IEL_SITES, ids=str)
+def test_p23_plan_covers_each_pixel_once(site, b):
+    c, h, w = site
+    p = lc.ln_iel_plan(b, c, h, w)
+    _tiles_cover(h, p.tile_h, p.tiles_y)
+    _tiles_cover(w, lc.TILE_W, p.tiles_x)
+    assert p.blocks == b * p.tiles_y * p.tiles_x <= lc.MAX_GRID_X
+    # the project_out step gives each thread one pixel of the tile
+    assert lc.THREADS % (p.tile_h * lc.TILE_W) == 0
+    assert p.smem_bytes == lc.ln_iel_smem_bytes(c, p.tile_h) <= lc.SMEM_LIMIT
+    # the tallest tile that fits
+    taller = [t for t in lc.TILE_HEIGHTS if t > p.tile_h]
+    assert all(lc.ln_iel_smem_bytes(c, t) > lc.SMEM_LIMIT for t in taller)
+
+
+def test_p23_plan_tiles_of_the_forward():
+    """8-row tiles at C = 36 and 72, 4-row at 144: C = 144's 8-row tile
+    would take 289 KB, past a block's 227 KB."""
+    assert [lc.ln_iel_plan(8, c, 50, 75).tile_h for c in (36, 72, 144)] == [8, 8, 4]
+    assert lc.ln_iel_smem_bytes(144, 8) > lc.SMEM_LIMIT >= lc.ln_iel_smem_bytes(144, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        lc.ln_iel_plan(1, 400, 8, 8)
+    with pytest.raises(ValueError, match="grid"):
+        lc.ln_iel_plan(2**16, 8, 2**12, 2**12)
+
+
+# (C_in, C_out, h, w) of the forward's P4 sites at 600 x 400 (stems, heads,
+# NormUpsample's folded convs), of P5's (NormDownsample), and odd ones
+P4_SITES = [(3, 36, 400, 600), (1, 36, 400, 600), (36, 2, 400, 600), (36, 1, 400, 600),
+            (144, 72, 50, 75), (72, 36, 100, 150), (36, 36, 200, 300), (12, 8, 20, 36),
+            (5, 13, 1, 1), (7, 25, 9, 33)]
+P5_SITES = [(36, 36, 400, 600), (36, 72, 200, 300), (72, 144, 100, 150), (12, 8, 20, 36),
+            (8, 16, 2, 2), (3, 5, 7, 9), (8, 16, 16, 24)]
+
+
+def _check_conv_plan(p, b, cout, oh, ow) -> None:
+    _tiles_cover(oh, p.tile_h, p.tiles_y)
+    _tiles_cover(ow, p.tile_w, p.tiles_x)
+    _tiles_cover(cout, p.co_tile, p.groups)
+    assert p.co_tile in cc.CO_TILES
+    # no other instantiation leaves fewer channels idle
+    idle = lambda t: -(-cout // t) * t - cout
+    assert idle(p.co_tile) == min(idle(t) for t in cc.CO_TILES)
+    assert p.blocks == b * p.groups * p.tiles_y * p.tiles_x <= cc.MAX_GRID_X
+    assert p.conv_pixels <= cc.THREADS  # one conv output a thread
+    assert p.smem_bytes <= 48 * 1024  # static shared memory
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", P4_SITES, ids=str)
+def test_p4_plan_covers_each_output_once(site, b):
+    _, cout, h, w = site
+    p = cc.conv3x3_plan(b, cout, h, w)
+    _check_conv_plan(p, b, cout, h, w)
+    assert (p.tile_h, p.tile_w) == cc.TILE and p.conv_pixels == p.tile_h * p.tile_w
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", P5_SITES, ids=str)
+def test_p5_plan_covers_each_output_once(site, b):
+    """Each half-size output (i, j) reads conv rows 2i .. 2i + 2 and columns
+    2j .. 2j + 2; a tile's conv rectangle holds them for its whole tile."""
+    _, cout, h, w = site
+    p = cc.half_plan(b, cout, h, w)
+    _check_conv_plan(p, b, cout, h // 2, w // 2)
+    assert (p.tile_h, p.tile_w) == cc.HALF_TILE
+    assert p.conv_pixels == (2 * p.tile_h + 1) * (2 * p.tile_w + 1)
+    for ty in range(p.tiles_y):
+        rows = range(2 * ty * p.tile_h, 2 * ty * p.tile_h + 2 * p.tile_h + 1)
+        for i in range(ty * p.tile_h, min(h // 2, (ty + 1) * p.tile_h)):
+            assert {2 * i, 2 * i + 1, 2 * i + 2} <= set(rows)
+
+
+def test_conv_plans_pick_the_narrow_tile_for_the_heads():
+    assert [cc.conv3x3_plan(8, c, 400, 600).co_tile for c in (1, 2, 36, 72)] == [4, 4, 12, 12]
+    with pytest.raises(ValueError, match="grid"):
+        cc.conv3x3_plan(2**20, 144, 2**10, 2**10)
