@@ -8,8 +8,9 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
 
 1. fails unless ``torch.cuda.is_available()``;
 2. prints the card's name and power limit (``nvidia-smi``);
-3. builds the kernels K1-K7 and the fused block route's P2/P3, P4 and P5
-   (one ``nvcc`` a source, all started together) and prints the build time;
+3. builds the kernels K1-K7, the fused block route's P2/P3, P4 and P5 and
+   the probe route's P1, P6 and P10/P15 (one ``nvcc`` a source, all
+   started together) and prints the build time;
 4. holds each kernel against its plain PyTorch twin on the card, in fp32
    and bf16, at every site shape the 600 x 400 forward gives it (batch 8),
    and prints the error, the kernel's and the twin's times (and, for K4,
@@ -31,6 +32,18 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    kernel's time, its plain version's, its bound and what the unfused route
    runs in its place (P4: ``F.conv2d``, cuDNN; P5: cuDNN + K3; P2/P3: K6,
    the 1x1 convs, 2 x K7 and the product);
+4c. holds the probe route's kernels against their plain versions at every
+   site shape of the 600 x 400 batch-8 forward and at batch 1 (N tails),
+   fp32 and bf16: P1 at the three LCA levels (q and k of shared structure,
+   fp32 against its plain version on the CPU within 1e-5 relative, bf16
+   within two ulps at the apply's scale), P10/P15 at TNSM's three (within
+   1e-5 |q_r| |k_c| of its plain version on the CPU), P6 at the 16 dense
+   3x3 convs (1e-5 relative, bf16 one ulp); each also twice for the same
+   bits (P1, P10/P15) and against a planted fault (k rows permuted) that
+   the bar must reject; with each kernel's time, its plain version's, its
+   bound and the comparators: K5 at the same sites (P1, P10/P15), and for
+   P6 ``torch.matmul`` on the same staged operand and ``F.conv2d``
+   (cuDNN) for the whole conv;
 5. runs the full-width base, MSSA and TNSM forwards on the card in fp32
    (TF32 off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result; TNSM also with
@@ -41,16 +54,21 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
 5b. the same three forwards on the fused block route (card fp32 vs CPU
    fp32 at each variant's bars, bf16 vs fp32; TNSM's training forward and
    its launches);
+5c. the same on the probe route;
 6. checks the launches of one forward: base K1 1, K2 1, K3 6, K4 6, K5 11,
    K6 33, K7 22; MSSA the same with K5 12, K6 36, K7 24; TNSM K5 23, K6
    80, K7 24; on the fused route base P2/P3 11, P4 10, P5 6, K3 0, K4 6,
-   K5 11, K6 22, K7 0, MSSA and TNSM P2/P3 12 and K6 24 and 68;
+   K5 11, K6 22, K7 0, MSSA and TNSM P2/P3 12 and K6 24 and 68; on the
+   probe route base P1 11, P6 16, P10/P15 0, K5 0, K3 6, K4 6, K6 33, K7
+   22, MSSA P1 12, K6 36, K7 24, TNSM P1 12, P10/P15 11, K5 0;
 7. serves requests through ``serve.Enhancer`` (gates on, gamma != 1) at
    sizes that are not multiples of 8, for each variant, counting every
-   kernel's launches (the main path), then again on the fused route (this
-   slice's path: its counts are set to 0 before and read after);
+   kernel's launches (the main path), then again on the fused route and on
+   the probe route (this slice's path); each route's counts are set to 0
+   before it and read after;
 8. prints each variant's images per second at 600 x 400 bf16, batch 1, 8
-   and 32, on the default and the fused route (information);
+   and 32, on the default, the fused and the probe route, and the bounds of
+   the relayouts still to port (information);
 9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -127,24 +145,49 @@ VARIANTS = ("base", "mssa", "tnsm")
 # TNSM runs 12 LCAs (3 K6, 1 K5, 2 K7 each) and 11 TNSM blocks (4 K6, 1 K5
 # each: I_TNSM5 reaches nothing when serving), and with training=True all 12
 NONE_FUSED = {"P2/P3": 0, "P4": 0, "P5": 0}
+NONE_PROBE = {"P1": 0, "P6": 0, "P10/P15": 0}
 PER_FORWARD = {
-    "base": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 11, "K6": 33, "K7": 22, **NONE_FUSED},
-    "mssa": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 12, "K6": 36, "K7": 24, **NONE_FUSED},
-    "tnsm": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 23, "K6": 80, "K7": 24, **NONE_FUSED},
+    "base": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 11, "K6": 33, "K7": 22, **NONE_FUSED,
+             **NONE_PROBE},
+    "mssa": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 12, "K6": 36, "K7": 24, **NONE_FUSED,
+             **NONE_PROBE},
+    "tnsm": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 23, "K6": 80, "K7": 24, **NONE_FUSED,
+             **NONE_PROBE},
 }
-TNSM_TRAINING = {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 24, "K6": 84, "K7": 24, **NONE_FUSED}
+TNSM_TRAINING = dict(PER_FORWARD["tnsm"], K5=24, K6=84)
 # on the fused block route: one P2/P3 an LCA in place of its IEL's K6 and
 # two K7; P5 in place of each NormDownsample's conv and K3; P4 at the 4
 # stems and heads and the 6 NormUpsamples
 PER_FORWARD_FUSED = {
     "base": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 11, "K6": 22, "K7": 0,
-             "P2/P3": 11, "P4": 10, "P5": 6},
+             "P2/P3": 11, "P4": 10, "P5": 6, **NONE_PROBE},
     "mssa": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 12, "K6": 24, "K7": 0,
-             "P2/P3": 12, "P4": 10, "P5": 6},
+             "P2/P3": 12, "P4": 10, "P5": 6, **NONE_PROBE},
     "tnsm": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 23, "K6": 68, "K7": 0,
-             "P2/P3": 12, "P4": 10, "P5": 6},
+             "P2/P3": 12, "P4": 10, "P5": 6, **NONE_PROBE},
 }
 TNSM_TRAINING_FUSED = dict(PER_FORWARD_FUSED["tnsm"], K5=24, K6=72)
+# on the probe route: one P1 an LCA and one P10/P15 a TNSM block in place of
+# K5; P6 at the 16 dense 3x3 convs (each NormDownsample's still followed by
+# K3)
+PER_FORWARD_PROBE = {v: dict(PER_FORWARD[v], K5=0, P1=12 if v != "base" else 11, P6=16,
+                             **{"P10/P15": 11 if v == "tnsm" else 0}) for v in VARIANTS}
+TNSM_TRAINING_PROBE = dict(PER_FORWARD_PROBE["tnsm"], K6=84, **{"P10/P15": 12})
+# the probe route's kernels: fp32 within TOL_PROBE * max(1, |ref|) (P1, P6),
+# P10/P15 within TOL_PROBE * |q_r| |k_c|; P1 and P10/P15 in fp32 against
+# their plain versions run on the CPU (the card's fp32 bmm drifts on q and k
+# of shared structure, as K5's twin does). bf16: P6 within one ulp of the
+# plain version's rounding (fused_excess); P1 within two ulps at the
+# apply's scale, max(|got|, |ref|, sum_j A_ij |v_j|): A is rounded once to
+# bf16 before the apply, and a last-bit difference in the fp32 softmax that
+# flips one entry's rounding moves the output by at most two ulps there
+PROBE = ("P1", "P6", "P10/P15")
+TOL_PROBE = 1e-5
+
+
+# route name -> (Routes or None, launches per forward by variant, TNSM's
+# training launches); filled by main once the package is imported
+ROUTES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -772,6 +815,201 @@ def compare_fused(results: dict, dev) -> None:
             del x
 
 
+def probe_bound_ms(key: str, x: torch.Tensor, c: int = 0, cout: int = 0) -> tuple:
+    """(least time in ms, "bytes" or "operations") of P1 or P10/P15 on
+    (G, c, N) q, or of P6 on a (B, K, N) operand: each input read once and
+    each output written once over 3.35 TB/s, against the operations over the
+    peak of the inputs' type (bf16: the tensor cores; fp32: the CUDA
+    cores)."""
+    it = x.element_size()
+    peak = PEAK_FLOPS["bf16_tensor" if x.dtype == torch.bfloat16 else "fp32"]
+    if key == "P6":
+        b, k, n = x.shape
+        nbytes = (x.numel() + cout * k + b * cout * n) * it
+        ops = 2 * b * cout * k * n
+    else:
+        g, _, n = x.shape
+        if key == "P1":  # q, k, v read, out written; scores, norms, apply
+            nbytes = 4 * x.numel() * it
+            ops = 4 * g * c * c * n + 4 * g * c * n
+        else:  # q, k read, the fp32 scores written
+            nbytes = 2 * x.numel() * it + 4 * g * c * c
+            ops = 2 * g * c * c * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def p1_excess(got, ref, q, k, v, temps) -> float:
+    """max(|got - ref| - allowed) of P1 (module note at TOL_PROBE); passes
+    at <= 0."""
+    from hvi_cidnet_torch.ops import head_attention_cuda as ha
+
+    got, ref = got.float(), ref.float()
+    if q.dtype == torch.float32:
+        allowed = TOL_PROBE * ref.abs().clamp_min(1.0)
+    else:
+        a = ha.attention_matrix(q, k, temps).to(v.dtype).float()
+        scale = torch.bmm(a, v.float().abs())
+        _, e = torch.frexp(torch.maximum(torch.maximum(got.abs(), ref.abs()), scale))
+        allowed = torch.ldexp(torch.full_like(got, 2.0), e - 8)
+    return ((got - ref).abs() - allowed).max().item()
+
+
+def qk_excess(got, ref, q, k) -> float:
+    """max(|got - ref| - TOL_PROBE |q_r| |k_c|) of P10/P15's scores."""
+    nq, nk = (t.float().square().sum(-1).sqrt() for t in (q, k))
+    return ((got - ref).abs() - TOL_PROBE * nq[:, :, None] * nk[:, None, :]).max().item()
+
+
+def compare_probe(results: dict, dev) -> None:
+    """P1, P10/P15 and P6 against their plain versions at every site shape
+    of the 600 x 400 batch-8 forward and at batch 1 (levels 1 and 3; the
+    level-3 N = 3750 leaves a tail of each kernel's tile), fp32 and bf16,
+    each with its time, its plain version's, its bound and its comparators
+    (K5 at the attention sites; ``torch.matmul`` on the staged operand and
+    cuDNN's conv at the convs)."""
+    from hvi_cidnet_torch.models.layers import heads_view
+    from hvi_cidnet_torch.ops import attention_cuda as ac
+    from hvi_cidnet_torch.ops import batched_qk_cuda as bq
+    from hvi_cidnet_torch.ops import conv3x3_cuda as cc
+    from hvi_cidnet_torch.ops import head_attention_cuda as ha
+    from hvi_cidnet_torch.ops import im2col_cuda as icol
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    bmm_fp32_out = "dtype" in torch.ops.aten.bmm.overloads()  # bmm(..., out_dtype=)
+
+    def rnd(shape, lo, hi, dt):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
+
+    def record(key, dt, site, err, kern, plain, x, per_forward, bound, comparators=None,
+               library=None, info=""):
+        row = {"dtype": str(dt), "err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+               "library_ms": time_ms(library) if library is not None else None,
+               "bound_ms": bound[0], "bound_by": bound[1], "site": site,
+               "per_forward": per_forward}
+        for name, fn in (comparators or {}).items():
+            row[f"{name}_ms"] = time_ms(fn)
+        results[key].append(row)
+        extra = "".join(f"  {name} {row[f'{name}_ms']:.4f} ms" for name in (comparators or {}))
+        log(f"{key} {site}{info} {tuple(x.shape)} {dt}: max_abs_err {err:.3e}  kernel "
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+            + (f"  library {row['library_ms']:.4f} ms" if library is not None else "")
+            + f"{extra}  bound {bound[0]:.4f} ms ({bound[1]})")
+
+    for dt in (torch.float32, torch.bfloat16):
+        for level, c, heads, h, w, lcas in lca_sites():
+            tnsm_blocks = {v: TNSM_BLOCKS[level] if v == "tnsm" else 0 for v in VARIANTS}
+            for b in (BATCH, 1) if level != 2 else (BATCH,):
+                shape, cp = (b, c, h, w), c // heads
+                site = {"level": level, "batch": b}
+                per_lca = dict(lcas) if b == BATCH else {v: 0 for v in VARIANTS}
+                per_tnsm = tnsm_blocks if b == BATCH else {v: 0 for v in VARIANTS}
+                v_ = rnd(shape, -1.0, 1.0, dt)
+                wp = rnd((c, c, 1, 1), -c**-0.5, c**-0.5, dt)
+                vh = heads_view(v_, heads)
+                # P1: the CAB's attention per head, q and k of shared structure
+                q, k, temp = k5_inputs(gen, shape, heads, dev, dt, True)
+                qh, kh, temps = heads_view(q, heads), heads_view(k, heads), temp.reshape(heads)
+                run = lambda: ha.head_attention_kernel(qh, kh, vh, temps)
+                plain = lambda: ha.head_attention_plain(qh, kh, vh, temps)
+                got = run()
+                ref = (ha.head_attention_plain(*(t.cpu() for t in (qh, kh, vh, temps))).to(dev)
+                       if dt == torch.float32 else plain())
+                if dt == torch.float32:
+                    log(f"P1 level {level} batch {b} fp32: kernel vs the card's plain version "
+                        f"{max_err(got, plain()):.3e}, vs the CPU's {max_err(got, ref):.3e}")
+                excess = p1_excess(got, ref, qh, kh, vh, temps)
+                if not excess <= 0:
+                    raise AssertionError(f"P1 level {level} batch {b} {dt}: max abs err "
+                                         f"{max_err(got, ref):.3e}, over the bar by {excess:.3e}")
+                if dt == torch.bfloat16:  # the same error in ulps at |out| itself (information)
+                    _, e = torch.frexp(torch.maximum(got.float().abs(), ref.float().abs()))
+                    ulps = ((got.float() - ref.float()).abs() / torch.ldexp(
+                        torch.ones_like(e, dtype=torch.float32), e - 8)).max().item()
+                    log(f"P1 level {level} batch {b} bf16: max err {ulps:.2f} ulps of "
+                        f"max(|got|, |ref|)")
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"P1 level {level} batch {b} {dt}: two calls differ")
+                flipped = heads_view(k.reshape(b, heads, cp, h, w).flip(2).reshape(shape), heads)
+                if p1_excess(ha.head_attention_kernel(qh, flipped, vh, temps), ref, qh, kh, vh,
+                             temps) <= 0:
+                    raise AssertionError(f"P1 level {level} {dt}: the bar passes a planted fault")
+                record("P1", dt, site, max_err(got, ref), run, plain, qh, per_lca,
+                       probe_bound_ms("P1", qh, cp), comparators={
+                           "k5": lambda: ac.channel_attention_kernel(q, k, v_, temp, heads,
+                                                                     w_proj=wp)})
+                del q, k, qh, kh, flipped, got, ref
+                # P10/P15: TNSM's unnormalised scores
+                q, k, temp = k5_inputs(gen, shape, heads, dev, dt, False)
+                qh, kh = heads_view(q, heads), heads_view(k, heads)
+                run = lambda: bq.batched_qk_kernel(qh, kh)
+                plain = lambda: bq.batched_qk_plain(qh, kh)
+                got = run()
+                ref = bq.batched_qk_plain(qh.cpu(), kh.cpu()).to(dev)
+                excess = qk_excess(got, ref, qh, kh)
+                log(f"P10/P15 level {level} batch {b} {dt}: kernel vs the card's plain version "
+                    f"{max_err(got, plain()):.3e}, vs the CPU's {max_err(got, ref):.3e}, "
+                    f"|score| up to {ref.abs().max().item():.1f}")
+                if not excess <= 0:
+                    raise AssertionError(f"P10/P15 level {level} batch {b} {dt}: max abs err "
+                                         f"{max_err(got, ref):.3e}, over the bar by {excess:.3e}")
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"P10/P15 level {level} batch {b} {dt}: two calls differ")
+                flipped = heads_view(k.reshape(b, heads, cp, h, w).flip(2).reshape(shape), heads)
+                if qk_excess(bq.batched_qk_kernel(qh, flipped), ref, qh, kh) <= 0:
+                    raise AssertionError(f"P10/P15 level {level} {dt}: the bar passes a planted "
+                                         f"fault")
+                library = (lambda: torch.bmm(qh, kh.mT)) if dt == torch.float32 else (
+                    (lambda: torch.bmm(qh, kh.mT, out_dtype=torch.float32)) if bmm_fp32_out
+                    else None)
+                record("P10/P15", dt, site, max_err(got, ref), run, plain, qh, per_tnsm,
+                       probe_bound_ms("P10/P15", qh, cp), library=library, comparators={
+                           "k5": lambda: ac.channel_attention_kernel(
+                               q, k, v_, temp, heads, normalize_qk=False, w_proj=wp)})
+                del q, k, qh, kh, flipped, got, ref, v_, vh
+        p4_sites, p5_sites = fused_conv_sites()
+        conv_sites = [(s, ci, co, hh, ww, pad, {v: uses for v in VARIANTS})
+                      for s, ci, co, hh, ww, pad, uses in p4_sites] + \
+                     [(s, ci, co, hh, ww, "zero", {v: uses for v in VARIANTS})
+                      for s, ci, co, hh, ww, uses in p5_sites] + \
+                     [("up3 batch 1", p4_sites[4][1], p4_sites[4][2], H // 8, W // 8, "zero",
+                       {v: 0 for v in VARIANTS})]
+        for site, cin, cout, h, w, pad, per_forward in conv_sites:
+            b = 1 if "batch 1" in site else BATCH
+            x = rnd((b, cin, h, w), -1.0, 1.0, dt)
+            wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5, dt)
+            a = icol.stage_3x3(x, pad)
+            wmat = wt.reshape(cout, cin * 9)
+            run = lambda: icol.im2col_dots_kernel(a, wmat)
+            plain = lambda: icol.im2col_dots_plain(a, wmat)
+            got = run()
+            excess = fused_excess(got, plain(), dt)
+            if not excess <= 0:
+                raise AssertionError(f"P6 {site} {dt}: max abs err {max_err(got, plain()):.3e}, "
+                                     f"over the bar by {excess:.3e}")
+            # the whole conv: the route's (F.unfold and P6), the default
+            # route's (cuDNN, after the replication pad at the stems and heads)
+            record("P6", dt, site, max_err(got, plain()), run, plain, a, per_forward,
+                   probe_bound_ms("P6", a, cout=cout), library=lambda: torch.matmul(wmat, a),
+                   comparators={"route": lambda: icol.conv3x3_im2col(x, wt, pad),
+                                "cudnn": lambda: cc.conv3x3_plain(x, wt, pad)},
+                   info=f" ({pad} pad)")
+            del x, a, got
+            torch.cuda.empty_cache()
+
+
+def unported_bounds() -> None:
+    """The bound of each TPU relayout still to port (P7-P9, P11-P14: a
+    transpose, a minor-pair swap or a pack of the attention operands
+    between (N, C, B) and (B, C, N)) at the port's batch-8 level shapes in
+    bf16: each element read once and written once over 3.35 TB/s
+    (information)."""
+    for level, c, _, h, w, _ in lca_sites():
+        nbytes = 2 * BATCH * c * h * w * 2
+        log(f"P7-P9, P11-P14 (to port) level {level} ({BATCH}, {c}, {h * w}) bf16: bound "
+            f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms a call ({nbytes / 1e6:.1f} MB)")
+
+
 def rgb_of(variant: str, out):
     """The RGB of a forward: TNSM returns (rgb, noise or None)."""
     return out[0] if variant == "tnsm" else out
@@ -796,9 +1034,9 @@ def capture_tnsm_attention(fn) -> list:
     return calls
 
 
-def compare_forward(dev, variant: str, kernels: dict, routes=None):
+def compare_forward(dev, variant: str, kernels: dict, name: str = "default"):
     """Card fp32 vs CPU fp32 with the same weights; bf16 card vs fp32 card;
-    both on ``routes`` (None: the default route). TNSM also: the training
+    both on the route ``name`` (a key of ROUTES). TNSM also: the training
     forward's noise map and launches, and, on the default route, K5 on the
     attention inputs captured from the card's forwards. Returns the bf16
     model."""
@@ -807,7 +1045,8 @@ def compare_forward(dev, variant: str, kernels: dict, routes=None):
     )
 
     tnsm = variant == "tnsm"
-    route = "fused route" if routes is not None else "default route"
+    routes, _, training_launches = ROUTES[name]
+    route = f"{name} route"
     forward = lambda *a, **kw: cidnet_forward(*a, routes=routes, **kw)
     tol_max, tol_mean, tol_bf16 = ((TOL_TNSM["max"], TOL_TNSM["mean"], TOL_TNSM["bf16_mean"])
                                    if tnsm else
@@ -849,7 +1088,8 @@ def compare_forward(dev, variant: str, kernels: dict, routes=None):
     check(f"{variant} {route} forward fp32 card vs CPU (mean)", mean, tol_mean)
     check(f"{variant} {route} forward output HVI card vs CPU", hvi_err, tol_max)
     if tnsm:
-        compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes)
+        compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes,
+                              training_launches, route)
 
     bf_model = cast_conv_weights(
         CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev), torch.bfloat16
@@ -872,20 +1112,21 @@ def compare_forward(dev, variant: str, kernels: dict, routes=None):
     return bf_model
 
 
-def compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes) -> None:
-    """The TNSM forward with training=True on the card: its launches (I_TNSM5
-    runs, for its noise map), its rgb against the serving forward's ``got``,
-    and its fused noise map against the CPU's ``ref_noise``."""
+def compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes, want,
+                          route) -> None:
+    """The TNSM forward with training=True on the card on ``routes``: its
+    launches (I_TNSM5 runs, for its noise map) against ``want``, its rgb
+    against the serving forward's ``got``, and its fused noise map against
+    the CPU's ``ref_noise``."""
     from hvi_cidnet_torch.models.cidnet import cidnet_forward
 
-    want = TNSM_TRAINING if routes is None else TNSM_TRAINING_FUSED
     with torch.no_grad():
         torch.cuda.synchronize()
         reset(kernels)
         rgb, noise = cidnet_forward(gpu_model, x.to(dev), training=True, routes=routes)
         torch.cuda.synchronize()
         launched = counts(kernels)
-    log(f"tnsm training=True launches per forward{' (fused route)' if routes else ''}: {launched}")
+    log(f"tnsm training=True launches per forward ({route}): {launched}")
     if launched != want:
         raise AssertionError(f"tnsm training launches {launched} != {want}")
     noise = noise.cpu()
@@ -961,13 +1202,18 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
     over the kernel's sites in one forward, 600 x 400, batch 8, bf16: base
     in ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` (for P2/P3 and
     P5, which no one PyTorch call computes, the unfused route's ops in their
-    place in ``unfused_ms``), each path in ``*_by_path``. ``launches``: the
-    serving run of the kernel's path (the fused route's for P2/P3, P4, P5)."""
+    place in ``unfused_ms``), each path in ``*_by_path``; P10/P15, which
+    only TNSM runs, per TNSM forward. The probe route's comparators too: K5
+    at the same sites (``k5_ms``), the route's whole conv and cuDNN's
+    (``route_ms``, ``cudnn_ms``). ``launches``: the serving run of the
+    kernel's path (the fused route's for P2/P3, P4, P5, the probe route's
+    for P1, P6, P10/P15)."""
     bf = [r for r in rows if r["dtype"] == "torch.bfloat16"]
     if key == "K2":
         bf = bf[:1]  # the no-gates arm, as the forward runs by default
+    main_path = "tnsm" if key == "P10/P15" else "base"
 
-    def per_forward(field, path="base"):
+    def per_forward(field, path=main_path):
         if bf[0].get(field) is None:
             return None
         # K1-K4: each row is one launch of every path's forward
@@ -983,14 +1229,19 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
                "P2/P3": ("ln_iel", "ln_iel.cu",
                          "experiments/iel_pallas_nhcw.py:104 and experiments/iel_fused_pallas.py:75"),
                "P4": ("conv3x3", "conv3x3.cu", "experiments/conv_pallas_nhcw.py:64"),
-               "P5": ("conv3x3_half_prelu", "conv3x3.cu", "experiments/fused_pallas_nhcw.py:67")}
+               "P5": ("conv3x3_half_prelu", "conv3x3.cu", "experiments/fused_pallas_nhcw.py:67"),
+               "P1": ("head_attention", "head_attention.cu",
+                      "experiments/attn_kernel_probe_r2.py:32"),
+               "P6": ("im2col_dots", "im2col_gemm.cu", "experiments/flat_pilot_r3.py:62"),
+               "P10/P15": ("batched_qk", "batched_qk.cu", "experiments/relayout_probe_r5h.py:98 "
+                           "and experiments/mosaic_micro_r5h.py:106")}
     name, src, tpu = sources[key]
     worst = max(bf, key=lambda r: r["bound_ms"])
     line = {
         "name": name,
         "route": "cuda",
         "source": f"hvi_cidnet_torch/csrc/{src}",
-        "replaces": tpu if key in FUSED else f"hvi_cidnet_tpu/ops/{tpu}",
+        "replaces": tpu if tpu.startswith("experiments/") else f"hvi_cidnet_tpu/ops/{tpu}",
         "launches": sum(launches[v][key] for v in VARIANTS),
         "launches_by_path": {v: launches[v][key] for v in VARIANTS},
         "max_abs_err": max(r["err"] for r in rows if r["dtype"] == "torch.float32"),
@@ -1008,6 +1259,9 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
         line["bound_cuda_core_ms"] = per_forward("bound_cuda_core_ms")
     if key in FUSED:
         line["unfused_ms"] = per_forward("unfused_ms")
+    for field in ("k5_ms", "route_ms", "cudnn_ms"):
+        if field in bf[0]:
+            line[field] = per_forward(field)
     return line
 
 
@@ -1019,9 +1273,11 @@ def main() -> int:
     from hvi_cidnet_torch.models.cidnet import HVIGates, cidnet_forward
     from hvi_cidnet_torch.ops import _build
     from hvi_cidnet_torch.ops import (
-        attention_cuda, conv3x3_cuda, hvi_cuda, iel_cuda, ln_iel_cuda, norm_cuda, resize_cuda,
+        attention_cuda, batched_qk_cuda, conv3x3_cuda, head_attention_cuda, hvi_cuda, iel_cuda,
+        im2col_cuda, ln_iel_cuda, norm_cuda, resize_cuda,
     )
     from hvi_cidnet_torch.ops.routes import FUSED as FUSED_ROUTE
+    from hvi_cidnet_torch.ops.routes import PROBE as PROBE_ROUTE
     from hvi_cidnet_torch.serve import Enhancer
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1041,18 +1297,26 @@ def main() -> int:
                "K3": resize_cuda.HALF_PRELU, "K4": resize_cuda.DOUBLE,
                "K5": attention_cuda.ATTENTION, "K6": norm_cuda.LAYER_NORM,
                "K7": iel_cuda.IEL_BRANCH, "P2/P3": ln_iel_cuda.LN_IEL,
-               "P4": conv3x3_cuda.CONV3X3, "P5": conv3x3_cuda.CONV3X3_HALF_PRELU}
+               "P4": conv3x3_cuda.CONV3X3, "P5": conv3x3_cuda.CONV3X3_HALF_PRELU,
+               "P1": head_attention_cuda.HEAD_ATTENTION, "P6": im2col_cuda.IM2COL_DOTS,
+               "P10/P15": batched_qk_cuda.BATCHED_QK}
     results = {k: [] for k in kernels}
+    compare_probe(results, dev)
+    torch.cuda.empty_cache()
     compare_fused(results, dev)
     compare_hvi(results, dev)
     compare_resize(results, dev)
     compare_lca(results, dev)
     batch1_info(dev)
     torch.cuda.empty_cache()
-    routes = {"default": (None, PER_FORWARD), "fused": (FUSED_ROUTE, PER_FORWARD_FUSED)}
+    ROUTES.update(default=(None, PER_FORWARD, TNSM_TRAINING),
+                  fused=(FUSED_ROUTE, PER_FORWARD_FUSED, TNSM_TRAINING_FUSED),
+                  probe=(PROBE_ROUTE, PER_FORWARD_PROBE, TNSM_TRAINING_PROBE))
+    routes = {name: (route, want) for name, (route, want, _) in ROUTES.items()}
     bf_models = {v: compare_forward(dev, v, kernels) for v in VARIANTS}
-    for v in VARIANTS:
-        compare_forward(dev, v, kernels, FUSED_ROUTE)
+    for name in ("fused", "probe"):
+        for v in VARIANTS:
+            compare_forward(dev, v, kernels, name)
     torch.cuda.empty_cache()
 
     # launches of one forward (the bf16 serving models, 1 x 400 x 600)
@@ -1070,7 +1334,8 @@ def main() -> int:
                                      f"!= {want[variant]}")
 
     # the main path: requests through the serving entry point, each variant,
-    # on the default route and on the fused one (this slice's path)
+    # on the default route, the fused one and the probe one (this slice's
+    # path)
     gates = HVIGates(gated=True, gated2=True, alpha=0.95, alpha_s=1.1)
     rng = np.random.default_rng(3)
     requests = [rng.uniform(0, 0.4, (h, w, 3)).astype(np.float32)
@@ -1114,8 +1379,9 @@ def main() -> int:
                 log(f"{variant} {name} route forward 600x400 bf16 batch {b}: {ms:.2f} ms, "
                     f"{1000 * b / ms:.1f} img/s, peak {peak:.2f} GiB")
 
-    summary = [summarise(key, results[key], served["fused" if key in FUSED else "default"])
-               for key in kernels]
+    unported_bounds()
+    path_of = lambda key: "fused" if key in FUSED else "probe" if key in PROBE else "default"
+    summary = [summarise(key, results[key], served[path_of(key)]) for key in kernels]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ demo.py:11-73): reflect-pad to x8, run with both HVI gates on, crop, save
 
     python -m hvi_cidnet_torch.cli.demo --input IMG [--output_dir output]
         [--weight weights/SICE.pth | --random_init] [--gamma 1.0]
-        [--alpha_s 1.0] [--alpha_i 1.0] [--variant base|mssa|tnsm] [--cpu] [--fused]
+        [--alpha_s 1.0] [--alpha_i 1.0] [--variant base|mssa|tnsm] [--cpu]
+        [--fused | --probe]
 
 Weights are a reference-layout ``.pth``, ``.npz`` or ``.safetensors``
 state dict, the JAX trainer's ``.npz`` checkpoint (``param::`` keys) or an
@@ -12,7 +13,7 @@ HF folder, whose ``config.json`` gives the model's config in place of
 ``--variant``; TNSM loads them shape-filtered and non-strict, as the TNSM
 evaluator does. With ``--random_init`` the model is drawn from a generator
 seeded 0. Runs on the card unless ``--cpu`` is given; ``--fused`` takes
-the fused block route (``ops/routes.py``).
+the fused block route, ``--probe`` the probe route (``ops/routes.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from PIL import Image
 
 from hvi_cidnet_torch.models.cidnet import VARIANTS, CIDNet, CIDNetConfig, HVIGates
-from hvi_cidnet_torch.ops.routes import FUSED
+from hvi_cidnet_torch.ops import routes
 from hvi_cidnet_torch.serve import Enhancer
 
 
@@ -41,8 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     p.add_argument("--random_init", action="store_true",
                    help="run with fresh random weights (no weight file needed)")
-    p.add_argument("--fused", action="store_true",
-                   help="take the fused block route (P2/P3, P4, P5; ops/routes.py)")
+    routes.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -60,7 +60,7 @@ def main(argv=None) -> str:
     if not args.random_init and os.path.isdir(args.weight):
         config = None  # the folder's config.json
     enhancer = Enhancer(weights, gates, config=config, gamma=args.gamma,
-                        device="cpu" if args.cpu else "cuda", routes=FUSED if args.fused else None)
+                        device="cpu" if args.cpu else "cuda", routes=routes.from_flags(args))
 
     print(f"processing: {args.input}")
     img = np.asarray(Image.open(args.input).convert("RGB"), np.float32) / 255.0

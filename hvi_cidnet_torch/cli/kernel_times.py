@@ -1,8 +1,10 @@
 """Device time per call of K3 (bilinear x0.5 + PReLU), K1 (RGB -> HVI) and
 K2 (HVI -> RGB) at the 600 x 400 base forward's shapes; with ``--fused``,
-of the fused block route's kernels P2/P3, P4 and P5 instead.
+of the fused block route's kernels P2/P3, P4 and P5 instead; with
+``--probe``, of the probe route's P1, P6 and P10/P15.
 
-    python -m hvi_cidnet_torch.cli.kernel_times [--batch 8 1] [--fused] [--out FILE.json]
+    python -m hvi_cidnet_torch.cli.kernel_times [--batch 8 1] [--fused | --probe]
+        [--out FILE.json]
 
 Runs on the card. For K3 at NormDownsample's three sites (36 x 400 x 600,
 72 x 200 x 300, 144 x 100 x 150 per image), K1 at 400 x 600 x 3 and K2 at
@@ -20,6 +22,14 @@ NormDownsample sites, each beside what the unfused route runs in its place,
 timed the same way (P2/P3: K6, the 1x1 convs, 2 x K7, the product; P4:
 ``F.conv2d``, cuDNN; P5: cuDNN's conv and K3).
 
+With ``--probe``: P1 at the three LCA levels' CAB sites and P10/P15 at
+TNSM's, each alone, then the route's whole site (P1 and the 1x1
+``project_out``; P10/P15, the temperature, softmax, value product and
+``project_out``) beside K5 with the fold, which the default route runs
+there; P6 at the 16 dense 3x3 convs, alone on the staged operand, then the
+route's conv (``F.unfold`` and P6) beside cuDNN's (after the replication
+pad at the stems and heads).
+
 It uses only the kernels' wrappers and twins, so another checkout (a
 parent commit unpacked with ``git archive``) is timed by running this file
 with that checkout first on the path, in turns with this one on one card:
@@ -36,7 +46,7 @@ import sys
 import torch
 
 import hvi_cidnet_torch
-from hvi_cidnet_torch.ops import hvi_cuda, resize_cuda
+from hvi_cidnet_torch.ops import hvi_cuda, resize_cuda, routes
 from hvi_cidnet_torch.ops.conv import conv3x3_same
 
 H, W = 400, 600
@@ -52,8 +62,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="time K3, K1 and K2 per call on the card")
     p.add_argument("--batch", type=int, nargs="+", default=[8, 1])
     p.add_argument("--out", type=str, default="")
-    p.add_argument("--fused", action="store_true",
-                   help="time P2/P3, P4 and P5 and the unfused route's ops in their place")
+    routes.add_flags(p)  # --fused / --probe: time that route's kernels
     return p.parse_args(argv)
 
 
@@ -174,16 +183,95 @@ def fused_rows(dev, gen, batches) -> list:
     return rows
 
 
+# (level, C, heads, h, w) of the attention sites (CAB and TNSM) at 600 x 400
+ATTENTION_SITES = ((1, 36, 2, H // 2, W // 2), (2, 72, 4, H // 4, W // 4),
+                   (3, 144, 8, H // 8, W // 8))
+
+
+def measure_probe(name, kernel, route, default, x, **info) -> dict:
+    """A probe kernel's device time per call, the route's whole site and
+    the default route's op there (all from CUDA graphs), and the largest
+    difference of the two sites' outputs."""
+    got, ref = route(), default()
+    row = {"kernel": name, **info, "dtype": str(x.dtype).removeprefix("torch."),
+           "shape": list(x.shape),
+           "max_abs_diff_to_default": (got.float() - ref.float()).abs().max().item(),
+           "graph_ms": graph_ms(kernel), "wrapper_ms": wrapper_ms(kernel),
+           "route_graph_ms": graph_ms(route), "default_graph_ms": graph_ms(default)}
+    print(f"{name} {info} {row['dtype']} {tuple(x.shape)}: {1e3 * row['graph_ms']:.2f} us a call "
+          f"(graph), {1e3 * row['wrapper_ms']:.2f} us through the wrapper; the route's site "
+          f"{1e3 * row['route_graph_ms']:.2f} us, the default route's "
+          f"{1e3 * row['default_graph_ms']:.2f} us; max diff {row['max_abs_diff_to_default']:.3e}",
+          flush=True)
+    return row
+
+
+def probe_rows(dev, gen, batches) -> list:
+    import torch.nn.functional as F
+
+    from hvi_cidnet_torch.models.layers import heads_view
+    from hvi_cidnet_torch.ops import attention_cuda, batched_qk_cuda, head_attention_cuda
+    from hvi_cidnet_torch.ops import im2col_cuda
+    from hvi_cidnet_torch.ops.conv import conv1x1
+
+    def rnd(shape, lo, hi, dt):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
+
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        for b in batches:
+            for level, c, heads, h, w in ATTENTION_SITES:
+                q, k, v = (rnd((b, c, h, w), -1.0, 1.0, dt) for _ in range(3))
+                temp = rnd((heads, 1, 1), 1.0, 2.0, torch.float32)
+                wp = rnd((c, c, 1, 1), -c**-0.5, c**-0.5, dt)
+                qh, kh, vh = (heads_view(t, heads) for t in (q, k, v))
+                temps = temp.reshape(heads)
+
+                def p1_site():
+                    out = head_attention_cuda.head_attention_kernel(qh, kh, vh, temps)
+                    return conv1x1(out.view(q.shape), wp)
+
+                def qk_site():
+                    s = batched_qk_cuda.batched_qk_kernel(qh, kh).view(b, heads, c // heads, -1)
+                    attn = torch.softmax(s * temp, dim=-1).to(dt).flatten(0, 1)
+                    return conv1x1(torch.bmm(attn, vh).view(q.shape), wp)
+
+                rows.append(measure_probe(
+                    "P1", lambda: head_attention_cuda.head_attention_kernel(qh, kh, vh, temps),
+                    p1_site, lambda: attention_cuda.channel_attention_kernel(
+                        q, k, v, temp, heads, w_proj=wp), q, level=level, batch=b))
+                rows.append(measure_probe(
+                    "P10/P15", lambda: batched_qk_cuda.batched_qk_kernel(qh, kh), qk_site,
+                    lambda: attention_cuda.channel_attention_kernel(
+                        q, k, v, temp, heads, normalize_qk=False, w_proj=wp), q, level=level,
+                    batch=b))
+            for site, cin, cout, h, w, pad in P4_SITES + tuple(
+                    (s, ci, co, h, w, "zero") for s, ci, co, h, w in P5_SITES):
+                x = rnd((b, cin, h, w), -1.0, 1.0, dt)
+                wt = rnd((cout, cin, 3, 3), -cin**-0.5 / 3, cin**-0.5 / 3, dt)
+                a = im2col_cuda.stage_3x3(x, pad)
+                wmat = wt.reshape(cout, cin * 9)
+                rows.append(measure_probe(
+                    "P6", lambda: im2col_cuda.im2col_dots_kernel(a, wmat),
+                    lambda: im2col_cuda.conv3x3_im2col(x, wt, pad),
+                    lambda: F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), wt)
+                    if pad == "edge" else F.conv2d(x, wt, padding=1), x, site=site, batch=b))
+                del a
+    return rows
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    if args.fused:
+    if args.fused or args.probe:
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rows = (fused_rows if args.fused else probe_rows)(dev, gen, args.batch)
         result = {"device": torch.cuda.get_device_name(0), "package": hvi_cidnet_torch.__file__,
-                  "rows": fused_rows(dev, gen, args.batch)}
+                  "rows": rows}
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(result, f, indent=1)

@@ -3,11 +3,11 @@ counterpart of ``cli/net_test.py`` (reference net_test.py:1-21).
 
     python -m hvi_cidnet_torch.cli.net_test [--size 256] [--batch 1]
         [--dtype float32|bfloat16] [--iters 10] [--variant base|mssa|tnsm] [--cpu]
-        [--fused]
+        [--fused | --probe]
 
 Runs on the card unless ``--cpu`` is given; ``--fused`` takes the fused
-block route (``ops/routes.py``), else the defaults with the environment's
-overrides. The time is host wall clock
+block route, ``--probe`` the probe route (``ops/routes.py``), else the
+defaults with the environment's overrides. The time is host wall clock
 around forwards that end in a device synchronise.
 """
 
@@ -27,7 +27,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cast_conv_weights,
     cidnet_forward,
 )
-from hvi_cidnet_torch.ops.routes import FUSED
+from hvi_cidnet_torch.ops import routes
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -38,8 +38,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
-    p.add_argument("--fused", action="store_true",
-                   help="take the fused block route (P2/P3, P4, P5; ops/routes.py)")
+    routes.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -57,7 +56,7 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
 
     def forward():
-        out = cidnet_forward(model, x, compute_dtype=dt, routes=FUSED if args.fused else None)
+        out = cidnet_forward(model, x, compute_dtype=dt, routes=routes.from_flags(args))
         return out[0] if args.variant == "tnsm" else out  # TNSM: (rgb, None)
 
     with torch.no_grad():

@@ -1,7 +1,7 @@
 """Where the forward's device time goes: one ``torch.profiler`` run.
 
     python -m hvi_cidnet_torch.cli.profile_forward [--variant base|mssa|tnsm]
-        [--batch 1 8] [--fused] [--out FILE.json]
+        [--batch 1 8] [--fused | --probe] [--out FILE.json]
 
 Runs on the card (600 x 400, bf16, random weights from seed 0). For each
 batch it prints the forward's time from CUDA events (unprofiled), then,
@@ -9,7 +9,8 @@ over ITERS profiled forwards: the device-busy share of the wall time (the
 kernels' summed device time over the host wall clock; one stream, so
 kernels do not overlap), the kernel launches per forward, and the kernels
 by summed device time (the TOP longest) with their share and launches per
-forward. ``--fused`` takes the fused block route (``ops/routes.py``).
+forward. ``--fused`` takes the fused block route, ``--probe`` the probe
+route (``ops/routes.py``).
 ``--out`` writes the same as JSON.
 """
 
@@ -31,7 +32,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cast_conv_weights,
     cidnet_forward,
 )
-from hvi_cidnet_torch.ops.routes import FUSED
+from hvi_cidnet_torch.ops import routes
 
 H, W = 400, 600
 ITERS = 3
@@ -43,8 +44,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     p.add_argument("--out", type=str, default="")
-    p.add_argument("--fused", action="store_true",
-                   help="take the fused block route (P2/P3, P4, P5; ops/routes.py)")
+    routes.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -97,14 +97,14 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda", 0)
     model = CIDNet(CIDNetConfig(variant=args.variant), generator=torch.Generator().manual_seed(0))
     model = cast_conv_weights(model.to(dev), torch.bfloat16).eval()
-    routes = FUSED if args.fused else None
+    route = routes.from_flags(args)
+    name = "fused" if args.fused else "probe" if args.probe else "default"
     result = {"device": torch.cuda.get_device_name(0), "variant": args.variant, "size": [H, W],
-              "fused": args.fused, "batches": []}
-    print(f"{result['device']}: {args.variant} forward {W}x{H} bf16"
-          + (" (fused block route)" if args.fused else ""))
+              "route": name, "batches": []}
+    print(f"{result['device']}: {args.variant} forward {W}x{H} bf16 ({name} route)")
     for b in args.batch:
         x = torch.from_numpy(np.random.default_rng(b).uniform(0, 1, (b, H, W, 3)))
-        r = profile_batch(model, x.to(dev, torch.bfloat16), routes)
+        r = profile_batch(model, x.to(dev, torch.bfloat16), route)
         result["batches"].append(r)
         print(f"batch {b}: {r['forward_ms']:.2f} ms/forward unprofiled; profiled "
               f"{r['profiled_wall_ms_per_forward']:.2f} ms wall, device busy "

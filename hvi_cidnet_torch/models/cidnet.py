@@ -23,7 +23,9 @@ kernels K1 and K2 (``ops/hvi_cuda.py``) and the blocks as K3-K7
 statistics are fp32, everything else ``compute_dtype``. The fused block
 route (``routes``, ``ops/routes.py``; off unless asked for) runs the LCAs'
 LayerNorm + IEL as P2/P3, the NormDownsamples as P5 and the other dense 3x3
-convs (stems, heads, NormUpsample) as P4, each in fp32 inside. Only the 4-D conv
+convs (stems, heads, NormUpsample) as P4, each in fp32 inside; the probe
+route runs the attention sites per head (P1 in the LCAs, P10/P15's scores
+in TNSM) and the dense 3x3 convs as im2col products (P6). Only the 4-D conv
 weights take the compute dtype (``cast_conv_weights``): LayerNorm, PReLU,
 temperature and density_k stay fp32 (``.to(bfloat16)`` on the whole module
 would round density_k 0.2 to 0.2002).
@@ -211,8 +213,8 @@ def _hvi_and_noise(
         each reads the other's LCA output, not its TNSM output."""
         if not tnsm:
             return i_x, hv_x
-        i_t, i_n = getattr(m, f"I_TNSM{idx}")(i_x, hv_x)
-        hv_t, hv_n = getattr(m, f"HV_TNSM{idx}")(hv_x, i_x)
+        i_t, i_n = getattr(m, f"I_TNSM{idx}")(i_x, hv_x, r)
+        hv_t, hv_n = getattr(m, f"HV_TNSM{idx}")(hv_x, i_x, r)
         noise_maps.extend([i_n, hv_n])
         return i_t, hv_t
 
@@ -260,8 +262,8 @@ def _hvi_and_noise(
         # I_TNSM5's output is discarded (quirk (b)); only training reads its
         # noise map, so serving skips the block, as XLA's dead-code elimination does
         if training:
-            noise_maps.append(m.I_TNSM5(i_dec2, hv_2)[1])
-        hv_2, hv_n5 = m.HV_TNSM5(hv_2, i_dec2)
+            noise_maps.append(m.I_TNSM5(i_dec2, hv_2, r)[1])
+        hv_2, hv_n5 = m.HV_TNSM5(hv_2, i_dec2, r)
         noise_maps.append(hv_n5)
 
     hv_2 = gate("sa_hv2", m.HVD_block2(hv_2, hv_jump1, r))  # :108
@@ -297,8 +299,8 @@ def cidnet_forward(
     ``noise_fusion`` (zero SAME padding) and a sigmoid, NHWC (B, H, W, 3)
     (net/CIDNet_TNSM.py:248-294). Forward only: ``training`` runs no
     training-mode layer, it only adds the noise output. ``routes``: the
-    fused block route (``ops/routes.py``); None takes the defaults (all
-    off) with the environment's overrides."""
+    fused block or probe route (``ops/routes.py``); None takes the defaults
+    (all off) with the environment's overrides."""
     out_hvi, noise_maps = _hvi_and_noise(model, x, compute_dtype, training=training,
                                          routes=resolve(routes))
     # PHVIT read the detached Python float this_k (HVI_transform.py:38, 59)

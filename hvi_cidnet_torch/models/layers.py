@@ -21,7 +21,10 @@ NormDownsample's tail K3 and NormUpsample's x2 K4.
 The fused block route (``ops/routes.py``, off by default) takes, in the
 blocks that get a ``routes`` argument: the IEL with its LayerNorm and I_LCA's
 residual as P2/P3; NormDownsample's conv, x0.5 and PReLU as P5; the other
-dense 3x3 convs as P4. The LCA's shared ``norm`` still serves the CAB.
+dense 3x3 convs as P4. The LCA's shared ``norm`` still serves the CAB. The
+probe route takes the CAB's attention per head as P1, with ``project_out``
+as a 1x1 conv after it, and the dense 3x3 convs as an im2col operand and
+P6's products.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from hvi_cidnet_torch.ops.conv import (
     prelu,
 )
 from hvi_cidnet_torch.ops.conv3x3_cuda import conv3x3, conv3x3_half_prelu
+from hvi_cidnet_torch.ops.head_attention_cuda import head_attention
+from hvi_cidnet_torch.ops.im2col_cuda import conv3x3_im2col
 from hvi_cidnet_torch.ops.iel_cuda import iel_branch
 from hvi_cidnet_torch.ops.ln_iel_cuda import ln_iel
 from hvi_cidnet_torch.ops.norm_cuda import layer_norm
@@ -49,10 +54,13 @@ from hvi_cidnet_torch.ops.routes import UNFUSED, Routes
 def dense3x3(x: torch.Tensor, w: torch.Tensor, routes: Routes, pad_mode: str = "zero") -> torch.Tensor:
     """A dense 3x3 conv, zero SAME padding or the replication pad ("edge"):
     P4 on the ``conv3x3`` route (on a contiguous copy where ``x`` is a view,
-    as the I stem's input, channel 2 of the HVI map, is at batch > 1), else
-    the plain conv (cuDNN on the card)."""
+    as the I stem's input, channel 2 of the HVI map, is at batch > 1), the
+    im2col operand and P6 on the ``im2col`` route, else the plain conv
+    (cuDNN on the card)."""
     if routes.conv3x3:
         return conv3x3(x.contiguous(), w, pad_mode)
+    if routes.im2col:
+        return conv3x3_im2col(x, w, pad_mode)
     return conv3x3_same(x, w) if pad_mode == "zero" else conv3x3_replpad(x, w)
 
 
@@ -126,9 +134,18 @@ class NormUpsample(nn.Module):
         return x
 
 
+def heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """NCHW ``t`` as (B * heads, C / heads, H * W): a free view of a
+    contiguous tensor (``.contiguous()`` copies only where ``t`` is not)."""
+    b, c, h, w = t.shape
+    return t.contiguous().view(b * heads, c // heads, h * w)
+
+
 class CAB(nn.Module):
     """Cross-attention block: q from x, k/v from y (net/LCA.py:7-41). The
-    attention with the folded ``project_out`` is K5."""
+    attention with the folded ``project_out`` is K5; on the ``head_attn``
+    route the attention per head is P1 and ``project_out`` a 1x1 conv
+    after it, unfolded, as net/LCA.py runs it."""
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
@@ -140,12 +157,17 @@ class CAB(nn.Module):
         self.kv_dwconv = Conv(1, 2 * dim, 3)
         self.project_out = Conv(dim, dim, 1)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, routes: Routes = UNFUSED) -> torch.Tensor:
         dim = x.shape[1]
         w_kv, w_kvdw = self.kv.weight, self.kv_dwconv.weight
         q = dwconv3x3(conv1x1(x, self.q.weight), self.q_dwconv.weight)
         k = dwconv3x3(conv1x1(y, w_kv[:dim]), w_kvdw[:dim])
         v = dwconv3x3(conv1x1(y, w_kv[dim:]), w_kvdw[dim:])
+        if routes.head_attn:
+            h = self.heads
+            out = head_attention(heads_view(q, h), heads_view(k, h), heads_view(v, h),
+                                 self.temperature.reshape(h))
+            return conv1x1(out.view(q.shape), self.project_out.weight)
         return channel_attention(
             q, k, v, self.temperature, self.heads, w_proj=self.project_out.weight
         )
@@ -191,7 +213,7 @@ class HV_LCA(nn.Module):
         self.ffn = CAB(dim, heads)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, routes: Routes = UNFUSED) -> torch.Tensor:
-        x = x + self.ffn(self.norm(x), self.norm(y))
+        x = x + self.ffn(self.norm(x), self.norm(y), routes)
         if routes.ln_iel:
             return self.gdfn.fused(x, self.norm, self.residual)
         out = self.gdfn(self.norm(x))

@@ -8,7 +8,10 @@ weights are OIHW and bias-free; ``CIDNet.reset_parameters`` draws them.
 
 On the card the LayerNorms are K6 and the noise-aware attention is K5 in
 its unnormalised arm (q and k are not L2-normalised, so the scores are raw
-sums over space), with ``project_out`` folded in. The rest is plain
+sums over space), with ``project_out`` folded in. On the ``head_attn``
+route (``ops/routes.py``) the scores per head are P10/P15, then the
+temperature, an fp32 softmax and the value product run as plain ops, and
+``project_out`` as a 1x1 conv. The rest is plain
 PyTorch, as the JAX package runs it as plain XLA: the 1x1 and depthwise
 3x3 convs, ``leaky_relu(0.2)``, the sigmoids and the global mean and max
 pools. The noise map has one channel and broadcasts over the others.
@@ -22,9 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hvi_cidnet_torch.models.layers import Conv, LayerNorm
+from hvi_cidnet_torch.models.layers import Conv, LayerNorm, heads_view
 from hvi_cidnet_torch.ops.attention_cuda import channel_attention
+from hvi_cidnet_torch.ops.batched_qk_cuda import batched_qk
 from hvi_cidnet_torch.ops.conv import conv1x1, dwconv3x3
+from hvi_cidnet_torch.ops.routes import UNFUSED, Routes
 
 
 class DynamicNoiseMap(nn.Module):
@@ -68,13 +73,21 @@ class NoiseAwareAttention(nn.Module):
         self.noise_scaler = nn.Sequential(Conv(1, dim, 1))
         self.project_out = Conv(dim, dim, 1)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor, noise_map: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, noise_map: torch.Tensor,
+                routes: Routes = UNFUSED) -> torch.Tensor:
         dim = x.shape[1]
         w_kv, w_kvdw = self.kv.weight, self.kv_dwconv.weight
         q = dwconv3x3(conv1x1(x, self.q.weight), self.q_dwconv.weight)
         k = dwconv3x3(conv1x1(y, w_kv[:dim]), w_kvdw[:dim])
         v = dwconv3x3(conv1x1(y, w_kv[dim:]), w_kvdw[dim:])
         v = v * torch.sigmoid(conv1x1(noise_map, self.noise_scaler[0].weight))
+        if routes.head_attn:
+            h = self.heads
+            scores = batched_qk(heads_view(q, h), heads_view(k, h))  # (B * h, c, c) fp32
+            scores = scores.view(-1, h, *scores.shape[1:]) * self.temperature.float()
+            attn = torch.softmax(scores, dim=-1).to(v.dtype).flatten(0, 1)
+            out = torch.bmm(attn, heads_view(v, h)).view(v.shape)
+            return conv1x1(out, self.project_out.weight)
         return channel_attention(q, k, v, self.temperature, self.heads, normalize_qk=False,
                                  w_proj=self.project_out.weight)
 
@@ -111,10 +124,11 @@ class TrainableNoiseSuppression(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                routes: Routes = UNFUSED) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x, the noise map (B, 1, H, W))."""
         noise_map = self.noise_map_generator(x)
-        x = x + self.noise_attention(self.norm1(x), self.norm1(y), noise_map)
+        x = x + self.noise_attention(self.norm1(x), self.norm1(y), noise_map, routes)
         x = x + self.adaptive_filter(self.norm2(x), noise_map)
         return x, noise_map
 
@@ -127,5 +141,6 @@ class TNSM(nn.Module):
         super().__init__()
         self.tnsm = TrainableNoiseSuppression(dim, heads)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.tnsm(x, y)
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                routes: Routes = UNFUSED) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.tnsm(x, y, routes)

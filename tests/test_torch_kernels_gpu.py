@@ -697,3 +697,213 @@ def test_fused_route_forward_matches_cpu(cuda, variant):
     assert launched == [lcas, 10, 6, 0, 0, 2 * lcas + (44 if variant == "tnsm" else 0)]
     assert (got - ref).abs().max().item() <= 1e-4
     assert (got - ref).abs().mean().item() <= (1e-5 if variant == "tnsm" else 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The probe route's kernels, P1, P6 and P10/P15, against their plain
+# versions at c = 18 (every site), C_out 1 and 2, K 9 and 27, odd N and N
+# past a tile. Bars as in chip_smoke.py: P1 in fp32 within 1e-5 * max(1,
+# |ref|) of its plain version run on the CPU (the card's fp32 bmm drifts on
+# q and k of shared structure, as K5's twin does); in bf16 within two bf16
+# ulps at the apply's scale, max(|got|, |ref|, sum_j A_ij |v_j|): A is
+# rounded once to bf16 before the apply, and a last-bit difference in the
+# fp32 softmax that flips one entry's rounding moves the output by at most
+# two ulps at that scale. P6: 1e-5 * max(1, |ref|), bf16 one ulp
+# (``_fused_close``). P10/P15: every entry within 1e-5 * |q_r| |k_c|
+# (Cauchy-Schwarz; a bar relative to |ref| is wrong near cancellation) of
+# the plain version run on the CPU, fp32 and bf16 inputs alike.
+# ---------------------------------------------------------------------------
+
+from hvi_cidnet_torch.ops import batched_qk_cuda as bq  # noqa: E402
+from hvi_cidnet_torch.ops import head_attention_cuda as ha  # noqa: E402
+from hvi_cidnet_torch.ops import im2col_cuda as icol  # noqa: E402
+
+# (B, C, H, W, heads): c = C / heads
+HEAD_SHAPES = [(2, 36, 7, 9, 2), (1, 144, 50, 75, 8), (2, 72, 100, 150, 4), (1, 36, 200, 300, 2),
+               (3, 5, 1, 1, 1), (1, 32, 13, 11, 1), (2, 8, 4, 4, 2), (1, 4, 1, 129, 4),
+               (4, 144, 3, 43, 8)]
+
+
+def _heads(shape, heads, dev, dt, normalised, seed):
+    """q, k of shared structure (``_qk``) and v, as (B * heads, c, H W),
+    with the (heads,) temperatures."""
+    b, c, h, w = shape
+    q, k, temp = _qk(shape, heads, dev, dt, normalised, seed)
+    v = _rand(shape, dev, dt, -1.0, 1.0, seed=seed + 1)
+    view = lambda t: t.reshape(b * heads, c // heads, h * w).contiguous()
+    return view(q), view(k), view(v), temp.reshape(heads)
+
+
+def _p1_close(got, ref, q, k, v, temps):
+    got32, ref32 = got.float(), ref.float()
+    if got.dtype == torch.float32:
+        allowed = 1e-5 * ref32.abs().clamp_min(1.0)
+    else:
+        a = ha.attention_matrix(q, k, temps).to(v.dtype).float()
+        scale = torch.bmm(a, v.float().abs())
+        _, e = torch.frexp(torch.maximum(torch.maximum(got32.abs(), ref32.abs()), scale))
+        allowed = torch.ldexp(torch.full_like(got32, 2.0), e - 8)
+    excess = ((got32 - ref32).abs() - allowed).max().item()
+    assert excess <= 0, f"max err {(got32 - ref32).abs().max().item():.3e}, over by {excess:.3e}"
+
+
+def _p1_ref(q, k, v, temps):
+    if q.dtype != torch.float32:
+        return ha.head_attention_plain(q, k, v, temps)
+    return ha.head_attention_plain(*(t.cpu() for t in (q, k, v, temps))).to(q.device)
+
+
+@pytest.mark.parametrize("case", HEAD_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p1_matches_plain(cuda, dt, case):
+    *shape, heads = case
+    q, k, v, temps = _heads(tuple(shape), heads, cuda, dt, True, seed=sum(shape))
+    n = ha.HEAD_ATTENTION.launches
+    got = ha.head_attention(q, k, v, temps)
+    assert ha.HEAD_ATTENTION.launches == n + 1
+    assert got.shape == q.shape and got.dtype == dt
+    _p1_close(got, _p1_ref(q, k, v, temps), q, k, v, temps)
+    assert torch.equal(got, ha.head_attention(q, k, v, temps))  # the same bits again
+
+
+@pytest.mark.parametrize("elements", [1, 2])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p1_p10_take_tensors_off_16_byte_alignment(cuda, dt, elements):
+    """q, k, v ``elements`` past a 16-byte boundary with N a multiple of 8:
+    narrower loads (2 elements or 1), the same results."""
+    q0, k0, v0, temps = _heads((2, 36, 8, 16), 2, cuda, dt, True, seed=80)
+    shifted = []
+    for t in (q0, k0, v0):
+        base = torch.empty(t.numel() + elements, dtype=dt, device=cuda)
+        shifted.append(base[elements:].view(t.shape).copy_(t))
+    q, k, v = shifted
+    assert q.data_ptr() % 16 != 0
+    _p1_close(ha.head_attention(q, k, v, temps), _p1_ref(q0, k0, v0, temps), q, k, v, temps)
+    got = bq.batched_qk(q, k)
+    _qk_close(got, bq.batched_qk_plain(q0.cpu(), k0.cpu()).to(cuda), q, k)
+
+
+def _qk_close(got, ref, q, k):
+    nq, nk = (t.float().square().sum(-1).sqrt() for t in (q, k))
+    allowed = 1e-5 * nq[:, :, None] * nk[:, None, :]
+    excess = ((got - ref).abs() - allowed).max().item()
+    assert excess <= 0, f"max err {(got - ref).abs().max().item():.3e}, over by {excess:.3e}"
+
+
+@pytest.mark.parametrize("case", HEAD_SHAPES, ids=str)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p10_p15_matches_plain(cuda, dt, case):
+    *shape, heads = case
+    q, k, _, _ = _heads(tuple(shape), heads, cuda, dt, False, seed=sum(shape) + 3)
+    n = bq.BATCHED_QK.launches
+    got = bq.batched_qk(q, k)
+    assert bq.BATCHED_QK.launches == n + 1
+    assert got.shape == (q.shape[0], q.shape[1], q.shape[1]) and got.dtype == torch.float32
+    _qk_close(got, bq.batched_qk_plain(q.cpu(), k.cpu()).to(cuda), q, k)
+    assert torch.equal(got, bq.batched_qk(q, k))
+
+
+# (B, C_in, H, W, C_out, pad): K = 9 C_in
+P6_CASES = [(2, 1, 7, 9, 36, "edge"), (1, 3, 19, 37, 36, "edge"), (1, 36, 17, 33, 2, "edge"),
+            (1, 36, 9, 9, 1, "zero"), (2, 144, 7, 9, 72, "zero"), (1, 72, 50, 75, 144, "zero"),
+            (1, 36, 40, 64, 36, "zero"), (3, 5, 1, 1, 13, "zero"), (1, 8, 16, 16, 17, "edge")]
+
+
+@pytest.mark.parametrize("case", P6_CASES, ids=str)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p6_matches_plain(cuda, dt, case):
+    b, cin, h, w, cout, pad = case
+    x = _rand((b, cin, h, w), cuda, dt, -1.0, 1.0, seed=cout)
+    wt = _rand((cout, cin, 3, 3), cuda, dt, -cin**-0.5, cin**-0.5, seed=cout + 1)
+    a = icol.stage_3x3(x, pad)
+    wmat = wt.reshape(cout, cin * 9)
+    n = icol.IM2COL_DOTS.launches
+    got = icol.im2col_dots(a, wmat)
+    assert icol.IM2COL_DOTS.launches == n + 1
+    assert got.shape == (b, cout, h * w) and got.dtype == dt
+    _fused_close(got, icol.im2col_dots_plain(a, wmat), dt)
+    conv = icol.conv3x3_im2col(x, wt, pad)
+    assert torch.equal(conv, got.view(b, cout, h, w))
+    # the whole conv against cuDNN's (TF32 off), fp32 at the P6 bar
+    if dt == torch.float32:
+        _fused_close(conv, cc.conv3x3_plain(x, wt, pad), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p6_takes_an_operand_off_16_byte_alignment(cuda, dt):
+    """N a multiple of the vector but the operand 2 (4) bytes past a
+    16-byte boundary: element loads, the same result."""
+    b, k, n, cout = 2, 27, 264, 36
+    base = _rand((b * k * n + 1,), cuda, dt, -1.0, 1.0, seed=60)
+    a = base[1:].view(b, k, n)
+    assert a.data_ptr() % 16 != 0
+    wmat = _rand((cout, k), cuda, dt, -0.2, 0.2, seed=61)
+    _fused_close(icol.im2col_dots(a, wmat), icol.im2col_dots_plain(a, wmat), dt)
+
+
+def test_probe_kernels_backward_runs_the_plain_autograd(cuda):
+    q, k, v, temps = _heads((1, 36, 5, 7), 2, cuda, torch.float32, True, seed=70)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    temps = temps.requires_grad_()
+    for fn, plain, args in ((ha.head_attention, ha.head_attention_plain, (q, k, v, temps)),
+                            (bq.batched_qk, bq.batched_qk_plain, (q, k))):
+        g1 = torch.autograd.grad(fn(*args).square().sum(), args)
+        g2 = torch.autograd.grad(plain(*args).square().sum(), args)
+        for x, y in zip(g1, g2):
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+    a = _rand((2, 27, 40), cuda, torch.float32, -1.0, 1.0, seed=71).requires_grad_()
+    wmat = _rand((5, 27), cuda, torch.float32, -0.2, 0.2, seed=72).requires_grad_()
+    g1 = torch.autograd.grad(icol.im2col_dots(a, wmat).sum(), (a, wmat))
+    g2 = torch.autograd.grad(icol.im2col_dots_plain(a, wmat).sum(), (a, wmat))
+    for x, y in zip(g1, g2):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+
+
+def test_probe_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q, k, v, temps = _heads((2, 36, 5, 7), 2, cuda, torch.float32, True, seed=73)
+    with pytest.raises(ValueError, match="temps"):
+        ha.head_attention_kernel(q, k, v, temps.double())
+    with pytest.raises(ValueError, match="temps"):
+        ha.head_attention_kernel(q, k, v, torch.ones(3, device=cuda))
+    with pytest.raises(ValueError, match="q and k"):
+        ha.head_attention_kernel(q, k[:, :, :-1].contiguous(), v, temps)
+    with pytest.raises(ValueError, match="contiguous"):
+        bq.batched_qk_kernel(q.transpose(1, 2), k.transpose(1, 2))
+    with pytest.raises(ValueError, match="c <= 32"):
+        bq.batched_qk_kernel(q.reshape(1, 72, -1), k.reshape(1, 72, -1))
+    a = _rand((1, 27, 40), cuda, torch.float32, seed=74)
+    with pytest.raises(ValueError, match="wmat"):
+        icol.im2col_dots_kernel(a, torch.ones((4, 26), device=cuda))
+    with pytest.raises(ValueError, match="C_out <= 144"):
+        icol.im2col_dots_kernel(a, torch.ones((145, 27), device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        icol.im2col_dots_kernel(a.double(), torch.ones((4, 27), device=cuda))
+
+
+@pytest.mark.parametrize("variant", ["base", "mssa", "tnsm"])
+def test_probe_route_forward_matches_cpu(cuda, variant):
+    """The full-width forward on the probe route, 1 x 64 x 96, card fp32
+    against the same weights' CPU fp32 forward on the same route (the
+    forward's bars, max 1e-4, mean 1e-6; TNSM's mean 1e-5), and its
+    launches: every CAB a P1, every noise-aware attention a P10/P15, the 16
+    dense 3x3 convs P6, no K5."""
+    import numpy as np
+
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cidnet_forward
+    from hvi_cidnet_torch.ops.routes import PROBE
+
+    cfg = CIDNetConfig(variant=variant)
+    cpu = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    gpu = CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (1, 64, 96, 3)).astype(np.float32))
+    kernels = (ha.HEAD_ATTENTION, icol.IM2COL_DOTS, bq.BATCHED_QK, ac.ATTENTION, rc.HALF_PRELU)
+    pick = (lambda o: o[0]) if variant == "tnsm" else (lambda o: o)
+    with torch.no_grad():
+        ref = pick(cidnet_forward(cpu, x, routes=PROBE))
+        start = [k.launches for k in kernels]
+        got = pick(cidnet_forward(gpu, x.to(cuda), routes=PROBE)).cpu()
+        launched = [k.launches - n for k, n in zip(kernels, start)]
+    lcas = 11 if variant == "base" else 12
+    assert launched == [lcas, 16, 11 if variant == "tnsm" else 0, 0, 6]
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert (got - ref).abs().mean().item() <= (1e-5 if variant == "tnsm" else 1e-6)

@@ -13,7 +13,12 @@ batch-1 sites fill the card, and that no grid dimension overflows; for K1,
 K2 and K3 also that loads and stores take the widest vector the row
 pitches and the base allow. The fused block route's kernels too: P2/P3
 (``ops/ln_iel_cuda.py:ln_iel_plan``), P4 (``ops/conv3x3_cuda.py:
-conv3x3_plan``) and P5 (``ops/conv3x3_cuda.py:half_plan``).
+conv3x3_plan``) and P5 (``ops/conv3x3_cuda.py:half_plan``); and the probe
+route's: P10/P15 and P1 (``ops/batched_qk_cuda.py:qk_plan``,
+``ops/head_attention_cuda.py:head_attention_plan``: the cluster size, the
+split of N, the entries' threads, shared memory, the load width) and P6
+(``ops/im2col_cuda.py:im2col_plan``: the N tail, the C_out and K padding,
+the load width) at every site shape and at batch 1, 8 and 32.
 """
 
 import itertools
@@ -737,3 +742,154 @@ def test_conv_plans_pick_the_narrow_tile_for_the_heads():
     assert [cc.conv3x3_plan(8, c, 400, 600).co_tile for c in (1, 2, 36, 72)] == [4, 4, 12, 12]
     with pytest.raises(ValueError, match="grid"):
         cc.conv3x3_plan(2**20, 144, 2**10, 2**10)
+
+
+# ---------------------------------------------------------------------------
+# the probe route: the score core of P1 and P10/P15, and P6
+# ---------------------------------------------------------------------------
+
+from hvi_cidnet_torch.ops import batched_qk_cuda as bq  # noqa: E402
+from hvi_cidnet_torch.ops import head_attention_cuda as ha  # noqa: E402
+from hvi_cidnet_torch.ops import im2col_cuda as icol  # noqa: E402
+
+# (c, heads, N) of the attention sites at 600 x 400 (c = C / heads = 18 at
+# every level) and at 1280 x 720 level 1, and odd ones
+HEAD_SITES = [(18, 2, 60000), (18, 4, 15000), (18, 8, 3750), (18, 2, 230400), (4, 2, 96),
+              (1, 1, 1), (32, 1, 129), (5, 3, 300), (20, 1, 127)]
+BATCHES = [1, 8, 32]
+
+
+def _score_plans(b, site):
+    c, heads, n = site
+    g = b * heads
+    return g, c, n, (bq.qk_plan(g, c, n), ha.head_attention_plan(g, c, n))
+
+
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("site", HEAD_SITES, ids=str)
+def test_score_core_plan_covers_each_column_and_entry_once(site, b):
+    g, c, n, plans = _score_plans(b, site)
+    for p in plans:
+        # one cluster of `splits` blocks per g, each a chunk of whole tiles, none empty
+        assert 1 <= p.splits <= bq.MAX_CLUSTER and p.blocks == p.splits * g <= bq.MAX_GRID_Y * 8
+        assert p.chunk % bq.TILE == 0
+        _tiles_cover(n, p.chunk, p.splits)
+        # every entry of the c x c matrix in one thread's 3 x 3 tile, the
+        # tiles side by side in `slices` column slices within the block
+        assert (p.side_tiles - 1) * bq.RT < c <= p.side_tiles * bq.RT
+        assert p.slices * p.side_tiles**2 <= bq.THREADS < (p.slices + 1) * p.side_tiles**2
+        cols = np.zeros(bq.TILE, np.int64)
+        for s in range(p.slices):
+            cols[s::p.slices] += 1
+        assert (cols == 1).all()
+    # P10/P15: block r of the cluster writes entries [r * per, (r + 1) * per)
+    per = -(-c * c // plans[0].splits)
+    seen = np.zeros(c * c, np.int64)
+    for r in range(plans[0].splits):
+        seen[r * per:(r + 1) * per] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("site", HEAD_SITES, ids=str)
+def test_score_core_plan_shared_memory(site, itemsize):
+    c, heads, n = site
+    qk = bq.qk_plan(8 * heads, c, n, itemsize)
+    p1 = ha.head_attention_plan(8 * heads, c, n, itemsize)
+    rows = 3 * qk.side_tiles
+    # q and k in the input's type, rows 16 bytes past TILE wide (16-byte stores)
+    tiles = 2 * rows * (bq.TILE * itemsize + 16)
+    assert bq.pitch(itemsize) * itemsize % 16 == 0
+    assert qk.smem_bytes == tiles + 4 * (qk.slices + 1) * c * c <= bq.SMEM_LIMIT
+    e = c * c + 2 * c  # P1: the scores and both norms; the cluster's sums; A^T from 16 bytes
+    a_at = ha.at_offset(c, itemsize)
+    assert a_at % 16 == 0 and 0 <= a_at - (tiles + 4 * (p1.slices + 2) * e) < 16
+    assert p1.cm == bq.c_max(c) >= c and p1.cm % 4 == 0
+    assert p1.smem_bytes == a_at + 4 * c * p1.cm <= bq.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n, elements", [(60000, 0), (15000, 0), (3750, 0), (63, 0), (264, 1),
+                                         (264, 2), (264, 4)])
+def test_score_core_plan_takes_the_widest_load_n_and_the_bases_allow(itemsize, n, elements):
+    """16 bytes' worth of elements, else 2, else 1 (the kernels'
+    instantiations); ``elements``: the bases' start past a 16-byte
+    boundary."""
+    offset = elements * itemsize % 16
+    for p in (bq.qk_plan(8, 18, n, itemsize, offset), ha.head_attention_plan(8, 18, n, itemsize,
+                                                                             offset)):
+        assert p.vec in (16 // itemsize, 2, 1)
+        assert n % p.vec == 0 and offset % (p.vec * itemsize) == 0
+        wider = [v for v in (16 // itemsize, 2) if v > p.vec]
+        assert all(n % v or offset % (v * itemsize) for v in wider)
+
+
+def test_score_core_plan_of_the_forward():
+    """c = 18 at every site; the clusters fill the card as far as 8 blocks
+    a g allow: 128, 256, 320 blocks at batch 8 (levels 1-3), 16, 32, 64 at
+    batch 1."""
+    got = {b: [bq.qk_plan(b * h, 18, n).splits for _, h, n in HEAD_SITES[:3]] for b in BATCHES}
+    assert got == {1: [8, 8, 8], 8: [8, 8, 5], 32: [5, 3, 2]}
+    assert [ha.head_attention_plan(8 * h, 18, n).blocks for _, h, n in HEAD_SITES[:3]] == \
+        [128, 256, 320]
+    # the forward's sites (c = 18, bf16) need no more than the default 48 KB
+    assert ha.head_attention_plan(16, 18, 60000).smem_bytes < 48 * 1024
+    assert bq.qk_plan(16, 18, 60000).smem_bytes < 48 * 1024
+    # bf16 rows of 60,000 and 15,000 take 16-byte loads, of 3,750 4-byte ones
+    assert [bq.qk_plan(8, 18, n).vec for _, _, n in HEAD_SITES[:3]] == [8, 8, 2]
+    with pytest.raises(ValueError, match="c <= 32"):
+        bq.qk_plan(8, 33, 100)
+    with pytest.raises(ValueError, match="grid"):
+        ha.head_attention_plan(65536, 18, 100)
+
+
+# (C_in, C_out, h, w) of P6's sites at 600 x 400: the stems and heads, the
+# NormUpsamples' folded convs, the NormDownsamples; and odd ones
+P6_SITES = [(3, 36, 400, 600), (1, 36, 400, 600), (36, 2, 400, 600), (36, 1, 400, 600),
+            (144, 72, 50, 75), (72, 36, 100, 150), (36, 36, 200, 300), (36, 36, 400, 600),
+            (36, 72, 200, 300), (72, 144, 100, 150), (5, 13, 1, 1), (3, 36, 19, 37),
+            (144, 144, 7, 9), (8, 17, 16, 16)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("site", P6_SITES, ids=str)
+def test_p6_plan_covers_each_output_once(site, b, itemsize):
+    cin, cout, h, w = site
+    k, n = 9 * cin, h * w
+    p = icol.im2col_plan(b, cout, k, n, itemsize)
+    _tiles_cover(n, icol.N_TILE, p.n_tiles)
+    assert p.blocks == p.n_tiles * b and b <= icol.MAX_GRID_Y and p.n_tiles <= icol.MAX_GRID_X
+    # C_out padded to 16-row tiles, K to whole steps, with zero weights
+    assert (p.m_tiles - 1) * 16 < cout <= p.m_tiles * 16 <= icol.MAX_COUT
+    assert p.k_step == icol.K_STEP[itemsize] and (p.k_steps - 1) * p.k_step < k <= p.k_steps * p.k_step
+    # each thread loads whole vectors of each step's tile
+    assert (p.k_step * icol.N_TILE // p.vec) % icol.THREADS == 0
+    assert p.smem_bytes == icol.smem_bytes(itemsize, p.m_tiles) <= 48 * 1024
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n, elements", [(240000, 0), (60000, 0), (15000, 0), (3750, 0), (703, 0),
+                                         (264, 1), (264, 2), (264, 4), (1, 0)])
+def test_p6_plan_takes_the_widest_load_n_and_the_start_allow(itemsize, n, elements):
+    """``elements``: the operand's start, in elements past a 16-byte boundary."""
+    offset = elements * itemsize % 16
+    vec = icol.im2col_plan(1, 36, 27, n, itemsize, offset).vec
+    assert vec * itemsize <= 16 and n % vec == 0 and offset % (vec * itemsize) == 0
+    wider = 2 * vec
+    assert wider * itemsize > 16 or n % wider or offset % (wider * itemsize)
+
+
+def test_p6_plan_of_the_forward():
+    """bf16: 16-byte loads at N = 240,000, 60,000, 15,000, 4-byte at 3,750;
+    C_out 1, 2, 36, 72, 144 in 1, 1, 3, 5, 9 tiles; K 9 and 27 in one step."""
+    assert [icol.im2col_plan(8, 36, 27, n, 2).vec for n in (240000, 60000, 15000, 3750)] == \
+        [8, 8, 8, 2]
+    assert [icol.im2col_plan(8, c, 324, 3750, 2).m_tiles for c in (1, 2, 36, 72, 144)] == \
+        [1, 1, 3, 5, 9]
+    assert [icol.im2col_plan(8, 36, k, 3750, 2).k_steps for k in (9, 27, 324, 1296)] == \
+        [1, 1, 6, 21]
+    with pytest.raises(ValueError, match="C_out <= 144"):
+        icol.im2col_plan(1, 145, 27, 100, 2)
+    with pytest.raises(ValueError, match="grid"):
+        icol.im2col_plan(65536, 36, 27, 100, 2)
