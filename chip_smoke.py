@@ -8,9 +8,10 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
 
 1. fails unless ``torch.cuda.is_available()``;
 2. prints the card's name and power limit (``nvidia-smi``);
-3. builds the kernels K1-K7, the fused block route's P2/P3, P4 and P5 and
-   the probe route's P1, P6 and P10/P15 (one ``nvcc`` a source, all
-   started together) and prints the build time;
+3. builds the kernels K1-K7, the fused block route's P2/P3, P4 and P5,
+   the probe route's P1, P6 and P10/P15 and the relayout of P7, P8/P9/P11,
+   P12/P13 and P14 (one ``nvcc`` a source, all started together) and
+   prints the build time;
 4. holds each kernel against its plain PyTorch twin on the card, in fp32
    and bf16, at every site shape the 600 x 400 forward gives it (batch 8),
    and prints the error, the kernel's and the twin's times (and, for K4,
@@ -44,6 +45,12 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    bound and the comparators: K5 at the same sites (P1, P10/P15), and for
    P6 ``torch.matmul`` on the same staged operand and ``F.conv2d``
    (cuDNN) for the whole conv;
+4d. holds the relayout against its plain versions, bitwise (``torch.equal``),
+   fp32 and bf16: P7 (steps 1, 2, 3), P8, P9, P11, P12, P13 and P14 at the
+   three LCA levels ((N, C, B), batch 8 and 1), the HWCB entry (P14) and
+   exit (P11) at batch 1, 8 and 32; with the device time a call of the
+   kernel, its plain version and one ``permute(...).contiguous()`` (CUDA
+   graphs), and the bound;
 5. runs the full-width base, MSSA and TNSM forwards on the card in fp32
    (TF32 off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result; TNSM also with
@@ -55,20 +62,27 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    fp32 at each variant's bars, bf16 vs fp32; TNSM's training forward and
    its launches);
 5c. the same on the probe route;
+5d. the three forwards with ``input_layout="hwcb"`` (the JAX package's
+   serving contract, (H, W, 3, B) in and out) on the default route: fp32
+   card vs CPU at each variant's bars, bitwise the card's NHWC forward
+   permuted at batch 1 and 2, TNSM's training noise map (H, W, 3, B);
 6. checks the launches of one forward: base K1 1, K2 1, K3 6, K4 6, K5 11,
    K6 33, K7 22; MSSA the same with K5 12, K6 36, K7 24; TNSM K5 23, K6
    80, K7 24; on the fused route base P2/P3 11, P4 10, P5 6, K3 0, K4 6,
    K5 11, K6 22, K7 0, MSSA and TNSM P2/P3 12 and K6 24 and 68; on the
    probe route base P1 11, P6 16, P10/P15 0, K5 0, K3 6, K4 6, K6 33, K7
-   22, MSSA P1 12, K6 36, K7 24, TNSM P1 12, P10/P15 11, K5 0;
+   22, MSSA P1 12, K6 36, K7 24, TNSM P1 12, P10/P15 11, K5 0; an HWCB
+   forward the default route's counts and P14 1, P8/P9/P11 1 (TNSM with
+   training=True 2);
 7. serves requests through ``serve.Enhancer`` (gates on, gamma != 1) at
    sizes that are not multiples of 8, for each variant, counting every
    kernel's launches (the main path), then again on the fused route and on
-   the probe route (this slice's path); each route's counts are set to 0
-   before it and read after;
+   the probe route; then batches packed as (H, W, 3, B) through the HWCB
+   contract for each variant (this slice's path); each run's counts are set
+   to 0 before it and read after;
 8. prints each variant's images per second at 600 x 400 bf16, batch 1, 8
-   and 32, on the default, the fused and the probe route, and the bounds of
-   the relayouts still to port (information);
+   and 32, on the default, the fused and the probe route, and HWCB against
+   NHWC on the default route in turns (information);
 9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -146,13 +160,15 @@ VARIANTS = ("base", "mssa", "tnsm")
 # each: I_TNSM5 reaches nothing when serving), and with training=True all 12
 NONE_FUSED = {"P2/P3": 0, "P4": 0, "P5": 0}
 NONE_PROBE = {"P1": 0, "P6": 0, "P10/P15": 0}
+RELAYOUTS = ("P7", "P8/P9/P11", "P12/P13", "P14")
+NONE_RELAYOUT = {k: 0 for k in RELAYOUTS}
 PER_FORWARD = {
     "base": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 11, "K6": 33, "K7": 22, **NONE_FUSED,
-             **NONE_PROBE},
+             **NONE_PROBE, **NONE_RELAYOUT},
     "mssa": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 12, "K6": 36, "K7": 24, **NONE_FUSED,
-             **NONE_PROBE},
+             **NONE_PROBE, **NONE_RELAYOUT},
     "tnsm": {"K1": 1, "K2": 1, "K3": 6, "K4": 6, "K5": 23, "K6": 80, "K7": 24, **NONE_FUSED,
-             **NONE_PROBE},
+             **NONE_PROBE, **NONE_RELAYOUT},
 }
 TNSM_TRAINING = dict(PER_FORWARD["tnsm"], K5=24, K6=84)
 # on the fused block route: one P2/P3 an LCA in place of its IEL's K6 and
@@ -160,11 +176,11 @@ TNSM_TRAINING = dict(PER_FORWARD["tnsm"], K5=24, K6=84)
 # stems and heads and the 6 NormUpsamples
 PER_FORWARD_FUSED = {
     "base": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 11, "K6": 22, "K7": 0,
-             "P2/P3": 11, "P4": 10, "P5": 6, **NONE_PROBE},
+             "P2/P3": 11, "P4": 10, "P5": 6, **NONE_PROBE, **NONE_RELAYOUT},
     "mssa": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 12, "K6": 24, "K7": 0,
-             "P2/P3": 12, "P4": 10, "P5": 6, **NONE_PROBE},
+             "P2/P3": 12, "P4": 10, "P5": 6, **NONE_PROBE, **NONE_RELAYOUT},
     "tnsm": {"K1": 1, "K2": 1, "K3": 0, "K4": 6, "K5": 23, "K6": 68, "K7": 0,
-             "P2/P3": 12, "P4": 10, "P5": 6, **NONE_PROBE},
+             "P2/P3": 12, "P4": 10, "P5": 6, **NONE_PROBE, **NONE_RELAYOUT},
 }
 TNSM_TRAINING_FUSED = dict(PER_FORWARD_FUSED["tnsm"], K5=24, K6=72)
 # on the probe route: one P1 an LCA and one P10/P15 a TNSM block in place of
@@ -173,6 +189,11 @@ TNSM_TRAINING_FUSED = dict(PER_FORWARD_FUSED["tnsm"], K5=24, K6=72)
 PER_FORWARD_PROBE = {v: dict(PER_FORWARD[v], K5=0, P1=12 if v != "base" else 11, P6=16,
                              **{"P10/P15": 11 if v == "tnsm" else 0}) for v in VARIANTS}
 TNSM_TRAINING_PROBE = dict(PER_FORWARD_PROBE["tnsm"], K6=84, **{"P10/P15": 12})
+# the HWCB serving contract (input_layout="hwcb", default route): P14 packs
+# the (H W, 3, B) input into NHWC, P11 turns K2's NHWC output (and, with
+# training=True, TNSM's fused noise map) into (H, W, 3, B)
+PER_FORWARD_HWCB = {v: dict(PER_FORWARD[v], P14=1, **{"P8/P9/P11": 1}) for v in VARIANTS}
+TNSM_TRAINING_HWCB = dict(TNSM_TRAINING, P14=1, **{"P8/P9/P11": 2})
 # the probe route's kernels: fp32 within TOL_PROBE * max(1, |ref|) (P1, P6),
 # P10/P15 within TOL_PROBE * |q_r| |k_c|; P1 and P10/P15 in fp32 against
 # their plain versions run on the CPU (the card's fp32 bmm drifts on q and k
@@ -998,16 +1019,88 @@ def compare_probe(results: dict, dev) -> None:
             torch.cuda.empty_cache()
 
 
-def unported_bounds() -> None:
-    """The bound of each TPU relayout still to port (P7-P9, P11-P14: a
-    transpose, a minor-pair swap or a pack of the attention operands
-    between (N, C, B) and (B, C, N)) at the port's batch-8 level shapes in
-    bf16: each element read once and written once over 3.35 TB/s
-    (information)."""
+def relayout_cases() -> list:
+    """(row, function, site, input shape, kwargs, launches per HWCB forward,
+    the row's line in the JSON) of step 4d: P7 (steps 1-3), P8, P9, P11,
+    P12, P13 and P14 at the three LCA levels of the 600 x 400 forward
+    ((N, C, B), blocks of at most 1000 rows of N), batch 8 and 1; the HWCB
+    entry (P14, one block) and exit (P11 on K2's NHWC output) at batch 1,
+    8 and 32. The JSON line of P8/P9/P11 and P14 is their call on the HWCB
+    path at batch 8; of P7 and P12/P13, which no path runs, level 1 at
+    batch 8 (P7 at steps 3, P12)."""
+    cases = []
     for level, c, _, h, w, _ in lca_sites():
-        nbytes = 2 * BATCH * c * h * w * 2
-        log(f"P7-P9, P11-P14 (to port) level {level} ({BATCH}, {c}, {h * w}) bf16: bound "
-            f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms a call ({nbytes / 1e6:.1f} MB)")
+        n = h * w
+        n_blk = max(d for d in range(1, 1001) if n % d == 0)
+        for b in (BATCH, 1):
+            site = f"level {level} ({n}, {c}, {b})"
+            line = level == 1 and b == BATCH
+            blocked = {"n_blk": n_blk}
+            cases += [("P7", "transpose_steps", f"{site} steps {st}", (n, c, b),
+                       {"hwt": n_blk, "steps": st}, 0, line and st == 3) for st in (1, 2, 3)]
+            cases += [("P8/P9/P11", "relayout_t3", f"P8 {site}", (n, c, b), blocked, 0, False),
+                      ("P8/P9/P11", "relayout_t2", f"P9 {site}", (n, c, b), blocked, 0, False),
+                      ("P8/P9/P11", "relayout_t2_rev", f"P11 {site}", (b, c, n), blocked, 0,
+                       False),
+                      ("P12/P13", "t3_blocked", f"P12 {site}", (n, c, b), blocked, 0, line),
+                      ("P12/P13", "t2_blocked", f"P13 {site}", (n, c, b), blocked, 0, False),
+                      ("P14", "pack_blocked", f"P14 {site}", (n, c, b), blocked, 0, False)]
+    hw = H * W
+    for b in (1, BATCH, 32):
+        cases += [("P14", "pack_blocked", f"HWCB entry batch {b}", (hw, 3, b), {"n_blk": hw},
+                   int(b == BATCH), b == BATCH),
+                  ("P8/P9/P11", "relayout_t2_rev", f"HWCB exit batch {b}", (b, 1, 3 * hw), {},
+                   int(b == BATCH), b == BATCH)]
+    return cases
+
+
+def compare_relayout(results: dict, dev) -> None:
+    """Step 4d: each relayout through its kernel, bitwise equal
+    (``torch.equal``) to its plain version, fp32 and bf16, at every case of
+    ``relayout_cases``, with the device time a call of the kernel, of its
+    plain version and of the one library call (``permute(...)
+    .contiguous()``), each from a CUDA graph of 20 calls (at these sizes
+    the wrapper's host work would otherwise be timed), the kernel's time
+    through its wrapper (CUDA events) and the bound: each element read once
+    and written once over 3.35 TB/s. The library call permutes the input
+    viewed as (G, X, M, Y) (``ops/relayout_cuda.py:geometry``), the same
+    copy as each plain version's permute."""
+    from hvi_cidnet_torch.cli.kernel_times import graph_ms
+    from hvi_cidnet_torch.ops import relayout as plain
+    from hvi_cidnet_torch.ops import relayout_cuda as rl
+
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    names = {"transpose_steps": "P7", "relayout_t3": "P8", "relayout_t2": "P9",
+             "relayout_t2_rev": "P11", "t3_blocked": "P12", "t2_blocked": "P13",
+             "pack_blocked": "P14"}
+    for dt in (torch.float32, torch.bfloat16):
+        for key, fn, site, shape, kw, per_forward, line in relayout_cases():
+            x = (torch.rand(shape, generator=gen) * 4 - 2).to(dev, dt)
+            geo = {k: v for k, v in kw.items() if k != "hwt"}
+            gxmy, out_shape = rl.geometry(names[fn], shape, **geo)
+            run = lambda: rl.relayout_kernel(x, rl.KERNELS[key], gxmy, out_shape)
+            plain_fn = lambda: getattr(plain, fn)(x, **kw)
+            # the same copy as one permute of the (G, X, M, Y) view
+            library = lambda: x.view(gxmy).permute(0, 3, 2, 1).contiguous()
+            err = check_equal(f"{key} {site} {dt}", run(), plain_fn())
+            check_equal(f"{key} {site} {dt} (through the dispatcher)", getattr(rl, fn)(x, **kw),
+                        library().view(out_shape))
+            t_k, t_p, t_l = graph_ms(run), graph_ms(plain_fn), graph_ms(library)
+            t_w = time_ms(run)
+            nbytes = 2 * x.numel() * x.element_size()
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            p = rl.relayout_plan(*gxmy, x.element_size())
+            results[key].append({"dtype": str(dt), "err": err, "ms": t_k, "wrapper_ms": t_w,
+                                 "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+                                 "bound_by": "bytes", "site": site, "per_forward": per_forward,
+                                 "line": line})
+            log(f"{key} {site} {tuple(shape)} {dt}: bitwise equal  kernel {t_k:.4f} ms "
+                f"(wrapper {t_w:.4f})  plain {t_p:.4f} ms  permute().contiguous() {t_l:.4f} ms  "
+                f"bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB) = {bound / t_k:.0%}  plan "
+                f"{'copy' if p.copy else f'tile {p.tx}x{p.ty} pitch {p.pitch}'} v {p.vi}/{p.vo} "
+                f"lanes {p.lx}/{p.sx} blocks {p.blocks}")
+            del x
+        torch.cuda.empty_cache()
 
 
 def rgb_of(variant: str, out):
@@ -1090,6 +1183,9 @@ def compare_forward(dev, variant: str, kernels: dict, name: str = "default"):
     if tnsm:
         compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes,
                               training_launches, route)
+    if routes is None:
+        compare_hwcb(dev, variant, kernels, gpu_model, x, got, ref, ref_noise, edge,
+                     (tol_max, tol_mean))
 
     bf_model = cast_conv_weights(
         CIDNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev), torch.bfloat16
@@ -1138,6 +1234,57 @@ def compare_tnsm_training(dev, kernels, gpu_model, x, got, ref_noise, routes, wa
     log(f"tnsm fused noise map (1, {H}, {W}, 3) fp32: card vs CPU max_abs_err {err:.3e}, "
         f"mean_abs_err {mean:.3e}, range [{noise.min().item():.4f}, {noise.max().item():.4f}]")
     check("tnsm fused noise map card vs CPU", err, TOL_TNSM["noise_max"])
+
+
+def compare_hwcb(dev, variant, kernels, gpu_model, x, got, ref, ref_noise, edge, tols) -> None:
+    """Step 5d: the HWCB serving contract on the card in fp32. At 1 x 400 x
+    600 (the relayouts copy) against the CPU's NHWC forward at the
+    variant's bars and bitwise the card's NHWC forward ``got`` permuted;
+    at batch 2 (they transpose) bitwise the card's NHWC forward permuted.
+    TNSM also with training=True: its launches (TNSM_TRAINING_HWCB) and
+    the fused noise map, (H, W, 3, B), against the CPU's and bitwise the
+    NHWC one permuted."""
+    from hvi_cidnet_torch.models.cidnet import cidnet_forward
+
+    tnsm = variant == "tnsm"
+    to_hwcb = lambda t: t.permute(1, 2, 3, 0).contiguous()
+    hwcb = lambda t, **kw: cidnet_forward(gpu_model, to_hwcb(t).to(dev), input_layout="hwcb",
+                                          **kw)
+    with torch.no_grad():
+        got_h = rgb_of(variant, hwcb(x)).cpu()
+        if got_h.shape != (H, W, 3, 1) or not torch.isfinite(got_h).all():
+            raise AssertionError(f"{variant} HWCB forward output bad: {tuple(got_h.shape)}")
+        diff = (got_h - to_hwcb(ref)).abs().amax(2)[..., 0]
+        err, mean = diff[~edge[0]].max().item(), (got_h - to_hwcb(ref)).abs().mean().item()
+        check(f"{variant} HWCB forward fp32 card vs CPU", err, tols[0])
+        check(f"{variant} HWCB forward fp32 card vs CPU (mean)", mean, tols[1])
+        check_equal(f"{variant} HWCB forward vs the card's NHWC forward", got_h, to_hwcb(got))
+        x2 = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, H, W, 3)).astype(
+            np.float32))
+        nhwc2 = cidnet_forward(gpu_model, x2.to(dev), training=tnsm)
+        torch.cuda.synchronize()
+        reset(kernels)
+        hwcb2 = hwcb(x2, training=tnsm)
+        torch.cuda.synchronize()
+        launched = counts(kernels)
+        want = TNSM_TRAINING_HWCB if tnsm else PER_FORWARD_HWCB[variant]
+        if launched != want:
+            raise AssertionError(f"{variant} HWCB forward (training={tnsm}) launches {launched} "
+                                 f"!= {want}")
+        rgb_of_2 = lambda out: out[0] if tnsm else out
+        check_equal(f"{variant} HWCB forward batch 2 vs the card's NHWC forward",
+                    rgb_of_2(hwcb2), to_hwcb(rgb_of_2(nhwc2)))
+        line = (f"{variant} HWCB forward fp32 ({H}, {W}, 3, 1): card vs CPU max_abs_err "
+                f"{err:.3e} (hue-edge pixels excluded), mean_abs_err {mean:.3e}; bitwise the "
+                f"card's NHWC forward permuted at batch 1 and 2; launches (training={tnsm}) "
+                f"{launched}")
+        if tnsm:
+            noise_h = hwcb(x, training=True)[1].cpu()
+            noise_err = max_err(noise_h, to_hwcb(ref_noise))
+            check("tnsm HWCB fused noise map card vs CPU", noise_err, TOL_TNSM["noise_max"])
+            check_equal("tnsm HWCB fused noise map batch 2 vs NHWC", hwcb2[1], to_hwcb(nhwc2[1]))
+            line += f"; fused noise map {tuple(noise_h.shape)} vs CPU max_abs_err {noise_err:.3e}"
+    log(line)
 
 
 def attention_f64(q, k, v, temperature, heads, w_proj):
@@ -1265,6 +1412,37 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
     return line
 
 
+def summarise_relayout(key: str, rows: list, launches: dict) -> dict:
+    """The JSON line of a relayout row: its bf16 call on the HWCB path at
+    batch 8 (P8/P9/P11: the exit, P14: the entry), or, for P7 and P12/P13,
+    which no path runs, at level 1 batch 8 (relayout_cases); device times
+    a call from CUDA graphs; ``launches`` from the HWCB serving run (0 for
+    P7 and P12/P13)."""
+    row = next(r for r in rows if r["line"] and r["dtype"] == "torch.bfloat16")
+    tpu = {"P7": "experiments/transpose_kernel_r3.py:38",
+           "P8/P9/P11": "experiments/relayout_probe_r5h.py:61, :79 and :211",
+           "P12/P13": "experiments/mosaic_micro_r5h.py:43 and :62",
+           "P14": "experiments/mosaic_micro_r5h.py:85"}[key]
+    return {
+        "name": {"P7": "transpose_steps", "P8/P9/P11": "relayout_t3/t2/t2_rev",
+                 "P12/P13": "t3_blocked/t2_blocked", "P14": "pack_blocked"}[key],
+        "route": "cuda",
+        "source": "hvi_cidnet_torch/csrc/relayout.cu",
+        "replaces": tpu,
+        "launches": sum(launches[v][key] for v in VARIANTS),
+        "launches_by_path": {v: launches[v][key] for v in VARIANTS},
+        "max_abs_err": max(r["err"] for r in rows if r["dtype"] == "torch.float32"),
+        "max_abs_err_bf16": max(r["err"] for r in rows if r["dtype"] == "torch.bfloat16"),
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "wrapper_ms": row["wrapper_ms"],
+        "site": row["site"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1274,7 +1452,7 @@ def main() -> int:
     from hvi_cidnet_torch.ops import _build
     from hvi_cidnet_torch.ops import (
         attention_cuda, batched_qk_cuda, conv3x3_cuda, head_attention_cuda, hvi_cuda, iel_cuda,
-        im2col_cuda, ln_iel_cuda, norm_cuda, resize_cuda,
+        im2col_cuda, ln_iel_cuda, norm_cuda, relayout_cuda, resize_cuda,
     )
     from hvi_cidnet_torch.ops.routes import FUSED as FUSED_ROUTE
     from hvi_cidnet_torch.ops.routes import PROBE as PROBE_ROUTE
@@ -1299,8 +1477,9 @@ def main() -> int:
                "K7": iel_cuda.IEL_BRANCH, "P2/P3": ln_iel_cuda.LN_IEL,
                "P4": conv3x3_cuda.CONV3X3, "P5": conv3x3_cuda.CONV3X3_HALF_PRELU,
                "P1": head_attention_cuda.HEAD_ATTENTION, "P6": im2col_cuda.IM2COL_DOTS,
-               "P10/P15": batched_qk_cuda.BATCHED_QK}
+               "P10/P15": batched_qk_cuda.BATCHED_QK, **relayout_cuda.KERNELS}
     results = {k: [] for k in kernels}
+    compare_relayout(results, dev)
     compare_probe(results, dev)
     torch.cuda.empty_cache()
     compare_fused(results, dev)
@@ -1332,6 +1511,17 @@ def main() -> int:
             if per_forward != want[variant]:
                 raise AssertionError(f"{variant} {name} route launches per forward {per_forward} "
                                      f"!= {want[variant]}")
+    x_hwcb = x.permute(1, 2, 3, 0).contiguous()
+    for variant, model in bf_models.items():
+        reset(kernels)
+        with torch.no_grad():
+            cidnet_forward(model, x_hwcb, compute_dtype=torch.bfloat16, input_layout="hwcb")
+        torch.cuda.synchronize()
+        per_forward = counts(kernels)
+        log(f"{variant} HWCB forward launches per forward: {per_forward}")
+        if per_forward != PER_FORWARD_HWCB[variant]:
+            raise AssertionError(f"{variant} HWCB launches per forward {per_forward} != "
+                                 f"{PER_FORWARD_HWCB[variant]}")
 
     # the main path: requests through the serving entry point, each variant,
     # on the default route, the fused one and the probe one (this slice's
@@ -1364,6 +1554,31 @@ def main() -> int:
                 raise AssertionError(f"{variant} {name} route serving launches "
                                      f"{served[name][variant]} != {expect}")
 
+    # this slice's path: batches packed as (H, W, 3, B) through the HWCB
+    # serving contract, each variant (the default route)
+    batches = [rng.uniform(0, 0.4, (h, w, 3, b)).astype(np.float32)
+               for h, w, b in [(400, 600, 2), (400, 600, 1), (600, 400, 3), (296, 400, 2)]]
+    served["hwcb"] = {}
+    for variant, model in bf_models.items():
+        reset(kernels)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs = [rgb_of(variant, cidnet_forward(
+                model, torch.from_numpy(xb).to(dev, torch.bfloat16), compute_dtype=torch.bfloat16,
+                input_layout="hwcb")).float().cpu() for xb in batches]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        served["hwcb"][variant] = counts(kernels)
+        for xb, out in zip(batches, outs):
+            if out.shape != xb.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"{variant} HWCB batch {xb.shape} -> {tuple(out.shape)}")
+        log(f"{variant} HWCB served {len(batches)} batches {[b.shape for b in batches]} in "
+            f"{serve_s:.3f} s; launches {served['hwcb'][variant]}")
+        expect = {k: len(batches) * v for k, v in PER_FORWARD_HWCB[variant].items()}
+        if served["hwcb"][variant] != expect:
+            raise AssertionError(f"{variant} HWCB serving launches {served['hwcb'][variant]} "
+                                 f"!= {expect}")
+
     # throughput at 600 x 400 bf16 (information)
     for name, (route, _) in routes.items():
         for variant, model in bf_models.items():
@@ -1378,10 +1593,30 @@ def main() -> int:
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 log(f"{variant} {name} route forward 600x400 bf16 batch {b}: {ms:.2f} ms, "
                     f"{1000 * b / ms:.1f} img/s, peak {peak:.2f} GiB")
+    # HWCB against NHWC on the default route, in turns (NHWC, HWCB, HWCB, NHWC)
+    for variant, model in bf_models.items():
+        for b in (1, 8, 32):
+            xb = torch.rand((b, H, W, 3), generator=torch.Generator().manual_seed(b)).to(
+                dev, torch.bfloat16)
+            xh = xb.permute(1, 2, 3, 0).contiguous()
+            arms = {"nhwc": lambda: rgb_of(variant, cidnet_forward(
+                        model, xb, compute_dtype=torch.bfloat16)).clamp_(0, 1),
+                    "hwcb": lambda: rgb_of(variant, cidnet_forward(
+                        model, xh, compute_dtype=torch.bfloat16, input_layout="hwcb")).clamp_(0, 1)}
+            ms = {"nhwc": [], "hwcb": []}
+            with torch.no_grad():
+                for arm in ("nhwc", "hwcb", "hwcb", "nhwc"):
+                    ms[arm].append(time_ms(arms[arm], iters=5, warmup=2))
+            t_n, t_h = (sum(ms[a]) / 2 for a in ("nhwc", "hwcb"))
+            log(f"{variant} HWCB vs NHWC forward 600x400 bf16 batch {b}: HWCB {t_h:.2f} ms "
+                f"({1000 * b / t_h:.1f} img/s) against NHWC {t_n:.2f} ms ({1000 * b / t_n:.1f} "
+                f"img/s), ratio {t_h / t_n:.4f}; in turns {ms['nhwc'][0]:.2f} / {ms['hwcb'][0]:.2f}"
+                f" / {ms['hwcb'][1]:.2f} / {ms['nhwc'][1]:.2f} ms")
 
-    unported_bounds()
-    path_of = lambda key: "fused" if key in FUSED else "probe" if key in PROBE else "default"
-    summary = [summarise(key, results[key], served[path_of(key)]) for key in kernels]
+    path_of = lambda key: ("fused" if key in FUSED else "probe" if key in PROBE else
+                           "hwcb" if key in RELAYOUTS else "default")
+    summary = [(summarise_relayout if key in RELAYOUTS else summarise)(
+        key, results[key], served[path_of(key)]) for key in kernels]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Device time per call of K3 (bilinear x0.5 + PReLU), K1 (RGB -> HVI) and
-K2 (HVI -> RGB) at the 600 x 400 base forward's shapes; with ``--fused``,
+"""Device time per call of K3 (bilinear x0.5 + PReLU), K1 (RGB -> HVI), K2
+(HVI -> RGB) and the relayout (P7, P8/P9/P11, P12/P13, P14) at the 600 x
+400 base forward's shapes; with ``--fused``,
 of the fused block route's kernels P2/P3, P4 and P5 instead; with
 ``--probe``, of the probe route's P1, P6 and P10/P15.
 
@@ -14,7 +15,11 @@ a CUDA graph of GRAPH_CALLS launches (no host work between them: at batch 1
 the wrapper's host work otherwise sets the pace), its time through the
 wrapper from CUDA events, its bytes bound (each input read once, each
 output written once, over 3.35 TB/s), and its agreement with the plain twin
-(bitwise equal, else the max error).
+(bitwise equal, else the max error). The relayout rows: the HWCB contract's
+entry (P14 on (H W, 3, B)) and exit (P11 on K2's output as (B, 1, 3 H W)),
+and, at level 1 ((60000, 36, B)), P8, P7 at steps 3 and P12 in blocks of
+1000 rows, each through its dispatcher beside its plain version (one
+``permute(...).contiguous()``).
 
 With ``--fused``: P2/P3 (LayerNorm + IEL + residual) at the three LCA
 levels, P4 at the stems, heads and NormUpsample convs, P5 at the three
@@ -46,7 +51,7 @@ import sys
 import torch
 
 import hvi_cidnet_torch
-from hvi_cidnet_torch.ops import hvi_cuda, resize_cuda, routes
+from hvi_cidnet_torch.ops import hvi_cuda, relayout, relayout_cuda, resize_cuda, routes
 from hvi_cidnet_torch.ops.conv import conv3x3_same
 
 H, W = 400, 600
@@ -59,7 +64,8 @@ ALPHA = 0.25   # a PReLU slope
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="time K3, K1 and K2 per call on the card")
+    p = argparse.ArgumentParser(description="time K3, K1, K2 and the relayout per call on "
+                                "the card")
     p.add_argument("--batch", type=int, nargs="+", default=[8, 1])
     p.add_argument("--out", type=str, default="")
     routes.add_flags(p)  # --fused / --probe: time that route's kernels
@@ -260,6 +266,26 @@ def probe_rows(dev, gen, batches) -> list:
     return rows
 
 
+# (row, site, function, input shape at batch b, kwargs) of the relayout rows
+RELAYOUT_SITES = (
+    ("P14", "HWCB entry", "pack_blocked", lambda b: (H * W, 3, b), {"n_blk": H * W}),
+    ("P8/P9/P11", "HWCB exit", "relayout_t2_rev", lambda b: (b, 1, 3 * H * W), {}),
+    ("P8/P9/P11", "P8 level 1", "relayout_t3", lambda b: (60000, 36, b), {}),
+    ("P7", "steps 3 level 1", "transpose_steps", lambda b: (60000, 36, b), {"steps": 3}),
+    ("P12/P13", "P12 level 1", "t3_blocked", lambda b: (60000, 36, b), {"n_blk": 1000}),
+)
+
+
+def relayout_rows(dev, gen, dt, b) -> list:
+    rows = []
+    for name, site, fn, shape, kw in RELAYOUT_SITES:
+        x = (torch.rand(shape(b), generator=gen) * 2 - 1).to(dev, dt)
+        rows.append(measure(name, lambda: getattr(relayout_cuda, fn)(x, **kw),
+                            lambda: getattr(relayout, fn)(x, **kw), x,
+                            2 * x.numel() * x.element_size(), site=site, batch=b))
+    return rows
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if not torch.cuda.is_available():
@@ -280,7 +306,7 @@ def main(argv=None) -> dict:
     k = torch.full((1,), K, device=dev)
     result = {"device": torch.cuda.get_device_name(0), "package": hvi_cidnet_torch.__file__,
               "rows": []}
-    print(f"{result['device']}: K3, K1 and K2 of {result['package']}")
+    print(f"{result['device']}: K3, K1, K2 and the relayout of {result['package']}")
     for dt in (torch.bfloat16, torch.float32):
         for b in args.batch:
             for site, c, h, w in K3_SITES:
@@ -301,6 +327,7 @@ def main(argv=None) -> dict:
                 "K2", lambda: hvi_cuda.hvi_to_rgb_kernel(hvi, k),
                 lambda: hvi_cuda.hvi_to_rgb_plain(hvi, k), hvi,
                 2 * hvi.numel() * hvi.element_size(), batch=b))
+            result["rows"] += relayout_rows(dev, gen, dt, b)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -1,7 +1,7 @@
 """Where the forward's device time goes: one ``torch.profiler`` run.
 
     python -m hvi_cidnet_torch.cli.profile_forward [--variant base|mssa|tnsm]
-        [--batch 1 8] [--fused | --probe] [--out FILE.json]
+        [--batch 1 8] [--fused | --probe] [--input-layout nhwc|hwcb] [--out FILE.json]
 
 Runs on the card (600 x 400, bf16, random weights from seed 0). For each
 batch it prints the forward's time from CUDA events (unprofiled), then,
@@ -10,7 +10,9 @@ kernels' summed device time over the host wall clock; one stream, so
 kernels do not overlap), the kernel launches per forward, and the kernels
 by summed device time (the TOP longest) with their share and launches per
 forward. ``--fused`` takes the fused block route, ``--probe`` the probe
-route (``ops/routes.py``).
+route (``ops/routes.py``). ``--input-layout hwcb`` feeds the forward
+(H, W, 3, B) batches through the HWCB serving contract (the JAX bench's
+``BENCH_INPUT_LAYOUT=hwcb``): one relayout in (P14) and one out (P11).
 ``--out`` writes the same as JSON.
 """
 
@@ -26,6 +28,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from hvi_cidnet_torch.models.cidnet import (
+    LAYOUTS,
     VARIANTS,
     CIDNet,
     CIDNetConfig,
@@ -44,6 +47,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     p.add_argument("--out", type=str, default="")
+    p.add_argument("--input-layout", type=str, default="nhwc", choices=list(LAYOUTS))
     routes.add_flags(p)
     return p.parse_args(argv)
 
@@ -55,8 +59,9 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def profile_batch(model, x, routes=None) -> dict:
-    fwd = lambda: cidnet_forward(model, x, compute_dtype=torch.bfloat16, routes=routes)
+def profile_batch(model, x, routes=None, input_layout="nhwc") -> dict:
+    fwd = lambda: cidnet_forward(model, x, compute_dtype=torch.bfloat16, routes=routes,
+                                 input_layout=input_layout)
     with torch.no_grad():
         for _ in range(2):
             fwd()
@@ -78,7 +83,7 @@ def profile_batch(model, x, routes=None) -> dict:
     total = sum(_device_us(e) for e in kernels)
     rows = sorted(kernels, key=_device_us, reverse=True)
     return {
-        "batch": int(x.shape[0]),
+        "batch": int(x.shape[-1 if input_layout == "hwcb" else 0]),
         "forward_ms": forward_ms,
         "profiled_wall_ms_per_forward": wall_us / ITERS / 1e3,
         "device_ms_per_forward": total / ITERS / 1e3,
@@ -100,11 +105,14 @@ def main(argv=None) -> dict:
     route = routes.from_flags(args)
     name = "fused" if args.fused else "probe" if args.probe else "default"
     result = {"device": torch.cuda.get_device_name(0), "variant": args.variant, "size": [H, W],
-              "route": name, "batches": []}
-    print(f"{result['device']}: {args.variant} forward {W}x{H} bf16 ({name} route)")
+              "route": name, "input_layout": args.input_layout, "batches": []}
+    print(f"{result['device']}: {args.variant} forward {W}x{H} bf16 ({name} route, "
+          f"{args.input_layout})")
     for b in args.batch:
         x = torch.from_numpy(np.random.default_rng(b).uniform(0, 1, (b, H, W, 3)))
-        r = profile_batch(model, x.to(dev, torch.bfloat16), route)
+        if args.input_layout == "hwcb":
+            x = x.permute(1, 2, 3, 0).contiguous()
+        r = profile_batch(model, x.to(dev, torch.bfloat16), route, args.input_layout)
         result["batches"].append(r)
         print(f"batch {b}: {r['forward_ms']:.2f} ms/forward unprofiled; profiled "
               f"{r['profiled_wall_ms_per_forward']:.2f} ms wall, device busy "

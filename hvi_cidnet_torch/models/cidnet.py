@@ -16,8 +16,12 @@ because released checkpoints were trained with them:
     and in TNSM only ``HV_TNSM5`` (as its ``y``);
 (c) ``head1``/``ch1`` never feed an LCA (CIDNet.py:17-18).
 
-The public layout is NHWC in [0, 1] in and NHWC out, as in JAX; inside, the
-activations are NCHW. On the card the HVI transform runs as the CUDA
+The public layout is NHWC in [0, 1] in and NHWC out, as in JAX, or, with
+``input_layout="hwcb"``, the JAX package's HWCB serving contract: (H, W, 3,
+B) in and out (the TNSM noise map too). Inside, the activations are NCHW;
+the HWCB contract adds one relayout at each end (``ops/relayout_cuda.py``:
+P14 packs (H W, 3, B) into NHWC, P11 turns K2's NHWC output, and TNSM's
+fused noise map, into (H, W, 3, B)). On the card the HVI transform runs as the CUDA
 kernels K1 and K2 (``ops/hvi_cuda.py``) and the blocks as K3-K7
 (``models/layers.py``, ``models/tnsm.py``); attention softmax and LN
 statistics are fp32, everything else ``compute_dtype``. The fused block
@@ -52,6 +56,7 @@ from hvi_cidnet_torch.models.layers import (
 from hvi_cidnet_torch.models.tnsm import TNSM
 from hvi_cidnet_torch.ops.conv import conv2d
 from hvi_cidnet_torch.ops.hvi_cuda import hvi_to_rgb, rgb_to_hvi
+from hvi_cidnet_torch.ops.relayout_cuda import pack_blocked, relayout_t2_rev
 from hvi_cidnet_torch.ops.resize import resize_bilinear
 from hvi_cidnet_torch.ops.routes import Routes, resolve
 
@@ -173,10 +178,17 @@ def cast_conv_weights(model: CIDNet, dtype: torch.dtype) -> CIDNet:
     return model
 
 
-def _check_x8(x: torch.Tensor) -> None:
-    if x.dim() != 4 or x.shape[-1] != 3:
-        raise ValueError(f"expected NHWC RGB (B, H, W, 3), got shape {tuple(x.shape)}")
-    h, w = x.shape[1], x.shape[2]
+LAYOUTS = ("nhwc", "hwcb")
+
+
+def _check_x8(x: torch.Tensor, input_layout: str = "nhwc") -> None:
+    """x: NHWC (B, H, W, 3) or, for "hwcb", (H, W, 3, B), with H and W
+    multiples of 8 (the JAX package's check and message)."""
+    hwcb = input_layout == "hwcb"
+    if x.dim() != 4 or x.shape[2 if hwcb else 3] != 3:
+        want = "HWCB RGB (H, W, 3, B)" if hwcb else "NHWC RGB (B, H, W, 3)"
+        raise ValueError(f"expected {want}, got shape {tuple(x.shape)}")
+    h, w = (x.shape[0], x.shape[1]) if hwcb else (x.shape[1], x.shape[2])
     if h % 8 or w % 8:
         # three bilinear x0.5 levels need x8 extents; without this check the
         # failure is a cryptic concat-shape error mid-UNet
@@ -290,6 +302,7 @@ def cidnet_forward(
     compute_dtype=torch.float32,
     training: bool = False,
     routes: Optional[Routes] = None,
+    input_layout: str = "nhwc",
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """CIDNet forward (the model's variant). ``x``: NHWC RGB in [0, 1] with
     H, W multiples of 8, on the model's device. Returns NHWC RGB in
@@ -300,7 +313,22 @@ def cidnet_forward(
     (net/CIDNet_TNSM.py:248-294). Forward only: ``training`` runs no
     training-mode layer, it only adds the noise output. ``routes``: the
     fused block or probe route (``ops/routes.py``); None takes the defaults
-    (all off) with the environment's overrides."""
+    (all off) with the environment's overrides.
+
+    ``input_layout="hwcb"``: the JAX package's serving contract
+    (``hvi_cidnet_tpu/models/cidnet.py:cidnet_forward``): ``x`` is a
+    contiguous (H, W, 3, B) tensor and the RGB and the noise map come back
+    as (H, W, 3, B). The forward between is the NHWC one, so its output is
+    the NHWC output permuted, bit for bit."""
+    if input_layout not in LAYOUTS:
+        raise ValueError(f"input_layout must be 'nhwc' or 'hwcb', got {input_layout!r}")
+    hwcb = input_layout == "hwcb"
+    if hwcb:
+        _check_x8(x, input_layout)
+        if not x.is_contiguous():
+            raise ValueError("input_layout='hwcb': x must be a contiguous (H, W, 3, B) tensor")
+        h, w, _, b = x.shape
+        x = pack_blocked(x.view(h * w, 3, b), h * w).view(b, h, w, 3)  # P14
     out_hvi, noise_maps = _hvi_and_noise(model, x, compute_dtype, training=training,
                                          routes=resolve(routes))
     # PHVIT read the detached Python float this_k (HVI_transform.py:38, 59)
@@ -308,12 +336,16 @@ def cidnet_forward(
         out_hvi, model.trans.density_k.detach(),
         gated=gates.gated, gated2=gates.gated2, alpha=gates.alpha, alpha_s=gates.alpha_s,
     )
+    b, h, w, _ = rgb.shape
+    if hwcb:  # K2's NHWC as (B, 1, H W 3) -> (H W 3, 1, B)
+        rgb = relayout_t2_rev(rgb.view(b, 1, h * w * 3)).view(h, w, 3, b)  # P11
     if model.config.variant != "tnsm":
         return rgb
     if not (training and noise_maps):
         return rgb, None
-    h, w = rgb.shape[1], rgb.shape[2]
     stacked = torch.cat(
         [resize_bilinear(nm, h, w) for nm in noise_maps], dim=1)
     fused = torch.sigmoid(conv2d(stacked, model.noise_fusion[0].weight, padding=1))
+    if hwcb:  # NCHW (B, 3, H W) -> (H W, 3, B)
+        return rgb, relayout_t2_rev(fused.view(b, 3, h * w)).view(h, w, 3, b)  # P11
     return rgb, fused.permute(0, 2, 3, 1)

@@ -907,3 +907,107 @@ def test_probe_route_forward_matches_cpu(cuda, variant):
     assert launched == [lcas, 16, 11 if variant == "tnsm" else 0, 0, 6]
     assert (got - ref).abs().max().item() <= 1e-4
     assert (got - ref).abs().mean().item() <= (1e-5 if variant == "tnsm" else 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# P7, P8/P9/P11, P12/P13, P14: the relayout (csrc/relayout.cu), bitwise
+# ---------------------------------------------------------------------------
+
+from hvi_cidnet_torch.ops import relayout as rplain  # noqa: E402
+from hvi_cidnet_torch.ops import relayout_cuda as rl  # noqa: E402
+
+# (name, input shape, kwargs): odd extents, blocks > 1, unit axes (a copy,
+# a transpose of the middle axis), tiles cut at both edges, several slabs
+# to a work item (P7 at steps 1, the last item cut), and the HWCB entry and
+# exit at batch 1, 3 and 8 on a 24 x 40 image
+RELAYOUT_CASES = [
+    ("P7", (21, 3, 5), {"hwt": 7, "steps": 1}), ("P7", (21, 3, 5), {"hwt": 7, "steps": 2}),
+    ("P7", (21, 3, 5), {"hwt": 7, "steps": 3}), ("P7", (96, 36, 8), {"hwt": 32, "steps": 3}),
+    ("P7", (20, 4, 8), {"hwt": 5, "steps": 0}), ("P7", (100, 36, 8), {"hwt": 20, "steps": 1}),
+    ("P7", (999, 5, 3), {"hwt": 333, "steps": 1}),
+    ("P8", (150, 72, 8), {}), ("P8", (37, 5, 3), {}), ("P8", (1000, 3, 1), {}),
+    ("P9", (130, 2, 70), {}), ("P11", (8, 36, 375), {}), ("P11", (3, 5, 37), {}),
+    ("P11", (1, 3, 333), {}), ("P12", (60, 36, 8), {"n_blk": 20}),
+    ("P13", (63, 5, 3), {"n_blk": 21}), ("P14", (4100, 1, 2), {"n_blk": 4100}),
+    ("P14", (60, 4, 8), {"n_blk": 15}),
+    ("P14", (960, 3, 1), {"n_blk": 960}), ("P14", (960, 3, 3), {"n_blk": 960}),
+    ("P14", (960, 3, 8), {"n_blk": 960}), ("P11", (1, 1, 2880), {}), ("P11", (3, 1, 2880), {}),
+    ("P11", (8, 1, 2880), {}), ("P11", (8, 3, 960), {}),
+]
+RELAYOUT_FNS = {"P7": ("transpose_steps", "P7"), "P8": ("relayout_t3", "P8/P9/P11"),
+                "P9": ("relayout_t2", "P8/P9/P11"), "P11": ("relayout_t2_rev", "P8/P9/P11"),
+                "P12": ("t3_blocked", "P12/P13"), "P13": ("t2_blocked", "P12/P13"),
+                "P14": ("pack_blocked", "P14")}
+
+
+@pytest.mark.parametrize("case", RELAYOUT_CASES, ids=str)
+@pytest.mark.parametrize("dt", DTYPES + [torch.float16])
+def test_relayout_is_bitwise_the_plain_version(cuda, dt, case):
+    name, shape, kw = case
+    fn, counter = RELAYOUT_FNS[name]
+    x = _rand(shape, cuda, dt, -2.0, 2.0, seed=80)
+    n = rl.KERNELS[counter].launches
+    got = getattr(rl, fn)(x, **kw)
+    assert rl.KERNELS[counter].launches == n + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, getattr(rplain, fn)(x, **kw))
+
+
+@pytest.mark.parametrize("elements", [1, 2, 3])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_relayout_takes_tensors_off_16_byte_alignment(cuda, dt, elements):
+    """Input and output views ``elements`` past a 16-byte boundary: the plan
+    narrows the vectors to what the starts allow."""
+    buf = _rand((elements + 96 * 36 * 8,), cuda, dt, seed=81)
+    x = buf[elements:].view(96, 36, 8)
+    assert x.data_ptr() % 16 != 0
+    for fn in (rl.relayout_t3, rl.relayout_t2_rev):
+        assert torch.equal(fn(x), fn(x.cpu()).to(cuda))
+    assert rl.relayout_plan(1, 96, 36, 8, x.element_size(), x.data_ptr() % 16).vi * \
+        x.element_size() < 16
+
+
+def test_relayout_backward_runs_the_plain_autograd(cuda):
+    x = _rand((24, 4, 8), cuda, torch.float32, seed=82).requires_grad_()
+    for fn in (lambda t: rl.transpose_steps(t, 6, 2), rl.relayout_t3, rl.relayout_t2_rev,
+               lambda t: rl.t3_blocked(t, 6), lambda t: rl.pack_blocked(t, 6)):
+        out = fn(x)
+        grad = torch.randn(out.shape, device=cuda)
+        (gx,) = torch.autograd.grad(out, x, grad)
+        assert torch.equal(fn(gx.contiguous()), grad)  # the plain autograd's grad is a view
+
+
+def test_relayout_raises_on_what_the_kernel_does_not_take(cuda):
+    x = _rand((24, 4, 8), cuda, torch.float32, seed=83)
+    with pytest.raises(ValueError, match="contiguous"):
+        rl.relayout_t3(x.transpose(0, 2))
+    with pytest.raises(TypeError, match="2- or 4-byte"):
+        rl.relayout_t3(x.double())
+    with pytest.raises(ValueError, match="does not divide"):
+        rl.pack_blocked(x, 5)
+
+
+@pytest.mark.parametrize("variant", ["base", "mssa", "tnsm"])
+def test_hwcb_forward_is_the_nhwc_forward_permuted(cuda, variant):
+    """The full-width HWCB forward at 24 x 40, batch 3, fp32: bitwise the
+    card's NHWC forward permuted (TNSM's training noise map too), one P14
+    and one P8/P9/P11 launch more (two with TNSM's noise map)."""
+    import numpy as np
+
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cidnet_forward
+
+    gpu = CIDNet(CIDNetConfig(variant=variant), generator=torch.Generator().manual_seed(0))
+    gpu = gpu.to(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (3, 24, 40, 3)).astype(
+        np.float32)).to(cuda)
+    training = variant == "tnsm"
+    with torch.no_grad():
+        ref = cidnet_forward(gpu, x, training=training)
+        start = [rl.P14.launches, rl.P8_P9_P11.launches]
+        got = cidnet_forward(gpu, x.permute(1, 2, 3, 0).contiguous(), training=training,
+                             input_layout="hwcb")
+        launched = [rl.P14.launches - start[0], rl.P8_P9_P11.launches - start[1]]
+    assert launched == [1, 2 if training else 1]
+    got, ref = (got, ref) if training else ((got,), (ref,))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b.permute(1, 2, 3, 0))

@@ -31,6 +31,7 @@ from hvi_cidnet_torch.ops import conv3x3_cuda as cc
 from hvi_cidnet_torch.ops import hvi_cuda as hc
 from hvi_cidnet_torch.ops import ln_iel_cuda as lc
 from hvi_cidnet_torch.ops import iel_cuda as ic
+from hvi_cidnet_torch.ops import relayout_cuda as rl
 from hvi_cidnet_torch.ops import resize_cuda as rc
 
 # (h, w) of the forward's K4 inputs (600 x 400: block3, block2, block1),
@@ -893,3 +894,189 @@ def test_p6_plan_of_the_forward():
         icol.im2col_plan(1, 145, 27, 100, 2)
     with pytest.raises(ValueError, match="grid"):
         icol.im2col_plan(65536, 36, 27, 100, 2)
+
+
+# ---------------------------------------------------------------------------
+# P7, P8/P9/P11, P12/P13, P14: the relayout (ops/relayout_cuda.py)
+# ---------------------------------------------------------------------------
+
+
+def _relayout_walk(p, itemsize, in_offset=0, out_offset=0):
+    """The output of csrc/relayout.cu under plan ``p`` on the input 0, 1, 2,
+    ..., walked thread by thread as the kernel's loops run, and the times
+    each output element is written. Checks on the way: every global vector
+    starts aligned to its width, a shared vector store too, and the store
+    side reads only what the same work item's load side wrote."""
+    g, x, m, y = p.g, p.x, p.m, p.y
+    n = g * x * m * y
+    out, writes = np.full(n, -1, np.int64), np.zeros(n, np.int64)
+    threads = rl.THREADS
+    if p.copy:
+        v, stride = p.vi, p.blocks * threads * p.vi
+        for t in range(p.blocks * threads):
+            for i in range(t * v, n, stride):
+                assert (i * itemsize + in_offset) % (v * itemsize) == 0
+                assert (i * itemsize + out_offset) % (v * itemsize) == 0
+                out[i:i + v] = np.arange(i, i + v)
+                writes[i:i + v] += 1
+        return out, writes
+    groups = -(-g * m // p.slabs)
+    for w in range(p.work):  # block b takes items b, b + blocks, ...: each once
+        tile_i, grp = divmod(w, groups)
+        gm = grp * p.slabs
+        gg, mm = divmod(gm, m)
+        tx_i, ty_i = divmod(tile_i, p.tiles_y)
+        x0, y0 = tx_i * p.tx, ty_i * p.ty
+        nx, ny = min(p.tx, x - x0), min(p.ty, y - y0)
+        ns = min(p.slabs, g * m - gm)
+        smem = np.full(p.tx * p.pitch, -1, np.int64)
+        src0 = ((gg * x + x0) * m + mm) * y + y0
+        for t in range(threads):
+            l_col, l_row = t % p.lx, t // p.lx
+            for r in range(l_row, ns * nx, threads // p.lx):
+                sl, xr = divmod(r, nx)
+                for v in range(l_col * p.vi, ny, p.lx * p.vi):
+                    a = src0 + r * m * y + v
+                    assert (a * itemsize + in_offset) % (p.vi * itemsize) == 0
+                    s = xr * p.pitch + sl * ny + v
+                    assert p.pitch % p.vi or s % p.vi == 0  # a shared vector store
+                    smem[s:s + p.vi] = np.arange(a, a + p.vi)
+        dst0 = ((gg * y + y0) * m + mm) * x + x0
+        for t in range(threads):
+            s_col, s_row = t % p.sx, t // p.sx
+            for r in range(s_row, ns * ny, threads // p.sx):
+                for v in range(s_col * p.vo, nx, p.sx * p.vo):
+                    vals = smem[(v + np.arange(p.vo)) * p.pitch + r]
+                    assert (vals >= 0).all(), "read a shared element this item did not load"
+                    d = dst0 + r * m * x + v
+                    assert (d * itemsize + out_offset) % (p.vo * itemsize) == 0
+                    out[d:d + p.vo] = vals
+                    writes[d:d + p.vo] += 1
+    return out, writes
+
+
+# (G, X, M, Y): the relayouts' mappings at small and odd sizes (P8, P12,
+# P7 steps 1, P11, slabs of 36 x 8 and 5 x 3 several to a work item, the
+# last one cut, the HWCB entry and exit at batch 3), Y = 1 and X = 1
+# (unit axes dropped: a copy, or a transpose of X or Y with M), both axes
+# long (64 x 64 tiles cut at the edges), tiles cut along one long axis
+RELAYOUT_SHAPES = [(1, 24, 4, 8), (3, 6, 4, 8), (1, 21, 3, 5), (7, 3, 1, 5), (1, 5, 3, 21),
+                   (40, 36, 1, 8), (300, 5, 1, 3),
+                   (1, 300, 1, 3), (1, 3, 1, 300), (1, 100, 1, 1), (2, 1, 1, 7), (1, 1, 3, 50),
+                   (1, 40, 3, 1), (1, 130, 2, 70), (1, 4100, 1, 2), (1, 2, 1, 4100),
+                   (1, 17, 5, 33), (2, 96, 1, 64)]
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (2, 0), (0, 1)], ids=["aligned", "in+2", "out+1"])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", RELAYOUT_SHAPES, ids=str)
+def test_relayout_plan_covers_each_output_once(shape, itemsize, offsets):
+    """``offsets``: the input's and the output's starts, in elements past a
+    16-byte boundary."""
+    in_off, out_off = (e * itemsize % 16 for e in offsets)
+    p = rl.relayout_plan(*shape, itemsize, in_off, out_off)
+    out, writes = _relayout_walk(p, itemsize, in_off, out_off)
+    g, x, m, y = shape
+    want = np.arange(g * x * m * y).reshape(g, x, m, y).transpose(0, 3, 2, 1).ravel()
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out, want)
+    assert p.smem_bytes <= rl.SMEM_LIMIT and 1 <= p.blocks <= rl.SMS * rl.BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("name, shape, kw", [
+    ("P7", (24, 4, 8), {"steps": 0}), ("P7", (24, 4, 8), {"steps": 1}),
+    ("P7", (24, 4, 8), {"steps": 2}), ("P7", (21, 3, 5), {"steps": 3}),
+    ("P8", (21, 3, 5), {}), ("P9", (24, 4, 8), {}), ("P11", (5, 3, 21), {}),
+    ("P12", (24, 4, 8), {"n_blk": 6}), ("P13", (21, 3, 5), {"n_blk": 7}),
+    ("P14", (24, 4, 8), {"n_blk": 6}), ("P14", (24, 3, 5), {"n_blk": 24})], ids=str)
+def test_relayout_geometry_is_each_p(name, shape, kw):
+    """Each P's mapping onto (G, X, M, Y): the input viewed as (G, X, M, Y)
+    and transposed to (G, Y, M, X) is its plain version's output; so is its
+    canonical form's."""
+    import torch
+
+    from hvi_cidnet_torch.ops import relayout as plain
+
+    x = np.arange(int(np.prod(shape))).reshape(shape)
+    gxmy, out_shape = rl.geometry(name, shape, **kw)
+    fn = {"P7": lambda t: plain.transpose_steps(t, None, kw["steps"]), "P8": plain.relayout_t3,
+          "P9": plain.relayout_t2, "P11": plain.relayout_t2_rev,
+          "P12": lambda t: plain.t3_blocked(t, kw["n_blk"]),
+          "P13": lambda t: plain.t2_blocked(t, kw["n_blk"]),
+          "P14": lambda t: plain.pack_blocked(t, kw["n_blk"])}[name]
+    ref = fn(torch.from_numpy(x)).numpy()
+    assert ref.shape == tuple(out_shape)
+    for dims in (gxmy, rl.canonical(*gxmy)):
+        got = x.reshape(dims).transpose(0, 3, 2, 1).reshape(out_shape)
+        np.testing.assert_array_equal(got, ref)
+
+
+# (G, X, M, Y) of the relayouts the main path and chip_smoke run, at 600 x
+# 400: the HWCB entry (P14, one block) and exit (P11 on NHWC) at batch 1,
+# 8 and 32, TNSM's noise map (P11), and P8 at the three LCA levels
+def _main_path_relayouts():
+    hw = 400 * 600
+    for b in (1, 8, 32):
+        yield "entry", b, rl.geometry("P14", (hw, 3, b), n_blk=hw)[0]
+        yield "exit", b, rl.geometry("P11", (b, 1, 3 * hw))[0]
+        yield "noise", b, rl.geometry("P11", (b, 3, hw))[0]
+    for n, c in ((60000, 36), (15000, 72), (3750, 144)):
+        for b in (1, 8):
+            yield "level", b, rl.geometry("P8", (n, c, b))[0]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("site, b, gxmy", list(_main_path_relayouts()), ids=str)
+def test_relayout_plan_of_the_forward(site, b, gxmy, itemsize):
+    """At batch 1 the entry and exit are copies (and still launch); else the
+    tiles cover each slab once, the vectors are the widest the extents
+    allow, the shared tile fits without opting in, the grid fills the card
+    and the load side keeps at least half the threads busy."""
+    p = rl.relayout_plan(*gxmy, itemsize)
+    assert p.copy == (b == 1 and site in ("entry", "exit"))
+    assert p.smem_bytes <= rl.SMEM_LIMIT
+    if p.copy:
+        assert p.vi * itemsize == 16 and p.blocks == min(p.work, rl.SMS * rl.BLOCKS_PER_SM)
+        assert p.blocks >= rl.SMS
+        return
+    assert (p.tiles_x - 1) * p.tx < p.x <= p.tiles_x * p.tx
+    assert (p.tiles_y - 1) * p.ty < p.y <= p.tiles_y * p.ty
+    assert p.work == p.g * p.m * p.tiles_x * p.tiles_y
+    assert p.blocks == min(p.work, rl.SMS * rl.BLOCKS_PER_SM) >= rl.SMS
+    assert p.ty % p.vi == 0 and p.tx % p.vo == 0 and p.pitch >= p.ty
+    widest = lambda n: next(v for v in (8, 4, 2, 1) if v * itemsize <= 16 and n % v == 0)
+    assert (p.vi, p.vo) == (widest(p.y), widest(p.x))
+    assert min(p.tx, rl.THREADS // p.lx) * min(p.ty // p.vi, p.lx) >= rl.THREADS // 2
+
+
+def test_relayout_plan_of_the_hwcb_ends_at_batch_8():
+    """bf16, batch 8: the entry's 512 x 8 tiles take a 10-element pitch (a
+    load's 16 bytes stored element by element, the columns read without
+    conflicts), the exit's 8 x 512 tiles no padding (a load's 16 bytes
+    stored whole, the columns read by 32 rows); each side's first warp
+    meets no bank conflict."""
+    hw = 400 * 600
+    entry = rl.relayout_plan(*rl.geometry("P14", (hw, 3, 8), n_blk=hw)[0], 2)
+    exit_ = rl.relayout_plan(*rl.geometry("P11", (8, 1, 3 * hw))[0], 2)
+    assert (entry.tx, entry.ty, entry.pitch, entry.vi, entry.vo) == (512, 8, 10, 8, 8)
+    assert (exit_.tx, exit_.ty, exit_.pitch, exit_.vi, exit_.vo) == (8, 512, 512, 8, 8)
+    for p in (entry, exit_):
+        _, l_waves, _ = rl.side_cost(p.lx, p.tx, p.vi, p.ty // p.vi, p.m * p.y, 2, p.pitch,
+                                     (p.tx, p.ty))
+        _, s_waves, _ = rl.side_cost(p.sx, p.ty, p.vo, p.tx // p.vo, p.m * p.x, 2, p.pitch)
+        # conflict-free: 32 lanes of 2 bytes a wavefront, or 8 of 16 bytes
+        assert (l_waves, s_waves) == (1 / 64 if p.pitch % p.vi == 0 else 1 / 32, 1 / 32)
+
+
+def test_relayout_plan_is_cached_and_rejects_what_the_kernel_does_not_take():
+    rl.relayout_plan.cache_clear()
+    rl.relayout_plan(1, 720000, 1, 8, 2)
+    rl.relayout_plan(1, 720000, 1, 8, 2)
+    assert rl.relayout_plan.cache_info().hits == 1
+    with pytest.raises(TypeError, match="2 or 4"):
+        rl.relayout_plan(1, 8, 1, 8, 8)
+    with pytest.raises(ValueError, match=">= 1"):
+        rl.relayout_plan(1, 0, 1, 8, 2)
+    # a plan's 64-bit extents: G X M Y past 2**31 elements
+    big = rl.relayout_plan(1, 60000 * 36, 1, 1024, 2)
+    assert big.g * big.x * big.m * big.y > 2**31 and big.work == big.tiles_x * big.tiles_y
