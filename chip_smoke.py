@@ -66,6 +66,11 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    serving contract, (H, W, 3, B) in and out) on the default route: fp32
    card vs CPU at each variant's bars, bitwise the card's NHWC forward
    permuted at batch 1 and 2, TNSM's training noise map (H, W, 3, B);
+5e. F2, the forward's input contract: for base at batch 2, fp32 and bf16, a
+   strided NHWC input (the permute of an NCHW tensor, a crop
+   ``x[:, :400, :600]`` of a larger one) and a strided HWCB input give,
+   bitwise, the forward of their contiguous copy, and an fp16 input the
+   forward of its fp32 cast;
 6. checks the launches of one forward: base K1 1, K2 1, K3 6, K4 6, K5 11,
    K6 33, K7 22; MSSA the same with K5 12, K6 36, K7 24; TNSM K5 23, K6
    80, K7 24; on the fused route base P2/P3 11, P4 10, P5 6, K3 0, K4 6,
@@ -78,22 +83,43 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    sizes that are not multiples of 8, for each variant, counting every
    kernel's launches (the main path), then again on the fused route and on
    the probe route; then batches packed as (H, W, 3, B) through the HWCB
-   contract for each variant (this slice's path); each run's counts are set
+   contract for each variant; each run's counts are set
    to 0 before it and read after;
 8. prints each variant's images per second at 600 x 400 bf16, batch 1, 8
    and 32, on the default, the fused and the probe route, and HWCB against
    NHWC on the default route in turns (information);
-9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+9. evaluates a dataset folder end to end (this slice's path), with PIL
+   and cv2 made unimportable: writes synthetic PNGs (``data/png.py``: six 600 x 400, two
+   601 x 397, one 1280 x 720, one 30 x 64 sliver; four padded shapes, a
+   partial chunk at batch 8) and base's seeded weights as the JAX trainer's
+   ``.npz`` (``compat/checkpoint.py``), then runs ``cli/eval.py --unpaired
+   --custome`` on them in fp32 and bf16: every PNG at its input's size; fp32
+   (TF32 off) within one uint8 level of ``Evaluator.enhance`` of the same
+   image on the card, 99.9% of pixels equal; bf16 against fp32 within base's
+   bf16 mean bar; the launches of each run, counted from 0 around it, the
+   base forward's times the chunks; MSSA (the CLI's default variant) in
+   bf16 with its own weights; base again with ``--max_programs 2`` (the
+   quantum escalates to 1024: the tail chunks repeat rows, the sliver takes
+   edge padding); then ``cli/eval_tnsm.py`` on the 600 x 400 images with a
+   full TNSM file (every tensor loaded), ``cli/convert_weights.py`` to an HF
+   folder (read back bitwise) and ``cli/eval_hf.py --local_file`` on one
+   image; prints ``run_dataset``'s images per second on 48 PNGs at 600 x 400
+   (bf16, batch 8) beside the forward's alone at the same batch
+   (information);
+10. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1287,6 +1313,39 @@ def compare_hwcb(dev, variant, kernels, gpu_model, x, got, ref, ref_noise, edge,
     log(line)
 
 
+def compare_f2(dev, bf_model) -> None:
+    """Step 5e: strided NHWC and HWCB inputs against their contiguous copies,
+    and fp16 against its fp32 cast, bitwise, base at batch 2 (fp32 and the
+    bf16 serving model)."""
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cidnet_forward
+
+    fp_model = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    gen = torch.Generator().manual_seed(11)
+    for dt, model in ((torch.float32, fp_model), (torch.bfloat16, bf_model)):
+        fwd = lambda t, **kw: cidnet_forward(model, t, compute_dtype=dt, **kw)
+        big = torch.rand((2, H + 40, W + 56, 3), generator=gen).to(dev, dt)
+        crop = big[:, :H, :W]
+        cases = {"crop x[:, :400, :600]": crop,
+                 "x_nchw.permute(0, 2, 3, 1)": crop.permute(0, 3, 1, 2).contiguous().permute(
+                     0, 2, 3, 1)}
+        with torch.no_grad():
+            ref = fwd(crop.contiguous())
+            for name, t in cases.items():
+                if t.is_contiguous():
+                    raise AssertionError(f"F2 {name}: the test input is contiguous")
+                check_equal(f"F2 base {dt} {name} vs its contiguous copy", fwd(t), ref)
+            hwcb = crop.contiguous().permute(1, 2, 3, 0)  # (H, W, 3, B), strided
+            got = fwd(hwcb, input_layout="hwcb")
+            check_equal(f"F2 base {dt} strided HWCB vs its contiguous copy", got,
+                        fwd(hwcb.contiguous(), input_layout="hwcb"))
+            check_equal(f"F2 base {dt} strided HWCB vs NHWC permuted", got,
+                        ref.permute(1, 2, 3, 0))
+            x16 = torch.rand((2, H, W, 3), generator=gen).to(dev, torch.float16)
+            check_equal(f"F2 base {dt} fp16 input vs its fp32 cast", fwd(x16), fwd(x16.float()))
+    log("F2 (5e): base batch 2 fp32 and bf16: strided NHWC (crop, permute) and HWCB inputs "
+        "bitwise their contiguous copies; fp16 input bitwise its fp32 cast")
+
+
 def attention_f64(q, k, v, temperature, heads, w_proj):
     """K5's unnormalised, folded arm in float64 on the CPU (the twin's
     algebra, ``ops/attention.py``), and the masked scores it softmaxes."""
@@ -1333,6 +1392,260 @@ def compare_k5_captured(fp32_sites: list, bf16_sites: list) -> None:
                                      f"{TOL_BF16_REL:.1e}")
         if len(seen) != 3:
             raise AssertionError(f"K5 captured {dt}: {len(seen)} site shapes, expected 3")
+
+
+# step 9's folder, (H, W): six 600 x 400, two 601 x 397 (reflect-padded to
+# 608 x 400), one 1280 x 720 and a 30 x 64 sliver: four padded shapes, and
+# the six 600 x 400 a partial chunk at batch 8
+EVAL_SIZES = [(400, 600)] * 6 + [(397, 601)] * 2 + [(720, 1280), (64, 30)]
+EVAL_BATCH = 8
+EVAL_RATE_IMAGES = 48   # 600 x 400 PNGs of the img/s comparison
+
+
+@contextlib.contextmanager
+def cwd(path: str):
+    """The eval CLIs write under ./output and ./output_hf: run them in ``path``."""
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+@contextlib.contextmanager
+def without_modules(*names: str):
+    """Importing any of ``names`` raises ImportError inside the block (the
+    card's machine may or may not have them; the eval path must not need
+    them)."""
+    saved = {n: sys.modules[n] for n in sys.modules if n.split(".")[0] in names}
+    for n in saved:
+        del sys.modules[n]
+    sys.modules.update({n: None for n in names})
+    try:
+        yield
+    finally:
+        for n in names:
+            del sys.modules[n]
+        sys.modules.update(saved)
+
+
+def run_cli(main, argv: list) -> str:
+    """Run a CLI's ``main(argv)`` in this process; log and return its stdout."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"    | {line}")
+    return buf.getvalue()
+
+
+def synthetic_png(rng, h: int, w: int) -> np.ndarray:
+    """A dark RGB uint8 image: a colour gradient under noise."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    img = (0.05 + 0.25 * (yy[..., None] * rng.uniform(0, 1, 3) + xx[..., None]
+                          * rng.uniform(0, 1, 3)) + rng.normal(0, 0.03, (h, w, 3)))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def eval_path(dev, kernels) -> dict:
+    """Step 9: the eval CLIs on synthetic PNGs at full width, on the card.
+    Returns the launches of each variant's bf16 run of ``cli/eval.py``
+    (TNSM's: ``cli/eval_tnsm.py``), by variant. PIL and cv2 cannot be
+    imported while it runs."""
+    with without_modules("PIL", "cv2"):
+        return _eval_path(dev, kernels)
+
+
+def _eval_path(dev, kernels) -> dict:
+    from hvi_cidnet_torch.cli import convert_weights, eval_hf, eval_tnsm
+    from hvi_cidnet_torch.cli import eval as eval_cli
+    from hvi_cidnet_torch.compat.checkpoint import save_checkpoint
+    from hvi_cidnet_torch.compat.jax_params import load_state_dict_file
+    from hvi_cidnet_torch.data import png
+    from hvi_cidnet_torch.data.datasets import EvalDataset
+    from hvi_cidnet_torch.eval.evaluator import (
+        Evaluator, _bucket, gates_for_dataset, plan_bucket_quantum,
+    )
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates, cidnet_forward
+
+    rng = np.random.default_rng(9)
+    base = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+    mssa = CIDNet(CIDNetConfig(variant="mssa"), generator=torch.Generator().manual_seed(2))
+    tnsm = CIDNet(CIDNetConfig(variant="tnsm"), generator=torch.Generator().manual_seed(1))
+    with tempfile.TemporaryDirectory() as tmp:
+        src, src_tnsm = os.path.join(tmp, "in"), os.path.join(tmp, "in_tnsm")
+        os.makedirs(src)
+        os.makedirs(src_tnsm)
+        imgs = {}
+        for i, (h, w) in enumerate(EVAL_SIZES):
+            name = f"{i:02d}_{w}x{h}.png"
+            imgs[name] = synthetic_png(rng, h, w)
+            png.write(os.path.join(src, name), imgs[name])
+            if (h, w) == (H, W):
+                png.write(os.path.join(src_tnsm, name), imgs[name])
+        npz, tnsm_npz = os.path.join(tmp, "base.npz"), os.path.join(tmp, "tnsm.npz")
+        mssa_npz = os.path.join(tmp, "mssa.npz")
+        save_checkpoint(npz, base.state_dict())
+        save_checkpoint(mssa_npz, mssa.state_dict())
+        save_checkpoint(tnsm_npz, tnsm.state_dict())
+        argv = ["--unpaired", "--custome", "--custome_path", src, "--weights", npz,
+                "--variant", "base", "--eval_batch", str(EVAL_BATCH)]
+
+        def chunks(sizes, quantum):
+            per = {}
+            for hw in sizes:
+                b = _bucket(*hw, quantum)
+                per[b] = per.get(b, 0) + 1
+            return sum(-(-n // EVAL_BATCH) for n in per.values()), len(per)
+
+        def cli_run(main, argv, tag, sizes, quantum, variant="base"):
+            """One CLI run in its own directory, launches counted from 0
+            around it; returns (its directory, its stdout, its launches)."""
+            run_dir = os.path.join(tmp, tag)
+            os.makedirs(run_dir)
+            with cwd(run_dir):
+                torch.cuda.synchronize()
+                reset(kernels)
+                t0 = time.perf_counter()
+                text = run_cli(main, argv)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launched = counts(kernels)
+            n_chunks, n_buckets = chunks(sizes, quantum)
+            want = {k: n_chunks * v for k, v in PER_FORWARD[variant].items()}
+            log(f"eval {tag}: {len(sizes)} images, {n_buckets} padded shapes, {n_chunks} chunks "
+                f"in {secs:.2f} s (model load and first use included); launches {launched}")
+            if launched != want:
+                raise AssertionError(f"eval {tag} launches {launched} != {n_chunks} chunks x "
+                                     f"one {variant} forward {want}")
+            return run_dir, text, launched
+
+        def outputs(run_dir, folder, names):
+            out = {}
+            for name in names:
+                got = png.read(os.path.join(run_dir, "output", folder, name))
+                if got.shape != imgs[name].shape:
+                    raise AssertionError(f"eval wrote {name} at {got.shape}, input {imgs[name].shape}")
+                out[name] = got
+            return out
+
+        sizes = [(h, w) for h, w in EVAL_SIZES]
+        quantum = plan_bucket_quantum(sizes)
+        outs, served = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            run_dir, _, launched = cli_run(eval_cli.main, argv + ["--dtype", dtype], dtype, sizes,
+                                           quantum)
+            outs[dtype] = outputs(run_dir, "custome", imgs)
+        served["base"] = launched
+        # MSSA, the CLI's default variant, with its own weights
+        run_dir, _, served["mssa"] = cli_run(
+            eval_cli.main, ["--unpaired", "--custome", "--custome_path", src, "--weights",
+                            mssa_npz, "--dtype", "bfloat16"], "mssa", sizes, quantum, "mssa")
+        outputs(run_dir, "custome", imgs)
+        ev = Evaluator(npz, CIDNetConfig(variant="base"), gates_for_dataset(unpaired=True),
+                       device=dev)
+        equal = total = worst = 0
+        for name, img in imgs.items():
+            ref = (ev.enhance(img.astype(np.float32) / 255.0) * 255.0).astype(np.uint8)
+            d = np.abs(outs["float32"][name].astype(np.int16) - ref)
+            worst, equal, total = max(worst, int(d.max())), equal + int((d == 0).sum()), total + d.size
+        log(f"eval fp32 PNGs vs Evaluator.enhance on the card: max {worst} uint8 levels, "
+            f"{equal}/{total} values equal ({100 * equal / total:.4f}%)")
+        if worst > 1 or equal < 0.999 * total:
+            raise AssertionError(f"eval fp32 PNGs vs enhance: max {worst} levels, "
+                                 f"{equal}/{total} equal (bar: 1 level, 99.9%)")
+        diff = np.concatenate([(outs["bfloat16"][n].astype(np.float64)
+                                - outs["float32"][n]).ravel() / 255.0 for n in imgs])
+        log(f"eval bf16 PNGs vs fp32 PNGs: mean_abs_err {np.abs(diff).mean():.3e}, "
+            f"max_abs_err {np.abs(diff).max():.3e}")
+        check("eval bf16 vs fp32 PNGs (mean)", float(np.abs(diff).mean()), TOL_BF16_FORWARD_MEAN)
+
+        mp_quantum = plan_bucket_quantum(sizes, max_programs=2)
+        run_dir, _, _ = cli_run(eval_cli.main, argv + ["--dtype", "bfloat16", "--max_programs",
+                                                       "2"], "max_programs", sizes, mp_quantum)
+        n_chunks, _ = chunks(sizes, mp_quantum)
+        mp = outputs(run_dir, "custome", imgs)
+        moved = np.mean([np.abs(mp[n].astype(np.float64) - outs["bfloat16"][n]).mean() / 255
+                         for n in imgs])
+        log(f"eval --max_programs 2: pad quantum {mp_quantum}, {n_chunks} chunks of "
+            f"{EVAL_BATCH} rows each (tails repeated), every PNG at its input's size; the "
+            f"larger pad moved the outputs by {moved:.3e} on average (attention reads the pad)")
+
+        tnsm_sizes = [(H, W)] * sum(hw == (H, W) for hw in EVAL_SIZES)
+        _, text, served["tnsm"] = cli_run(
+            eval_tnsm.main, ["--unpaired", "--custome", "--custome_path", src_tnsm, "--weights",
+                             tnsm_npz, "--dtype", "bfloat16"], "tnsm", tnsm_sizes, quantum, "tnsm")
+        n_params = len(tnsm.state_dict())
+        if f"loaded {n_params}/{n_params} tensors" not in text:
+            raise AssertionError(f"eval_tnsm did not load all {n_params} tensors of a full file")
+        outputs(os.path.join(tmp, "tnsm"), "custome", os.listdir(src_tnsm))
+
+        hf_dir = os.path.join(tmp, "hf")
+        run_cli(convert_weights.main, [npz, hf_dir, "--hf"])
+        back, own = load_state_dict_file(hf_dir), base.state_dict()
+        if back.keys() != own.keys() or not all(torch.equal(back[k], own[k]) for k in own):
+            raise AssertionError("convert_weights --hf: the folder does not read back bitwise")
+        one = list(imgs)[6]  # a 601 x 397 image
+        run_dir = os.path.join(tmp, "eval_hf")
+        os.makedirs(run_dir)
+        with cwd(run_dir):
+            run_cli(eval_hf.main, ["--local_file", os.path.join(hf_dir, "model.safetensors"),
+                                   "--config_json", os.path.join(hf_dir, "config.json"),
+                                   "--input_img", os.path.join(src, one)])
+        got = png.read(os.path.join(run_dir, "output_hf", one)).astype(np.int16)
+        ev_hf = Evaluator(base, None, HVIGates(alpha=1.0, alpha_s=1.0), device=dev)
+        ref = (np.clip(ev_hf.enhance(imgs[one].astype(np.float32) / 255.0), 0, 1) * 255
+               ).astype(np.uint8)
+        log(f"eval_hf --local_file {one}: {got.shape}, max {int(np.abs(got - ref).max())} "
+            "uint8 levels from Evaluator.enhance")
+        if got.shape != ref.shape or np.abs(got - ref).max() > 1:
+            raise AssertionError("eval_hf output disagrees with enhance")
+
+        # images per second (information): run_dataset on 48 PNGs at 600 x 400,
+        # bf16, batch 8, a warm-up run first, against the forward alone
+        rate = os.path.join(tmp, "rate")
+        os.makedirs(rate)
+        for i in range(EVAL_RATE_IMAGES):
+            png.write(os.path.join(rate, f"{i:03d}.png"), synthetic_png(rng, H, W))
+        ev_bf = Evaluator(npz, CIDNetConfig(variant="base"), gates_for_dataset(unpaired=True),
+                          compute_dtype=torch.bfloat16, device=dev)
+        data = EvalDataset(rate, pad=True)
+        ev_bf.run_dataset(data, os.path.join(tmp, "rate_out"), verbose=False,
+                          batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = ev_bf.run_dataset(data, os.path.join(tmp, "rate_out"), verbose=False,
+                              batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+        dataset_rate = n / (time.perf_counter() - t0)
+        xb = torch.rand((EVAL_BATCH, H, W, 3), generator=torch.Generator().manual_seed(4)).to(
+            dev, torch.bfloat16)
+        with torch.no_grad():
+            ms = time_ms(lambda: cidnet_forward(ev_bf.model, xb, ev_bf.gates,
+                                                compute_dtype=torch.bfloat16).clamp_(0, 1),
+                         iters=10, warmup=2)
+        # the host's share, one step at a time on this machine's CPU: decode
+        # of one input, enhance_batch of one chunk (copies in and out
+        # included), encode of one output
+        stacked = np.stack([data[i][0] for i in range(EVAL_BATCH)])
+        out8 = (ev_bf.enhance_batch(stacked)[0] * 255).astype(np.uint8)
+        host = {}
+        for step, fn in (("decode", lambda: data[0]),
+                         ("enhance_batch", lambda: ev_bf.enhance_batch(stacked)),
+                         ("encode", lambda: png.write(os.path.join(tmp, "one.png"), out8))):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            host[step] = (time.perf_counter() - t0) / 5 * 1000
+        log(f"eval rate, 600x400 bf16 batch {EVAL_BATCH}: run_dataset {dataset_rate:.1f} img/s "
+            f"({n} PNGs decoded, run and written) against the forward alone "
+            f"{1000 * EVAL_BATCH / ms:.1f} img/s ({ms:.2f} ms a batch); one PNG decoded "
+            f"{host['decode']:.2f} ms, enhance_batch of {EVAL_BATCH} {host['enhance_batch']:.2f} ms "
+            f"(copies in and out included), one PNG encoded {host['encode']:.2f} ms (2 writer "
+            f"threads); card {nvidia_smi()}")
+    return served
 
 
 def counts(kernels) -> dict:
@@ -1496,6 +1809,7 @@ def main() -> int:
     for name in ("fused", "probe"):
         for v in VARIANTS:
             compare_forward(dev, v, kernels, name)
+    compare_f2(dev, bf_models["base"])
     torch.cuda.empty_cache()
 
     # launches of one forward (the bf16 serving models, 1 x 400 x 600)
@@ -1523,9 +1837,8 @@ def main() -> int:
             raise AssertionError(f"{variant} HWCB launches per forward {per_forward} != "
                                  f"{PER_FORWARD_HWCB[variant]}")
 
-    # the main path: requests through the serving entry point, each variant,
-    # on the default route, the fused one and the probe one (this slice's
-    # path)
+    # requests through the serving entry point, each variant, on the
+    # default route, the fused one and the probe one
     gates = HVIGates(gated=True, gated2=True, alpha=0.95, alpha_s=1.1)
     rng = np.random.default_rng(3)
     requests = [rng.uniform(0, 0.4, (h, w, 3)).astype(np.float32)
@@ -1554,8 +1867,8 @@ def main() -> int:
                 raise AssertionError(f"{variant} {name} route serving launches "
                                      f"{served[name][variant]} != {expect}")
 
-    # this slice's path: batches packed as (H, W, 3, B) through the HWCB
-    # serving contract, each variant (the default route)
+    # batches packed as (H, W, 3, B) through the HWCB serving contract, each
+    # variant (the default route)
     batches = [rng.uniform(0, 0.4, (h, w, 3, b)).astype(np.float32)
                for h, w, b in [(400, 600, 2), (400, 600, 1), (600, 400, 3), (296, 400, 2)]]
     served["hwcb"] = {}
@@ -1613,8 +1926,13 @@ def main() -> int:
                 f"img/s), ratio {t_h / t_n:.4f}; in turns {ms['nhwc'][0]:.2f} / {ms['hwcb'][0]:.2f}"
                 f" / {ms['hwcb'][1]:.2f} / {ms['nhwc'][1]:.2f} ms")
 
+    # this slice's path: a dataset folder through the eval CLIs (K1-K7's
+    # launches in the kernels line are its bf16 runs', base, MSSA and TNSM)
+    torch.cuda.empty_cache()
+    served["eval"] = eval_path(dev, kernels)
+
     path_of = lambda key: ("fused" if key in FUSED else "probe" if key in PROBE else
-                           "hwcb" if key in RELAYOUTS else "default")
+                           "hwcb" if key in RELAYOUTS else "eval")
     summary = [(summarise_relayout if key in RELAYOUTS else summarise)(
         key, results[key], served[path_of(key)]) for key in kernels]
     log(smi)  # as nvidia-smi prints it: name, power limit

@@ -14,6 +14,7 @@ HF folder, whose ``config.json`` gives the model's config in place of
 evaluator does. With ``--random_init`` the model is drawn from a generator
 seeded 0. Runs on the card unless ``--cpu`` is given; ``--fused`` takes
 the fused block route, ``--probe`` the probe route (``ops/routes.py``).
+A PNG is read and written by ``data/png.py``, any other format by PIL.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import os
 
 import numpy as np
 import torch
-from PIL import Image
 
+from hvi_cidnet_torch.data.datasets import load_image, save_image
+from hvi_cidnet_torch.data.transforms import to_float01
 from hvi_cidnet_torch.models.cidnet import VARIANTS, CIDNet, CIDNetConfig, HVIGates
 from hvi_cidnet_torch.ops import routes
 from hvi_cidnet_torch.serve import Enhancer
@@ -63,10 +65,9 @@ def main(argv=None) -> str:
                         device="cpu" if args.cpu else "cuda", routes=routes.from_flags(args))
 
     print(f"processing: {args.input}")
-    img = np.asarray(Image.open(args.input).convert("RGB"), np.float32) / 255.0
-    out = enhancer.enhance(img)
+    out = enhancer.enhance(to_float01(load_image(args.input)))
     out_path = os.path.join(args.output_dir, f"enhanced_{os.path.basename(args.input)}")
-    Image.fromarray((np.clip(out, 0, 1) * 255.0).astype(np.uint8)).save(out_path)
+    save_image(out_path, (np.clip(out, 0, 1) * 255.0).astype(np.uint8))
     print(f"saved: {out_path}")
     return out_path
 

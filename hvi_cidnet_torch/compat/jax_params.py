@@ -4,7 +4,8 @@ The JAX package keeps the reference's parameter names with HWIO conv
 weights; this package keeps the same names with the reference's OIHW
 layout. So moving parameters across is a per-tensor layout change:
 
-* ``jax_params_to_torch``: 4-D HWIO -> OIHW, every other tensor as it is;
+* ``jax_params_to_torch``: 4-D HWIO -> OIHW, every other tensor as it is,
+  and its inverse ``torch_to_jax_params``;
 * ``load_state_dict_file``: a reference-layout state dict from ``.pth``
   (``torch.load(weights_only=True)``, unwrapping ``{"state_dict": ...}``),
   ``.safetensors`` (read by ``compat/safetensors_io.py``: the machine with
@@ -46,6 +47,19 @@ def jax_params_to_torch(np_params: Mapping[str, np.ndarray]) -> Dict[str, torch.
         if _is_conv_weight(name, arr):
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         out[name] = torch.from_numpy(arr.copy())
+    return out
+
+
+def torch_to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Reference-layout state dict -> JAX parameter dict (numpy fp32, HWIO
+    convs): the exact inverse of ``jax_params_to_torch``, as the JAX
+    ``from_torch_state_dict`` is of its ``to_torch_state_dict``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, value in state.items():
+        arr = torch.as_tensor(value).detach().to("cpu", torch.float32).numpy()
+        if _is_conv_weight(name, arr):
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        out[name] = np.ascontiguousarray(arr)
     return out
 
 

@@ -1,4 +1,5 @@
-"""A reader of ``.safetensors`` files that needs no ``safetensors`` package.
+"""A reader and a writer of ``.safetensors`` files that need no
+``safetensors`` package.
 
 The format: an 8-byte little-endian header length N, N bytes of JSON
 mapping each tensor's name to ``{"dtype", "shape", "data_offsets": [begin,
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Dict
+from typing import Dict, Mapping
 
 import torch
 
@@ -59,3 +60,26 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
         t = torch.frombuffer(data, dtype=dtype) if size else torch.empty(0, dtype=dtype)
         out[name] = t.reshape(shape)
     return out
+
+
+def save_file(tensors: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write ``tensors`` (any device, a dtype of ``DTYPES``) to ``path``, the
+    inverse of ``load_file``: the header lists them by name, their buffers
+    follow in that order, back to back, and the header is padded with
+    spaces to a multiple of 8 bytes, as the ``safetensors`` package pads it."""
+    names = {dtype: code for code, dtype in DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().to("cpu").contiguous()
+        if t.dtype not in names:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {t.dtype}; "
+                             f"supported: {', '.join(map(str, names))}")
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(_HEADER_LEN_BYTES, "little") + text + b"".join(blobs))

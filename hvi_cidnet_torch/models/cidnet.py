@@ -198,6 +198,16 @@ def _check_x8(x: torch.Tensor, input_layout: str = "nhwc") -> None:
         )
 
 
+def _input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the entry kernels (K1, P14) take it: contiguous, fp32 or
+    bf16. Another dtype is cast to fp32, as the JAX ``rgb_to_hvi`` casts its
+    input (``hvi_cidnet_tpu/ops/hvi.py:57``); neither step copies or
+    launches anything when ``x`` already is so."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    return x.contiguous()
+
+
 def cidnet_hvi(model: CIDNet, x: torch.Tensor, *, compute_dtype=torch.float32,
                routes: Optional[Routes] = None) -> torch.Tensor:
     """The forward up to PHVIT: NHWC RGB -> the output HVI map, NCHW
@@ -213,6 +223,7 @@ def _hvi_and_noise(
     reference's order (I before HV, levels 1-6; ``I_TNSM5``'s only with
     ``training``), through the blocks on ``routes``."""
     _check_x8(x)
+    x = _input(x)
     m = model
     r = routes
     mssa = m.config.variant == "mssa"
@@ -315,9 +326,14 @@ def cidnet_forward(
     fused block or probe route (``ops/routes.py``); None takes the defaults
     (all off) with the environment's overrides.
 
+    ``x`` may have any strides and any float dtype: it is made contiguous
+    and, unless fp32 or bf16, cast to fp32 once at the entry (``_input``),
+    so a strided or fp16 input gives, bit for bit, the forward of its
+    contiguous fp32 copy.
+
     ``input_layout="hwcb"``: the JAX package's serving contract
-    (``hvi_cidnet_tpu/models/cidnet.py:cidnet_forward``): ``x`` is a
-    contiguous (H, W, 3, B) tensor and the RGB and the noise map come back
+    (``hvi_cidnet_tpu/models/cidnet.py:cidnet_forward``): ``x`` is an
+    (H, W, 3, B) tensor and the RGB and the noise map come back
     as (H, W, 3, B). The forward between is the NHWC one, so its output is
     the NHWC output permuted, bit for bit."""
     if input_layout not in LAYOUTS:
@@ -325,8 +341,7 @@ def cidnet_forward(
     hwcb = input_layout == "hwcb"
     if hwcb:
         _check_x8(x, input_layout)
-        if not x.is_contiguous():
-            raise ValueError("input_layout='hwcb': x must be a contiguous (H, W, 3, B) tensor")
+        x = _input(x)
         h, w, _, b = x.shape
         x = pack_blocked(x.view(h * w, 3, b), h * w).view(b, h, w, 3)  # P14
     out_hvi, noise_maps = _hvi_and_noise(model, x, compute_dtype, training=training,

@@ -28,6 +28,7 @@ from hvi_cidnet_torch.utils.hf_config import config_from_hf_json
 
 
 def _bucket(h: int, w: int, factor: int = 8):
+    """(H, W) rounded up to multiples of ``factor`` (>= 8 for the UNet)."""
     return (h + factor - 1) // factor * factor, (w + factor - 1) // factor * factor
 
 
@@ -54,7 +55,8 @@ class Enhancer:
     (cli/eval_tnsm.py), where every tensor the file lacks keeps its seeded
     init. ``routes``: the fused block route of every forward
     (``ops/routes.py``); None takes the defaults with the environment's
-    overrides.
+    overrides. ``bucket_factor``: ``enhance`` pads H and W to its multiples
+    (8 or a multiple of 8, as the JAX ``Evaluator``'s).
     """
 
     def __init__(
@@ -68,6 +70,7 @@ class Enhancer:
         compute_dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device] = "cuda",
         routes: Optional[Routes] = None,
+        bucket_factor: int = 8,
     ):
         if isinstance(weights, CIDNet):
             if config is not None and config != weights.config:
@@ -87,6 +90,7 @@ class Enhancer:
         self.gamma = gamma
         self.compute_dtype = compute_dtype
         self.routes = routes
+        self.bucket_factor = bucket_factor
 
     @torch.no_grad()
     def _forward(self, x: np.ndarray) -> torch.Tensor:
@@ -102,7 +106,7 @@ class Enhancer:
     def enhance(self, img: np.ndarray) -> np.ndarray:
         """Enhance one HWC [0, 1] RGB image of any size."""
         h, w = img.shape[:2]
-        x = _pad_to(img, *_bucket(h, w))
+        x = _pad_to(img, *_bucket(h, w, self.bucket_factor))
         return self._forward(x[None])[0, :h, :w].cpu().numpy()
 
     def enhance_batch(self, imgs: np.ndarray) -> np.ndarray:

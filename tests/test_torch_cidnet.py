@@ -30,6 +30,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cast_conv_weights,
     cidnet_forward,
 )
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

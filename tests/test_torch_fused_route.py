@@ -49,6 +49,7 @@ from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cast_conv_weigh
 from hvi_cidnet_torch.ops import conv3x3_cuda, ln_iel_cuda, routes
 from hvi_cidnet_torch.ops.routes import FUSED, UNFUSED, Routes
 from hvi_cidnet_torch.serve import Enhancer
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))

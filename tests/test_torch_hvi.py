@@ -23,6 +23,7 @@ from hvi_cidnet_tpu.ops.hvi import rgb_to_hvi as jax_rgb_to_hvi
 from hvi_cidnet_tpu.ops.hvi_pallas import hvi_to_rgb_pallas_hwcb, rgb_to_hvi_pallas_hwcb
 from hvi_cidnet_torch.ops import hvi as port
 from hvi_cidnet_torch.ops import hvi_cuda
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 K = np.array([0.2], np.float32)
 GATES = [

@@ -22,6 +22,7 @@ from hvi_cidnet_tpu.models.cidnet import CIDNetConfig as JaxConfig
 from hvi_cidnet_tpu.models.cidnet import cidnet_forward as jax_forward
 from hvi_cidnet_torch.compat.jax_params import jax_params_to_torch, load_weights
 from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cidnet_forward
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))
 ATOL = 2e-5
@@ -126,6 +127,45 @@ def test_errors_match_jax(run, layout, shape):
 
 
 def test_hwcb_takes_only_a_contiguous_input(run):
+    """The forward makes its input contiguous once at the entry (before P14),
+    so a strided HWCB input gives, bit for bit, what its ``.contiguous()``
+    copy gives. (The name is older than this contract: the forward used to
+    raise on a strided HWCB input.)"""
     x, out = run
-    with pytest.raises(ValueError, match="contiguous"):
-        _port(out["base"][0], x.transpose(0, 1))
+    model = out["base"][0]
+    strided = x.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous() and torch.equal(strided, x)
+    assert torch.equal(_port(model, strided), _port(model, strided.contiguous()))
+
+
+def _strided(x: torch.Tensor, case: str) -> torch.Tensor:
+    """NHWC ``x`` as a view with other strides: the permute of an NCHW
+    copy, or a crop of a larger tensor."""
+    if case == "permuted":
+        return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    big = torch.rand(x.shape[0], x.shape[1] + 8, x.shape[2] + 16, 3,
+                     generator=torch.Generator().manual_seed(5))
+    big[:, : x.shape[1], : x.shape[2]] = x
+    return big[:, : x.shape[1], : x.shape[2]]
+
+
+@pytest.mark.parametrize("case", ["permuted", "cropped", "fp16"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_strided_and_fp16_nhwc_inputs_give_the_contiguous_fp32_forward(run, variant, case):
+    """A strided NHWC input gives, bit for bit, the forward of its contiguous
+    copy; an fp16 input the forward of its fp32 cast (the JAX ``rgb_to_hvi``
+    casts any dtype to fp32, ``hvi_cidnet_tpu/ops/hvi.py:57``)."""
+    x, out = run
+    model = out[variant][0]
+    nhwc = x.permute(3, 0, 1, 2).contiguous()
+    if case == "fp16":
+        x_in, x_ref = nhwc.half(), nhwc.half().float()
+    else:
+        x_in = _strided(nhwc, case)
+        assert not x_in.is_contiguous() and torch.equal(x_in, nhwc)
+        x_ref = x_in.contiguous()
+    with torch.no_grad():
+        got, ref = cidnet_forward(model, x_in), cidnet_forward(model, x_ref)
+    if variant == "tnsm":
+        (got, _), (ref, _) = got, ref
+    assert got.dtype == torch.float32 and torch.equal(got, ref)

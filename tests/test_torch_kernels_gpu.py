@@ -1011,3 +1011,75 @@ def test_hwcb_forward_is_the_nhwc_forward_permuted(cuda, variant):
     got, ref = (got, ref) if training else ((got,), (ref,))
     for a, b in zip(got, ref):
         assert torch.equal(a, b.permute(1, 2, 3, 0))
+
+
+@pytest.mark.parametrize("case", ["permuted", "cropped", "hwcb", "fp16"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("variant", ["base", "tnsm"])
+def test_strided_and_fp16_inputs_give_the_contiguous_fp32_forward(cuda, variant, dt, case):
+    """The full-width forward at 24 x 40, batch 2, on a strided input (an
+    NCHW tensor's permute, a crop of a larger tensor, a transposed HWCB
+    view): bitwise its contiguous copy's forward; on an fp16 input: bitwise
+    its fp32 cast's. Contiguous inputs launch K1 as before, once."""
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, cast_conv_weights
+    from hvi_cidnet_torch.models.cidnet import cidnet_forward
+
+    model = CIDNet(CIDNetConfig(variant=variant), generator=torch.Generator().manual_seed(0))
+    model = cast_conv_weights(model.to(cuda), dt).eval()
+    x = _rand((2, 24, 40, 3), cuda, torch.float16 if case == "fp16" else dt, seed=3)
+    layout = "hwcb" if case == "hwcb" else "nhwc"
+    if case == "permuted":
+        x_in = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    elif case == "cropped":
+        big = _rand((2, 40, 56, 3), cuda, dt, seed=4)
+        big[:, :24, :40] = x
+        x_in = big[:, :24, :40]
+    elif case == "hwcb":
+        x_in = x.permute(2, 1, 3, 0).contiguous().permute(1, 0, 2, 3)
+    else:
+        x_in = x
+    x_ref = x_in.float().contiguous() if case == "fp16" else x_in.contiguous()
+    assert torch.equal(x_in.to(x_ref.dtype), x_ref) and (case == "fp16") == x_in.is_contiguous()
+    run = lambda t: cidnet_forward(model, t, compute_dtype=dt, input_layout=layout)
+    with torch.no_grad():
+        ref = run(x_ref)
+        n = hc.RGB_TO_HVI.launches
+        got = run(x_in)
+        assert hc.RGB_TO_HVI.launches == n + 1
+    if variant == "tnsm":
+        (got, _), (ref, _) = got, ref
+    assert torch.equal(got, ref)
+
+
+def test_run_dataset_on_the_card_matches_enhance(cuda, tmp_path):
+    """``Evaluator.run_dataset`` at full width, fp32, on PNGs of four padded
+    shapes (a partial chunk at batch 4): each written PNG within one uint8
+    level of ``enhance`` of the same image, 99.9% of pixels equal."""
+    import numpy as np
+
+    from hvi_cidnet_torch.data import png
+    from hvi_cidnet_torch.data.datasets import EvalDataset
+    from hvi_cidnet_torch.eval.evaluator import Evaluator
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates
+
+    rng = np.random.default_rng(0)
+    src = tmp_path / "in"
+    src.mkdir()
+    sizes = [(40, 64)] * 5 + [(37, 61), (64, 30), (72, 128)]
+    imgs = {}
+    for i, (h, w) in enumerate(sizes):
+        imgs[f"{i}.png"] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        png.write(str(src / f"{i}.png"), imgs[f"{i}.png"])
+    model = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+    ev = Evaluator(model, None, HVIGates(gated2=True, alpha=0.9), device=cuda)
+    assert ev.run_dataset(EvalDataset(str(src), pad=True), str(tmp_path / "out"),
+                          batch_size=4) == len(sizes)
+    equal = total = 0
+    for name, img in imgs.items():
+        got = png.read(str(tmp_path / "out" / name)).astype(np.int16)
+        ref = (ev.enhance(img.astype(np.float32) / 255.0) * 255.0).astype(np.uint8)
+        assert got.shape == img.shape
+        assert np.abs(got - ref).max() <= 1
+        equal += int((got == ref).sum())
+        total += got.size
+    assert equal >= 0.999 * total

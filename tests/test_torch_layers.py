@@ -22,6 +22,7 @@ from hvi_cidnet_torch.compat.jax_params import jax_params_to_torch
 from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
 from hvi_cidnet_torch.ops.attention import channel_attention
 from hvi_cidnet_torch.ops.conv import layer_norm_channels
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))
 ATOL = 1e-5

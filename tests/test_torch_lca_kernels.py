@@ -37,6 +37,7 @@ from hvi_cidnet_torch.compat.jax_params import load_weights
 from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates, cidnet_forward
 from hvi_cidnet_torch.ops import attention_cuda, iel_cuda, norm_cuda
 from hvi_cidnet_torch.serve import Enhancer
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))
 MSSA = dict(TINY, variant="mssa")

@@ -53,6 +53,7 @@ from hvi_cidnet_torch.ops import batched_qk_cuda, head_attention_cuda, im2col_cu
 from hvi_cidnet_torch.ops.conv import conv3x3_replpad, conv3x3_same
 from hvi_cidnet_torch.ops.routes import FUSED, PROBE, UNFUSED, Routes
 from hvi_cidnet_torch.serve import Enhancer
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))

@@ -29,6 +29,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from hvi_cidnet_torch.ops import relayout_cuda as rc
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}

@@ -25,6 +25,7 @@ from hvi_cidnet_tpu.ops.resize import scale_double_hwcb, scale_half_hwcb
 from hvi_cidnet_tpu.ops.resize_pallas import scale_double_pallas, scale_half_pallas
 from hvi_cidnet_torch.ops import resize as port_resize
 from hvi_cidnet_torch.ops import resize_cuda
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 # extents the 600 x 400 forward reaches (and small, odd and tiny ones)
 SIZES = [2, 3, 4, 7, 16, 25, 50, 75, 100, 150, 200, 300, 400, 600]

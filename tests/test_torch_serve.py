@@ -23,6 +23,7 @@ from hvi_cidnet_torch.cli import demo, net_test
 from hvi_cidnet_torch.compat.jax_params import load_state_dict_file
 from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates
 from hvi_cidnet_torch.serve import Enhancer
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))
 GATES = dict(gated=True, gated2=True, alpha=0.9, alpha_s=1.2)

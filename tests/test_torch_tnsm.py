@@ -28,6 +28,7 @@ from hvi_cidnet_tpu.ops.resize import resize_bilinear_hwcb
 from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates, cidnet_forward
 from hvi_cidnet_torch.ops.resize import _interp_matrix as port_interp_matrix
 from hvi_cidnet_torch.ops.resize import resize_bilinear
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))
 GATED = dict(gated=True, alpha_s=1.3)

@@ -38,6 +38,7 @@ from hvi_cidnet_torch.compat.jax_params import filtered_keys, load_state_dict_fi
 from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates
 from hvi_cidnet_torch.serve import Enhancer
 from hvi_cidnet_torch.utils.hf_config import config_from_hf_json
+from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(channels=(8, 8, 16, 32), heads=(1, 2, 4, 8))
 TNSM = dict(variant="tnsm", **TINY)
