@@ -88,7 +88,7 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
 8. prints each variant's images per second at 600 x 400 bf16, batch 1, 8
    and 32, on the default, the fused and the probe route, and HWCB against
    NHWC on the default route in turns (information);
-9. evaluates a dataset folder end to end (this slice's path), with PIL
+9. evaluates a dataset folder end to end (the eval path), with PIL
    and cv2 made unimportable: writes synthetic PNGs (``data/png.py``: six 600 x 400, two
    601 x 397, one 1280 x 720, one 30 x 64 sliver; four padded shapes, a
    partial chunk at batch 8) and base's seeded weights as the JAX trainer's
@@ -106,7 +106,26 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    image; prints ``run_dataset``'s images per second on 48 PNGs at 600 x 400
    (bf16, batch 8) beside the forward's alone at the same batch
    (information);
-10. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+10. scores on the card (this slice's path), with PIL, cv2 and jax made
+   unimportable: LPIPS with seeded AlexNet + lin weights written as a
+   combined state dict and read back, card against CPU within 1e-5
+   relative on one 600 x 400 pair and a batch of 8, also with TF32 allowed
+   globally (``lpips_distance`` turns it off and restores the flags);
+   ``cli/parity.py``'s ``main()`` for "LOLv1 wo_perc" on a synthetic LOLv1
+   layout (15 PNG pairs at 600 x 400, base random weights as a ``.pth``),
+   LPIPS on the card: the report written, both GT-mean rows equal to PSNR,
+   SSIM and LPIPS averaged over the written PNGs by hand (1e-9), the eval's
+   launches two chunks of one base forward, the gate passing on the rows
+   adopted and failing at +1 dB, then ``--dry_run``; ``cli/measure.py`` on
+   the same folders (the rows' numbers); ``cli/measure_SID_blur.py`` on two
+   scenes, one output a pixel narrower than its GT (resized); and
+   ``cli/measure_niqe_bris.py`` on four 600 x 400 PNGs (NIQE as by hand;
+   BRISQUE native, or n/a with the reason printed); prints the host ms a
+   pair of PSNR, SSIM, NIQE and the BRISQUE features, LPIPS's card ms a
+   pair and the parity case's seconds (information);
+11. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
+   parity eval, ``launches_eval`` from step 9's) and, last,
+   ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -1430,14 +1449,20 @@ def without_modules(*names: str):
         sys.modules.update(saved)
 
 
-def run_cli(main, argv: list) -> str:
-    """Run a CLI's ``main(argv)`` in this process; log and return its stdout."""
+def call_cli(main, argv: list):
+    """Run a CLI's ``main(argv)`` in this process; log its stdout and return
+    (what ``main`` returned, its stdout)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        main(argv)
+        result = main(argv)
     for line in buf.getvalue().splitlines():
         log(f"    | {line}")
-    return buf.getvalue()
+    return result, buf.getvalue()
+
+
+def run_cli(main, argv: list) -> str:
+    """Run a CLI's ``main(argv)`` in this process; log and return its stdout."""
+    return call_cli(main, argv)[1]
 
 
 def synthetic_png(rng, h: int, w: int) -> np.ndarray:
@@ -1646,6 +1671,236 @@ def _eval_path(dev, kernels) -> dict:
             f"(copies in and out included), one PNG encoded {host['encode']:.2f} ms (2 writer "
             f"threads); card {nvidia_smi()}")
     return served
+
+
+# step 10: the parity loop's LOLv1 layout (the size of eval15), the unpaired
+# folder of measure_niqe_bris, LPIPS on the card against the CPU (fp32, TF32
+# off inside lpips_distance) and the batch of its timing
+SCORE_IMAGES = 15
+SCORE_UNPAIRED = 4
+SCORE_LPIPS_BATCH = 8
+TOL_LPIPS_REL = 1e-5
+TOL_SCORE = 1e-9        # a harness's averages against the same metrics by hand
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean wall time of ``fn`` on the host, after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1000
+
+
+def check_close(name: str, got: tuple, want: tuple, tol: float = TOL_SCORE) -> None:
+    err = max(abs(g - w) for g, w in zip(got, want))
+    if not err <= tol:
+        raise AssertionError(f"{name}: {got} against {want} by hand, max abs err {err:.3e}")
+
+
+def scoring_path(dev, kernels) -> dict:
+    """Step 10: the scoring path on the card, with PIL, cv2 and jax made
+    unimportable. Returns the launches of the parity loop's eval, counted
+    from 0 around ``cli/parity.py``'s ``main()``."""
+    with without_modules("PIL", "cv2", "jax"):
+        return _scoring_path(dev, kernels)
+
+
+def _scoring_path(dev, kernels) -> dict:
+    from hvi_cidnet_torch.cli import measure as measure_cli
+    from hvi_cidnet_torch.cli import measure_niqe_bris, measure_SID_blur, parity
+    from hvi_cidnet_torch.compat.checkpoint import export_pth
+    from hvi_cidnet_torch.data import png
+    from hvi_cidnet_torch.metrics import brisque, brisque_cv, lpips, niqe, pil_resize
+    from hvi_cidnet_torch.metrics.psnr_ssim import gt_mean_rectify, psnr, ssim_matlab
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
+
+    rng = np.random.default_rng(10)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. LPIPS on the card: seeded AlexNet + lin weights written as the
+        # lpips package's combined state dict and read back
+        seeded = lpips.init_lpips(torch.Generator().manual_seed(5)).state_dict()
+        lp_path = os.path.join(tmp, "alex_lpips.pth")
+        torch.save({(f"{k[:4]}.model.1.weight" if k.startswith("lin") else k): v
+                    for k, v in seeded.items()}, lp_path)
+        lp_cpu = lpips.load_lpips_torch(lp_path)
+        lp_card = lpips.load_lpips_torch(lp_path).to(dev)
+        g = torch.Generator().manual_seed(6)
+        a8 = torch.rand((SCORE_LPIPS_BATCH, 3, H, W), generator=g) * 2 - 1
+        b8 = (a8 + 0.25 * torch.randn(a8.shape, generator=g)).clamp(-1, 1)
+        for n in (1, SCORE_LPIPS_BATCH):
+            want = lpips.lpips_distance(lp_cpu, a8[:n], b8[:n])
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = tf32
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                got = lpips.lpips_distance(lp_card, a8[:n].to(dev), b8[:n].to(dev)).cpu()
+                flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+                if flags != (tf32, tf32):
+                    raise AssertionError(f"lpips_distance left the TF32 flags at {flags}, "
+                                         f"not {(tf32, tf32)}")
+                err = float(((got - want).abs() / want.abs()).max())
+                log(f"LPIPS card vs CPU, {n} x 3 x {H} x {W}, TF32 allowed globally: {tf32}: "
+                    f"max rel err {err:.3e} (values {float(want.min()):.6f}.."
+                    f"{float(want.max()):.6f}); global flags restored")
+                check(f"LPIPS card vs CPU (relative), batch {n}, TF32 {tf32}", err,
+                      TOL_LPIPS_REL)
+        a1, b1, a8, b8 = a8[:1].to(dev), b8[:1].to(dev), a8.to(dev), b8.to(dev)
+        lp_ms = time_ms(lambda: lpips.lpips_distance(lp_card, a1, b1), iters=10)
+        lp8_ms = time_ms(lambda: lpips.lpips_distance(lp_card, a8, b8), iters=5)
+
+        # 2. the parity loop at LOLv1's shape: 15 pairs at 600 x 400 and base
+        # random weights as a .pth, through cli/parity.py's main()
+        case = next(c for c in parity.CASES if c.name == "LOLv1 wo_perc")
+        wroot, droot = os.path.join(tmp, "weights"), os.path.join(tmp, "datasets")
+        wpath = os.path.join(wroot, case.weights_rel)
+        export_pth(wpath, CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+                   .state_dict())
+        low, high = os.path.join(droot, case.eval_dir_rel), os.path.join(droot, case.label_dir_rel)
+        os.makedirs(low)
+        os.makedirs(high)
+        for i in range(SCORE_IMAGES):
+            lo = synthetic_png(rng, H, W)
+            png.write(os.path.join(low, f"{i + 1}.png"), lo)
+            png.write(os.path.join(high, f"{i + 1}.png"),
+                      np.clip(lo.astype(np.int32) * 3 + 10, 0, 255).astype(np.uint8))
+        out_root, report = os.path.join(tmp, "output"), os.path.join(tmp, "parity_report.md")
+        rows, run_case = [], parity.run_case
+
+        def recording_run_case(*args, **kw):
+            got = run_case(*args, **kw)
+            rows.extend(got)
+            return got
+
+        parity.run_case = recording_run_case
+        try:
+            torch.cuda.synchronize()
+            reset(kernels)
+            t0 = time.perf_counter()
+            code, _ = call_cli(parity.main, [
+                "--weights_root", wroot, "--datasets_root", droot, "--out_root", out_root,
+                "--report", report, "--cases", case.name, "--lpips_weights", lp_path,
+                "--eval_batch", str(EVAL_BATCH)])
+            torch.cuda.synchronize()
+            parity_s = time.perf_counter() - t0
+            launched = counts(kernels)
+        finally:
+            parity.run_case = run_case
+        n_chunks = -(-SCORE_IMAGES // EVAL_BATCH)
+        want = {k: n_chunks * v for k, v in PER_FORWARD["base"].items()}
+        log(f"parity {case.name}: {SCORE_IMAGES} images at {W} x {H}, {n_chunks} chunks in "
+            f"{parity_s:.2f} s (eval, both GT-mean rows, LPIPS on the card; weights load and "
+            f"first use included); exit code {code}; launches {launched}")
+        if launched != want:
+            raise AssertionError(f"parity eval launches {launched} != {n_chunks} chunks x one "
+                                 f"base forward {want}")
+        if [r["gt_mean"] for r in rows] != [False, True] or any(
+                r["images"] != SCORE_IMAGES for r in rows):
+            raise AssertionError(f"parity rows {rows}")
+        if code != (0 if all(r["pass"] for r in rows) else 1):
+            raise AssertionError(f"parity exit code {code} for rows {rows}")
+        with open(report) as f:
+            text = f.read()
+        if "2 row(s) measured" not in text or case.name not in text:
+            raise AssertionError(f"parity report:\n{text}")
+        # every row against the metrics averaged over the written PNGs by hand
+        out_dir = os.path.join(out_root, case.name.replace(" ", "_"))
+        names = sorted(os.listdir(out_dir))
+        if names != sorted(os.listdir(high)):
+            raise AssertionError(f"parity wrote {names}")
+        for r in rows:
+            tot = np.zeros(3)
+            for name in names:
+                a, b = png.read(os.path.join(out_dir, name)), png.read(os.path.join(high, name))
+                if r["gt_mean"]:
+                    a = gt_mean_rectify(a.astype(np.float64), b)
+                lp = lpips.lpips_distance(lp_card, lpips.im2tensor_range(
+                    np.asarray(a, np.float64).clip(0, 255).astype(np.uint8)),
+                    lpips.im2tensor_range(b))
+                tot += [psnr(a, b), ssim_matlab(a, b), float(lp[0])]
+            check_close(f"parity row gt_mean={r['gt_mean']}", (r["psnr"], r["ssim"], r["lpips"]),
+                        tuple(tot / len(names)))
+            log(f"parity row gt_mean={r['gt_mean']}: PSNR {r['psnr']:.4f} dB, SSIM "
+                f"{r['ssim']:.4f}, LPIPS {r['lpips']:.4f} (pass against the README: {r['pass']}),"
+                f" equal to the metrics by hand within {TOL_SCORE:.0e}")
+        # the gate is live: the measured rows adopted pass, +1 dB fails
+        adopted = parity.gate_check(case, wpath, low, high, os.path.join(tmp, "gate"),
+                                    lpips=lp_card, device=dev)
+        for r, a in zip(rows, adopted):
+            check_close("parity adopted row", (a["psnr"], a["ssim"], a["lpips"]),
+                        (r["psnr"], r["ssim"], r["lpips"]))
+        log("parity gate: the measured rows adopted as expectations pass, at +1 dB every row "
+            "fails")
+        code, _ = call_cli(parity.main, ["--dry_run"])
+        if code != 0:
+            raise AssertionError(f"parity --dry_run exit code {code}")
+
+        # 3. cli/measure.py on the same folders: the rows' numbers
+        for r in rows:
+            got, _ = call_cli(measure_cli.main, [
+                "--im_dir", os.path.join(out_dir, "*.png"), "--label_dir", high,
+                "--lpips_weights", lp_path] + ["--use_GT_mean"] * r["gt_mean"])
+            check_close(f"measure --use_GT_mean={r['gt_mean']}", got,
+                        (r["psnr"], r["ssim"], r["lpips"]))
+        # measure_SID_blur on two scenes; one output a pixel narrower than
+        # its GT, so pil_resize runs
+        sid_out, sid_gt = os.path.join(tmp, "sid_out"), os.path.join(tmp, "sid_gt")
+        tot, n = np.zeros(3), 0
+        for scene in ("10001", "10002"):
+            os.makedirs(os.path.join(sid_out, scene))
+            os.makedirs(os.path.join(sid_gt, scene))
+            for i, w in enumerate((W, W - 1)):
+                b = png.read(os.path.join(high, names[2 * int(scene[-1]) + i]))
+                a = png.read(os.path.join(out_dir, names[2 * int(scene[-1]) + i]))[:, :w]
+                png.write(os.path.join(sid_out, scene, f"{i}.png"), a)
+                png.write(os.path.join(sid_gt, scene, f"{i}.png"), b)
+                a = pil_resize.resize(a, (W, H)) if a.shape != b.shape else a
+                lp = lpips.lpips_distance(lp_card, lpips.im2tensor_range(a),
+                                          lpips.im2tensor_range(b))
+                tot += [psnr(a, b, eps_guard=False), ssim_matlab(a, b), float(lp[0])]
+                n += 1
+        got, _ = call_cli(measure_SID_blur.main, ["--SID", "--out_root", sid_out, "--gt_root",
+                                                  sid_gt, "--lpips_weights", lp_path])
+        check_close("measure_SID_blur", got, tuple(tot / n))
+
+        # 4. measure_niqe_bris on four 600 x 400 PNGs: NIQE as by hand;
+        # BRISQUE the native score, or n/a with the reason
+        un = os.path.join(tmp, "unpaired")
+        os.makedirs(un)
+        imgs = [png.read(os.path.join(out_dir, name)) for name in names[:SCORE_UNPAIRED]]
+        for i, img in enumerate(imgs):
+            png.write(os.path.join(un, f"{i}.png"), img)
+        (niqe_avg, bris_avg), _ = call_cli(measure_niqe_bris.main,
+                                           ["--im_dir", os.path.join(un, "*.png")])
+        by_hand = sum(niqe.calculate_niqe(img) for img in imgs) / len(imgs)
+        if not np.isfinite(niqe_avg):
+            raise AssertionError(f"NIQE {niqe_avg}")
+        check_close("measure_niqe_bris NIQE", (niqe_avg,), (by_hand,))
+        why = brisque_cv.reason()
+        if why is None:
+            if not np.isfinite(bris_avg):
+                raise AssertionError(f"native BRISQUE available but scored {bris_avg}")
+            log(f"BRISQUE: the native OpenCV backend, average {bris_avg:.4f}")
+        else:
+            if bris_avg == bris_avg:
+                raise AssertionError(f"BRISQUE scored {bris_avg} with no trained model")
+            log(f"BRISQUE: n/a here ({why})")
+        log(f"NIQE average {niqe_avg:.6f} over {len(imgs)} images, equal to calculate_niqe by "
+            "hand")
+
+        # 5. information: host ms a 600 x 400 pair, card ms an LPIPS pair
+        a, b = imgs[0], png.read(os.path.join(high, names[0]))
+        t = {"PSNR": host_ms(lambda: psnr(a, b)), "SSIM": host_ms(lambda: ssim_matlab(a, b)),
+             "NIQE": host_ms(lambda: niqe.calculate_niqe(a)),
+             "BRISQUE features": host_ms(lambda: brisque.brisque_features(a))}
+        log(f"scoring at {W} x {H}: host ms a pair (an image for NIQE and BRISQUE) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in t.items())
+            + f"; LPIPS on the card {lp_ms:.3f} ms a pair at batch 1, "
+            f"{lp8_ms / SCORE_LPIPS_BATCH:.3f} ms a pair at batch {SCORE_LPIPS_BATCH}; the parity "
+            f"case (eval of {SCORE_IMAGES} images and both rows scored) {parity_s:.2f} s; card "
+            f"{nvidia_smi()}")
+    return launched
 
 
 def counts(kernels) -> dict:
@@ -1926,15 +2181,24 @@ def main() -> int:
                 f"img/s), ratio {t_h / t_n:.4f}; in turns {ms['nhwc'][0]:.2f} / {ms['hwcb'][0]:.2f}"
                 f" / {ms['hwcb'][1]:.2f} / {ms['nhwc'][1]:.2f} ms")
 
-    # this slice's path: a dataset folder through the eval CLIs (K1-K7's
-    # launches in the kernels line are its bf16 runs', base, MSSA and TNSM)
+    # the eval path: a dataset folder through the eval CLIs (K1-K7's
+    # launches_eval in the kernels line are its bf16 runs', base, MSSA and TNSM)
     torch.cuda.empty_cache()
     served["eval"] = eval_path(dev, kernels)
+
+    # this slice's path: scoring, the parity loop's eval on the default route
+    # (K1-K7's launches in the kernels line are its; the eval path's beside them)
+    torch.cuda.empty_cache()
+    scoring = scoring_path(dev, kernels)
 
     path_of = lambda key: ("fused" if key in FUSED else "probe" if key in PROBE else
                            "hwcb" if key in RELAYOUTS else "eval")
     summary = [(summarise_relayout if key in RELAYOUTS else summarise)(
         key, results[key], served[path_of(key)]) for key in kernels]
+    for key, line in zip(kernels, summary):
+        if path_of(key) == "eval":
+            line["launches_eval"] = line["launches"]
+            line["launches"] = scoring[key]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 This package's own copy of ``is_image_file``, ``load_image``,
 ``list_images``, ``image_size`` and ``EvalDataset``
 (``hvi_cidnet_tpu/data/datasets.py:34-85,181-215``; that package is not
-importable without jax). The one change is the decoder: a PNG is read by
-``data/png.py`` (zlib and numpy; the machine with the card has neither PIL
-nor cv2), bit for bit what the JAX package's ``cv2.imread(...,
-IMREAD_COLOR)`` returns, and its size comes from its ``IHDR`` chunk. Every
+importable without jax), and ``read_rgb``, the measure harness's reader.
+The one change is the decoder: a PNG is read by ``data/png.py`` (zlib and
+numpy; the port's paths must run where neither PIL nor cv2 is installed),
+bit for bit what the JAX package's ``cv2.imread(..., IMREAD_COLOR)``
+returns, and its size comes from its ``IHDR`` chunk. Every
 other extension goes through PIL, imported inside the call, with its EXIF
 orientation applied as cv2 applies it. ``save_image`` writes a PNG the
 same way. The training datasets come with the training data pipeline.
@@ -56,6 +57,16 @@ def load_image(path: str) -> np.ndarray:
 
     with Image.open(path) as im:
         return np.asarray(ImageOps.exif_transpose(im).convert("RGB"))
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """RGB uint8 HWC as PIL's ``Image.open(path).convert("RGB")``, which
+    the JAX measure harness reads with: as ``load_image``, but a non-PNG
+    keeps its stored orientation (no EXIF transpose)."""
+    if _is_png(path):
+        return png.read(path)
+    with _pil(path).open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def save_image(path: str, img: np.ndarray) -> None:
