@@ -123,9 +123,31 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    BRISQUE native, or n/a with the reason printed); prints the host ms a
    pair of PSNR, SSIM, NIQE and the BRISQUE features, LPIPS's card ms a
    pair and the parity case's seconds (information);
-11. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
-   parity eval, ``launches_eval`` from step 9's) and, last,
-   ``{"ok": true, "device": ...}``.
+11. trains on the card (this slice's path), with PIL, cv2 and jax made
+   unimportable, in a temporary directory: (a) ``composite_loss``'s loss and
+   every parameter's gradient, base (gamma, perceptual) and TNSM at full
+   width, 2 x 256 x 256, fp32 with TF32 off, kernels on the card against
+   their plain versions on the CPU (base 1e-3, TNSM 2e-2 of each tensor's
+   largest |gradient|; no gradient None or zero on one device only); (b)
+   ``cli/train.py``'s ``main()``, base, bf16, crop 256, batch 8, 3 epochs
+   of 6 synthetic steps, random seeded VGG19: finite losses, epoch 3's mean
+   below epoch 1's, ``epoch_{1,2,3}.npz``, PNG canaries, the report, and
+   every step's launches K1 3 (the forward's and the loss's two HVI
+   projections), K2 1, K3 6, K4 6, K5 11, K6 33, K7 22; (c) a checkpoint
+   written and read back bitwise (parameters, Adam moments, steps, lr), one
+   step from each (bitwise under ``torch.use_deterministic_algorithms``,
+   else within lr bars), and ``--start_epoch 2`` through the CLI; (d) a
+   generated LOLv1 layout (16 PNG pairs at 600 x 400, 4 eval pairs), one
+   epoch of the reference's 485 samples (60 steps) with the in-loop eval,
+   the trained parameters still fp32; (e) ``cli/train_tnsm.py`` (K5 24, K6
+   84 a step, the noise terms in the loss); (f) ``remat`` and ``grad_accum
+   2`` against the plain step (fp32, lr bars; peak memory); (g) prints the
+   base step's ms and images/s at batch 8 and 16 with and without the
+   perceptual term, peak memory, the perceptual term with TF32 on and off,
+   and the share of the step in ``twin_backward`` and in each kernel;
+12. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
+   parity eval, ``launches_eval`` from step 9's, ``launches_train`` from
+   step 11b's) and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -133,6 +155,7 @@ Any failure raises, and the script exits nonzero without the last line.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -1903,6 +1926,480 @@ def _scoring_path(dev, kernels) -> dict:
     return launched
 
 
+# step 11: training on the card. Launches per base train step (crop 256, no
+# remat, no accumulation): the forward's K1-K7 and the loss's two K1 (the
+# output's and the ground truth's HVI, fp32); TNSM's training forward runs
+# 12 LCAs and 12 TNSM blocks (K5 24, K6 84)
+TRAIN_STEP = {"base": dict(NONE_FUSED, **NONE_PROBE, **NONE_RELAYOUT, K1=3, K2=1, K3=6, K4=6,
+                           K5=11, K6=33, K7=22),
+              "tnsm": dict(NONE_FUSED, **NONE_PROBE, **NONE_RELAYOUT, K1=3, K2=1, K3=6, K4=6,
+                           K5=24, K6=84, K7=24)}
+TRAIN_CROP = 256
+TRAIN_BATCH = 8
+# 11a, composite_loss's gradients, kernels on the card (fp32, TF32 off)
+# against the plain versions on the CPU, same weights, VGG and batch (2 x
+# 256 x 256): per parameter, the largest difference over that tensor's
+# largest |gradient| on the CPU; the loss relative. Base: the full forward
+# agrees to ~1e-5 of its output (step 5), 100x that. TNSM: scaled from
+# tests/tnsm_sensitivity.py as TOL_TNSM was (its forward moves ~13x base's
+# for a one-ulp change of the input: 1.1e-5 against 8.6e-7), rounded up
+TOL_GRAD = {"base": 1e-3, "tnsm": 2e-2}
+TOL_TRAIN_LOSS = {"base": 1e-5, "tnsm": 1e-4}
+# TNSM's near-one-hot softmax rows make some parameters' gradients (sums
+# that nearly cancel, such as a PReLU slope's) move by more than TOL_GRAD
+# when the input moves by one ulp on the CPU alone. Its bar per tensor is
+# the larger of TOL_GRAD and this factor times that measured sensitivity
+# (the factor TOL_TNSM took over the forward's)
+SENSITIVITY_FACTOR = 10
+# parameters after one step of two runs that should agree (11c when cuDNN's
+# backward is not bitwise, 11f), in units of lr: the mean |diff|, the share
+# of elements past 0.1 lr, the largest (Adam's first update is about
+# lr * sign(g): a near-zero gradient whose sign differs moves 2 lr)
+LR_BARS = {"mean": 1e-3, "share_past_0.1": 1e-2, "max": 2.0}
+# 11f's losses: remat recomputes the same forward; grad_accum 2 averages two
+# half-batch means (fp32, TF32 off)
+TOL_REMAT_LOSS = 1e-6
+TOL_ACCUM_LOSS = 1e-5
+# the kernels' CUDA function names, for the profiler's device times
+KERNEL_NAMES = {"K1": r"\brgb_to_hvi_kernel\b", "K2": r"\bhvi_to_rgb_kernel\b",
+                "K3": r"\bhalf_prelu_kernel\b", "K4": r"\bdouble_kernel\b",
+                "K5": r"\b(scores_mma|apply_mma|scores_f32|apply_f32|rows)_kernel\b",
+                "K6": r"\blayer_norm_kernel\b", "K7": r"\biel_branch_kernel\b"}
+
+
+def training_path(dev, kernels) -> dict:
+    """Step 11: training on the card, with PIL, cv2 and jax made
+    unimportable, in a temporary directory (the train CLI writes
+    ./weights/train and --val_folder). Returns the launches of 11b's
+    ``cli/train.py`` run, per kernel."""
+    with without_modules("PIL", "cv2", "jax"), tempfile.TemporaryDirectory() as tmp, cwd(tmp):
+        return _training_path(dev, kernels)
+
+
+def lr_units(name: str, got: dict, ref: dict, lr: float) -> str:
+    """Check two parameter sets against LR_BARS; returns the figures."""
+    diff = torch.cat([(got[k].float() - ref[k].float()).abs().flatten() for k in ref]).double() / lr
+    mean, share, worst = diff.mean().item(), (diff > 0.1).double().mean().item(), diff.max().item()
+    figures = f"mean {mean:.3e} lr, share past 0.1 lr {share:.3e}, max {worst:.3e} lr"
+    if not (mean <= LR_BARS["mean"] and share <= LR_BARS["share_past_0.1"]
+            and worst <= LR_BARS["max"]):
+        raise AssertionError(f"{name}: {figures} past {LR_BARS}")
+    return figures
+
+
+def _train_batch(seed: int, n: int = TRAIN_BATCH, hw: int = TRAIN_CROP):
+    g = torch.Generator().manual_seed(seed)
+    low = torch.rand((n, hw, hw, 3), generator=g) * 0.3
+    high = (low * 3 + 0.02 * torch.randn(low.shape, generator=g)).clamp(0, 1)
+    return low, high
+
+
+def _param_grads(model, cfg, vgg, low, high) -> tuple:
+    """(loss, {name: gradient on the CPU or None}) of composite_loss."""
+    from hvi_cidnet_torch.train.trainer import composite_loss
+
+    d = next(model.parameters()).device
+    loss, _ = composite_loss(model, low.to(d), high.to(d), 0.8, vgg, cfg)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.item(), {n: None if g is None else g.cpu() for n, g in zip(names, grads)}
+
+
+def _rel_by_tensor(got: dict, ref: dict) -> dict:
+    """Per parameter: max |got - ref| over the tensor's largest |ref|."""
+    return {n: (got[n] - r).abs().max().item() / r.abs().max().item()
+            for n, r in ref.items() if r is not None and r.abs().max().item() > 0}
+
+
+def _grads_card_vs_cpu(dev, variant: str) -> None:
+    """11a: composite_loss's loss and every parameter's gradient, and the
+    CPU's own sensitivity: its gradients with the input moved by one ulp."""
+    from hvi_cidnet_torch.losses.vgg import VGGFeatures
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
+    from hvi_cidnet_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig(model=CIDNetConfig(variant=variant), compute_dtype="float32",
+                      gamma_aug=variant == "base", use_perceptual=True)
+    cpu_model = CIDNet(cfg.model, generator=torch.Generator().manual_seed(21))
+    cpu_vgg = VGGFeatures(generator=torch.Generator().manual_seed(0)).requires_grad_(False)
+    low, high = _train_batch(22, n=2)
+    t0 = time.perf_counter()
+    ref_loss, ref = _param_grads(cpu_model, cfg, cpu_vgg, low, high)
+    cpu_s = time.perf_counter() - t0
+    _, moved = _param_grads(cpu_model, cfg, cpu_vgg, torch.nextafter(low, torch.ones(())), high)
+    t0 = time.perf_counter()
+    got_loss, got = _param_grads(copy.deepcopy(cpu_model).to(dev), cfg,
+                                 copy.deepcopy(cpu_vgg).to(dev), low, high)
+    card_s = time.perf_counter() - t0
+    rel = abs(got_loss - ref_loss) / abs(ref_loss)
+    if not rel <= TOL_TRAIN_LOSS[variant]:
+        raise AssertionError(f"11a {variant}: loss {got_loss} card vs {ref_loss} CPU, rel {rel:.3e}")
+    for name, r in ref.items():
+        g = got[name]
+        if (g is None) != (r is None):
+            raise AssertionError(f"11a {variant}: {name} gradient None on one device only")
+        if r is not None and (r.abs().max().item() == 0) != (g.abs().max().item() == 0):
+            raise AssertionError(f"11a {variant}: {name} all zero on one device only")
+    worst, sens = _rel_by_tensor(got, ref), _rel_by_tensor(moved, ref)
+    bar = {n: max(TOL_GRAD[variant], SENSITIVITY_FACTOR * sens[n] if variant == "tnsm" else 0)
+           for n in worst}
+    past = sorted(((n, worst[n], bar[n]) for n in worst if worst[n] > bar[n]), key=lambda t: -t[1])
+    if past:
+        raise AssertionError(f"11a {variant}: gradients past their bars (name, err, bar): {past[:5]}")
+    top = max(worst, key=worst.get)
+    top_sens = max(sens, key=sens.get)
+    kernel_params = [n for n in worst if n.endswith(("prelu.weight", "temperature", "density_k",
+                                                     "project_out.weight", "norm.weight",
+                                                     "norm.bias", "dwconv1.weight", "dwconv2.weight"))]
+    log(f"11a {variant} composite_loss 2 x {TRAIN_CROP} x {TRAIN_CROP} fp32 (TF32 off), kernels on "
+        f"the card vs plain versions on the CPU ({card_s:.2f} s / {cpu_s:.2f} s): loss "
+        f"{got_loss:.6f} vs {ref_loss:.6f} (rel {rel:.2e}); {len(worst)} nonzero gradients, worst "
+        f"{top} {worst[top]:.2e} of its max (sensitivity there {sens[top]:.2e}); the CPU's own "
+        f"with the input moved one ulp: worst {top_sens} {sens[top_sens]:.2e}, median "
+        f"{float(np.median(list(sens.values()))):.2e} (card's median "
+        f"{float(np.median(list(worst.values()))):.2e}); the kernels' own parameters "
+        f"({len(kernel_params)}: PReLU slopes, temperatures, project_out, LN, IEL dw, density_k) "
+        f"worst {max(worst[n] for n in kernel_params):.2e}; density_k "
+        f"{worst['trans.density_k']:.2e}; no gradient None or zero on one device only")
+
+
+def _state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _opt_state(opt) -> list:
+    return [(p_state.get("step"), p_state.get("exp_avg"), p_state.get("exp_avg_sq"))
+            for p_state in (opt.state[p] for g in opt.param_groups for p in g["params"])]
+
+
+def _train_cli(main, argv, kernels, steps: int, want: dict, name: str):
+    """Run a train CLI's main(argv) with the counts from 0 around it; check
+    every step's launches are ``want``."""
+    reset(kernels)
+    t0 = time.perf_counter()
+    record, _ = call_cli(main, argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts(kernels)
+    n = sum(len(x) for x in record["losses"])
+    if n != steps:
+        raise AssertionError(f"{name}: {n} steps, expected {steps}")
+    expect = {k: steps * v for k, v in want.items()}
+    if launched != expect:
+        raise AssertionError(f"{name}: launches {launched} != {steps} steps x {want}")
+    if not all(np.isfinite(x) for ep in record["losses"] for x in ep):
+        raise AssertionError(f"{name}: a loss is not finite")
+    return record, launched, seconds
+
+
+def _training_path(dev, kernels) -> dict:
+    from hvi_cidnet_torch.cli import train as train_cli
+    from hvi_cidnet_torch.cli import train_tnsm
+    from hvi_cidnet_torch.data import png
+    from hvi_cidnet_torch.losses.vgg import VGGFeatures
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
+    from hvi_cidnet_torch.ops import attention_cuda, hvi_cuda, iel_cuda, norm_cuda, resize_cuda
+    from hvi_cidnet_torch.train import checkpoint as ckpt
+    from hvi_cidnet_torch.train.trainer import (
+        TrainConfig, composite_loss, make_optimizer, train_step,
+    )
+
+    # a. gradients, card against CPU
+    for variant in ("base", "tnsm"):
+        _grads_card_vs_cpu(dev, variant)
+    torch.cuda.empty_cache()
+
+    # b. cli/train.py, base, full width, bf16, crop 256, batch 8
+    steps_b = 6 * 3
+    argv_b = ["--synthetic_steps", "6", "--nEpochs", "3", "--snapshots", "1", "--batchSize",
+              str(TRAIN_BATCH), "--cropSize", str(TRAIN_CROP), "--allow_random_vgg", "true",
+              "--start_warmup", "false", "--seed", "1", "--variant", "base"]
+    record, launched, seconds = _train_cli(train_cli.main, argv_b, kernels, steps_b,
+                                           TRAIN_STEP["base"], "11b")
+    means = [float(np.mean(x)) for x in record["losses"]]
+    if not means[2] < means[0]:
+        raise AssertionError(f"11b: epoch-3 mean loss {means[2]} not below epoch 1's {means[0]}")
+    for e in (1, 2, 3):
+        if not os.path.isfile(f"weights/train/epoch_{e}.npz"):
+            raise AssertionError(f"11b: weights/train/epoch_{e}.npz not written")
+    for name in ("test.png", "gt.png"):
+        if png.read(f"results/training/{name}").shape != (TRAIN_CROP, TRAIN_CROP, 3):
+            raise AssertionError(f"11b: canary {name} is not a {TRAIN_CROP}^2 RGB PNG")
+    if not os.path.isfile(record["report"]):
+        raise AssertionError("11b: no report")
+    log(f"11b cli/train.py base bf16 crop {TRAIN_CROP} batch {TRAIN_BATCH}: {steps_b} steps in "
+        f"{seconds:.2f} s (kernel build done, first step's warm-up included); epoch mean losses "
+        f"{', '.join(f'{m:.4f}' for m in means)}; epoch_1..3.npz, canaries, report written; "
+        f"launches a step {TRAIN_STEP['base']}")
+
+    # c. resume: through the API (save -> load bitwise, one step from each),
+    # then through the CLI (--start_epoch 2 from b's epoch_2.npz)
+    cfg = TrainConfig(model=CIDNetConfig(), use_perceptual=True)
+    vgg = VGGFeatures(generator=torch.Generator().manual_seed(0)).to(dev).requires_grad_(False)
+    model = CIDNet(cfg.model, generator=torch.Generator().manual_seed(31)).to(dev)
+    opt = make_optimizer(model, cfg)
+    for i in range(3):
+        low, high = (t.to(dev) for t in _train_batch(40 + i))
+        train_step(model, opt, low, high, 1.0, vgg, cfg)
+    ckpt.save_checkpoint("resume.npz", model, opt, epoch=3)
+    loaded = CIDNet(cfg.model, generator=torch.Generator().manual_seed(32)).to(dev)
+    lopt = make_optimizer(loaded, cfg)
+    if ckpt.load_checkpoint("resume.npz", loaded, lopt) != 3:
+        raise AssertionError("11c: epoch not restored")
+    same = all(torch.equal(a, b) for a, b in zip(_state(model).values(), _state(loaded).values()))
+    for (s1, m1, v1), (s2, m2, v2) in zip(_opt_state(opt), _opt_state(lopt)):
+        same &= torch.equal(s1.cpu(), s2.cpu()) and torch.equal(m1, m2) and torch.equal(v1, v2)
+    same &= opt.param_groups[0]["lr"] == lopt.param_groups[0]["lr"]
+    if not same:
+        raise AssertionError("11c: parameters, moments, steps or lr not bitwise equal after load")
+    low, high = (t.to(dev) for t in _train_batch(43))
+    det = torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for m, o in ((model, opt), (loaded, lopt)):
+            train_step(m, o, low, high, 1.0, vgg, cfg)
+    finally:
+        torch.use_deterministic_algorithms(det[0])
+        torch.backends.cudnn.deterministic = det[1]
+    a, b = _state(model), _state(loaded)
+    if all(torch.equal(a[k], b[k]) for k in a):
+        held = "bitwise equal (torch.use_deterministic_algorithms + cudnn.deterministic)"
+    else:
+        held = ("not bitwise under torch.use_deterministic_algorithms; within the bar: "
+                + lr_units("11c one step after the round trip", a, b, cfg.lr))
+    log(f"11c save -> load of a base model 3 steps into training: parameters, Adam moments, "
+        f"steps and lr bitwise equal; one more bf16 step from each on one batch: {held}")
+    del model, loaded, opt, lopt
+    record_c, _, _ = _train_cli(train_cli.main, argv_b + ["--nEpochs", "1", "--start_epoch", "2"],
+                                kernels, 6, TRAIN_STEP["base"], "11c CLI resume")
+    with np.load("weights/train/epoch_3.npz") as z:
+        if int(z["opt::6"]) != 18 or int(z["meta::epoch"]) != 3:
+            raise AssertionError(f"11c: resumed epoch_3.npz at Adam count {int(z['opt::6'])}")
+    log(f"11c cli/train.py --start_epoch 2 from 11b's epoch_2.npz: one epoch, losses "
+        f"{', '.join(f'{x:.4f}' for x in record_c['losses'][0])}, epoch_3.npz at Adam count 18")
+    torch.cuda.empty_cache()
+
+    # d. the training data pipeline with in-loop eval: a LOLv1 layout
+    rng = np.random.default_rng(12)
+    for sub, n in (("train/low", 16), ("eval/low", 4)):
+        os.makedirs(f"lol/{sub}")
+        os.makedirs(f"lol/{sub.replace('low', 'high')}")
+        for i in range(n):
+            img = synthetic_png(rng, H, W)
+            png.write(f"lol/{sub}/{i:03d}.png", img)
+            png.write(f"lol/{sub.replace('low', 'high')}/{i:03d}.png",
+                      np.clip(img.astype(np.int32) * 3, 0, 255).astype(np.uint8))
+    argv_d = ["--lol_v1", "true", "--lmot", "false", "--nEpochs", "1", "--snapshots", "1",
+              "--batchSize", str(TRAIN_BATCH), "--cropSize", str(TRAIN_CROP),
+              "--allow_random_vgg", "true", "--seed", "2", "--start_warmup", "false",
+              "--variant", "base", "--data_train_lol_v1", "lol/train", "--data_val_lol_v1",
+              "lol/eval/low", "--data_valgt_lol_v1", "lol/eval/high", "--val_folder", "results_d/"]
+    reset(kernels)
+    t0 = time.perf_counter()
+    record_d, out = call_cli(train_cli.main, argv_d)
+    seconds = time.perf_counter() - t0
+    steps_d = sum(len(x) for x in record_d["losses"])
+    written = sorted(os.listdir("results_d/LOLv1"))
+    if steps_d != 485 // TRAIN_BATCH or len(written) != 4 or "Avg.PSNR" not in out:
+        raise AssertionError(f"11d: {steps_d} steps, {len(written)} eval PNGs")
+    if not all(p.dtype == torch.float32 for p in record_d["model"].parameters()):
+        raise AssertionError("11d: the in-loop eval changed the trained model's dtype")
+    log(f"11d LOLv1 layout (16 pairs at {W} x {H}, PNG), one epoch of the reference's 485 "
+        f"samples: {steps_d} steps at crop {TRAIN_CROP} batch {TRAIN_BATCH} in {seconds:.2f} s "
+        f"(in-loop eval of 4 images and scoring included); PSNR {record_d['psnr'][0]:.4f} dB, "
+        f"SSIM {record_d['ssim'][0]:.4f}; the trained parameters still fp32")
+
+    # e. cli/train_tnsm.py: two epochs of synthetic steps
+    argv_e = ["--synthetic_steps", "3", "--nEpochs", "2", "--snapshots", "2", "--batchSize",
+              str(TRAIN_BATCH), "--cropSize", str(TRAIN_CROP), "--allow_random_vgg", "true",
+              "--start_warmup", "false", "--seed", "3", "--val_folder", "results_e/"]
+    record_e, _, seconds = _train_cli(train_tnsm.main, argv_e, kernels, 6, TRAIN_STEP["tnsm"],
+                                      "11e")
+    tnsm_model = record_e["model"]
+    low, high = (t.to(dev) for t in _train_batch(50, n=2))
+    with torch.no_grad():
+        tcfg = TrainConfig(model=tnsm_model.config, use_perceptual=False)
+        with_noise = composite_loss(tnsm_model, low, high, 1.0, None, tcfg)[0].item()
+        without = composite_loss(tnsm_model, low, high, 1.0, None,
+                                 TrainConfig(model=tnsm_model.config, use_perceptual=False,
+                                             tnsm_weight=0.0))[0].item()
+    if tnsm_model.config.variant != "tnsm" or not with_noise > without:
+        raise AssertionError(f"11e: TNSM loss {with_noise} vs {without} without the noise terms")
+    log(f"11e cli/train_tnsm.py bf16 crop {TRAIN_CROP} batch {TRAIN_BATCH}: 6 steps in "
+        f"{seconds:.2f} s; the noise terms add {with_noise - without:.4f} to the loss "
+        f"({without:.4f} without); launches a step {TRAIN_STEP['tnsm']}")
+    del record_e, tnsm_model
+    torch.cuda.empty_cache()
+
+    # f. remat and grad_accum 2 against the plain step, one step each from
+    # one state on one batch (fp32, TF32 off)
+    cfg_f = TrainConfig(model=CIDNetConfig(), use_perceptual=True, compute_dtype="float32")
+    init = CIDNet(cfg_f.model, generator=torch.Generator().manual_seed(60))
+    low, high = (t.to(dev) for t in _train_batch(61))
+    results = {}
+    for arm, kw in (("plain", {}), ("remat", {"remat": True}), ("grad_accum 2", {"grad_accum": 2})):
+        c = TrainConfig(model=cfg_f.model, use_perceptual=True, compute_dtype="float32", **kw)
+        m = copy.deepcopy(init).to(dev)
+        o = make_optimizer(m, c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = train_step(m, o, low, high, 1.0, vgg, c)
+        torch.cuda.synchronize()
+        results[arm] = (loss.item(), _state(m), torch.cuda.max_memory_allocated() / 2**30)
+        del m, o
+    base_loss, base_state, base_mem = results["plain"]
+    lines = []
+    for arm, tol in (("remat", TOL_REMAT_LOSS), ("grad_accum 2", TOL_ACCUM_LOSS)):
+        loss, state, mem = results[arm]
+        rel = abs(loss - base_loss) / abs(base_loss)
+        if not rel <= tol:
+            raise AssertionError(f"11f {arm}: loss {loss} vs {base_loss}, rel {rel:.2e}")
+        lines.append(f"{arm}: loss rel {rel:.2e}, parameters "
+                     f"{lr_units('11f ' + arm, state, base_state, cfg_f.lr)}, peak {mem:.2f} GiB")
+    log(f"11f base fp32 batch {TRAIN_BATCH} crop {TRAIN_CROP}, one step from one state: plain peak "
+        f"{base_mem:.2f} GiB; " + "; ".join(lines))
+    del results, init
+    torch.cuda.empty_cache()
+
+    # g. information: the base train step's time and where it goes
+    _train_step_info(dev, vgg, [attention_cuda, hvi_cuda, iel_cuda, norm_cuda, resize_cuda])
+    return launched
+
+
+def _twin_key(module: str, plain, inputs) -> str:
+    """Which kernel a ``twin_backward`` call belongs to."""
+    if module == "resize_cuda":
+        return "K3" if plain.__name__ == "half_prelu_plain" else "K4"
+    if module == "hvi_cuda":
+        return "K1" if inputs[0].shape[-1] == 3 else "K2"  # K1 takes NHWC RGB
+    return {"attention_cuda": "K5", "norm_cuda": "K6", "iel_cuda": "K7"}[module]
+
+
+def _profile_step(dev, step, kernel_modules, step_ms: float) -> None:
+    """Where a train step's time goes, as shares of ``step_ms`` (the step
+    without instrumentation): CUDA-event spans around each kernel's
+    ``twin_backward`` (its backward through the plain version's autograd:
+    the stream's time from its first op to its last, device work and any
+    wait for the host's launches) over 3 steps, then the profiler's device
+    time by kernel over 3 more (the profiler slows the host, so the spans
+    are taken without it)."""
+    import re
+
+    n_steps = 3
+    spans = {k: [] for k in KERNEL_NAMES}
+    originals = {m: m.twin_backward for m in kernel_modules}
+
+    def timed(module):
+        original, name = originals[module], module.__name__.rsplit(".", 1)[-1]
+
+        def wrapper(plain, inputs, grad_output, needs_grad):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = original(plain, inputs, grad_output, needs_grad)
+            end.record()
+            spans[_twin_key(name, plain, inputs)].append((start, end))
+            return out
+        return wrapper
+
+    for m in kernel_modules:
+        m.twin_backward = timed(m)
+    try:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        for m in kernel_modules:
+            m.twin_backward = originals[m]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    twin = {k: sum(s.elapsed_time(e) for s, e in v) / n_steps for k, v in spans.items()}
+    by_kernel, busy = {}, 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+        busy += t
+        for key, pattern in KERNEL_NAMES.items():
+            if re.search(pattern, ev.key):
+                by_kernel[key] = by_kernel.get(key, 0.0) + t
+    busy_ms = busy / 1000 / n_steps
+    twin_ms = sum(twin.values())
+    share = lambda ms: f"{ms:.2f} ms ({100 * ms / step_ms:.1f}%)"
+    log(f"11g a base bf16 step at crop {TRAIN_CROP} batch {TRAIN_BATCH} ({step_ms:.2f} ms): "
+        f"device kernels {share(busy_ms)} (profiler, 3 steps; "
+        + ("no device time in the trace" if busy == 0 else "the rest idle")
+        + f"); twin_backward (CUDA-event spans, 3 steps without the profiler) {share(twin_ms)}: "
+        + ", ".join(f"{k} {share(v)}" for k, v in sorted(twin.items(), key=lambda kv: -kv[1]))
+        + "; the forward kernels' device time: "
+        + ", ".join(f"{k} {share(by_kernel.get(k, 0.0) / 1000 / n_steps)}" for k in KERNEL_NAMES))
+    log("11g the profiler's table, the 15 longest by device time over the 3 steps:")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15,
+                                  max_name_column_width=60))
+
+
+def _train_step_info(dev, vgg, kernel_modules) -> None:
+    """11g (information): the base train step's ms and images/s at crop 256,
+    batch 8 and 16, with and without the perceptual term; peak memory; the
+    perceptual term alone with TF32 off and on; where the step's time goes."""
+    from hvi_cidnet_torch.losses.perceptual import perceptual_loss
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
+    from hvi_cidnet_torch.ops.conv import exact_fp32
+    from hvi_cidnet_torch.train.trainer import (
+        PERCEPTUAL_LAYERS, TrainConfig, make_optimizer, train_step,
+    )
+
+    smi = nvidia_smi()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as a user's step runs
+    try:
+        step_ms = {}
+        for batch in (8, 16):
+            for perc in (True, False):
+                cfg = TrainConfig(model=CIDNetConfig(), use_perceptual=perc)
+                model = CIDNet(cfg.model, generator=torch.Generator().manual_seed(70)).to(dev)
+                opt = make_optimizer(model, cfg)
+                low, high = (t.to(dev) for t in _train_batch(71, n=batch))
+                step = lambda: train_step(model, opt, low, high, 1.0, vgg if perc else None, cfg)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                ms = time_ms(step, iters=10, warmup=2)
+                step_ms[batch, perc] = ms
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                log(f"11g base train step bf16 crop {TRAIN_CROP} batch {batch}, perceptual "
+                    f"{'on' if perc else 'off'}: {ms:.2f} ms ({ms / 1000:.4f} s), "
+                    f"{1000 * batch / ms:.1f} images/s, peak {peak:.2f} GiB (first step "
+                    f"{first:.2f} s); card {smi}")
+                if (batch, perc) == (TRAIN_BATCH, True):
+                    _profile_step(dev, step, kernel_modules, ms)
+                del model, opt, step
+        # the perceptual term alone on one space's shapes, forward and
+        # backward, TF32 off (as the step runs it) and on, in turns
+        x = torch.rand((TRAIN_BATCH, 3, TRAIN_CROP, TRAIN_CROP), device=dev, requires_grad=True)
+        gt = torch.rand((TRAIN_BATCH, 3, TRAIN_CROP, TRAIN_CROP), device=dev)
+        perc_ms = {True: [], False: []}
+        for exact in (True, False, False, True):
+            def term(exact=exact):
+                with exact_fp32() if exact else contextlib.nullcontext():
+                    perceptual_loss(vgg, x, gt, PERCEPTUAL_LAYERS, exact=exact)[0].backward()
+            perc_ms[exact].append(time_ms(term, iters=5, warmup=1))
+        off, on = (sum(perc_ms[e]) / 2 for e in (True, False))
+        log(f"11g perceptual term (VGG19 to conv4_4 on {TRAIN_BATCH} x 3 x {TRAIN_CROP} x "
+            f"{TRAIN_CROP} and its detached ground truth, forward + backward; in turns off / on / "
+            f"on / off {', '.join(f'{t:.2f}' for t in (perc_ms[True][0], perc_ms[False][0], perc_ms[False][1], perc_ms[True][1]))} ms): "
+            f"TF32 off {off:.2f} ms, on {on:.2f} ms ({off / on:.2f}x); a step runs it twice (RGB "
+            f"and HVI); step with it minus without at batch 8: "
+            f"{step_ms[TRAIN_BATCH, True] - step_ms[TRAIN_BATCH, False]:.2f} ms; card {smi}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 def counts(kernels) -> dict:
     return {k: v.launches for k, v in kernels.items()}
 
@@ -2186,10 +2683,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     served["eval"] = eval_path(dev, kernels)
 
-    # this slice's path: scoring, the parity loop's eval on the default route
-    # (K1-K7's launches in the kernels line are its; the eval path's beside them)
+    # the scoring path: the parity loop's eval on the default route (K1-K7's
+    # launches in the kernels line are its; the eval path's beside them)
     torch.cuda.empty_cache()
     scoring = scoring_path(dev, kernels)
+
+    # this slice's path: training (K1-K7's launches_train are 11b's)
+    torch.cuda.empty_cache()
+    trained = training_path(dev, kernels)
 
     path_of = lambda key: ("fused" if key in FUSED else "probe" if key in PROBE else
                            "hwcb" if key in RELAYOUTS else "eval")
@@ -2199,6 +2700,7 @@ def main() -> int:
         if path_of(key) == "eval":
             line["launches_eval"] = line["launches"]
             line["launches"] = scoring[key]
+        line["launches_train"] = trained[key]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ reference-layout state dict (OIHW convs, the port's own layout and
 ``load_state_dict_file``'s output) and writes what the JAX writer writes
 from the same parameters, so each package reads the other's files:
 
-* ``save_checkpoint``: ``.npz`` with ``param::<name>`` keys in HWIO and
-  ``meta::epoch`` (the trainer's optimizer state, ``opt::<i>``, comes with
-  the trainer);
+* ``save_checkpoint``: ``.npz`` with ``param::<name>`` keys in HWIO,
+  ``meta::epoch`` and, when given, the optimizer state's leaves as
+  ``opt::<i>`` in the JAX state's flatten order (``train/checkpoint.py``
+  lays them out from a torch optimizer);
 * ``export_pth``: ``torch.save`` of the fp32 state dict;
 * ``save_pretrained``: ``model.safetensors`` (``compat/safetensors_io.py``:
   the machine with the card has no ``safetensors``) beside a
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ from hvi_cidnet_torch.compat import safetensors_io
 from hvi_cidnet_torch.compat.jax_params import _JAX_PARAM, HF_WEIGHTS, torch_to_jax_params
 from hvi_cidnet_torch.models.cidnet import CIDNetConfig
 
+_OPT = "opt::"
 _META = "meta::"
 HF_CONFIG = "config.json"
 
@@ -39,10 +41,13 @@ def _fp32(state: Mapping[str, torch.Tensor]):
             for k, v in state.items()}
 
 
-def save_checkpoint(path: str, state: Mapping[str, torch.Tensor], epoch: int = 0) -> str:
+def save_checkpoint(path: str, state: Mapping[str, torch.Tensor], epoch: int = 0,
+                    opt_leaves: Optional[Sequence[np.ndarray]] = None) -> str:
     """Write the JAX trainer's native ``.npz`` (atomic rename)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {_JAX_PARAM + k: v for k, v in torch_to_jax_params(state).items()}
+    for i, leaf in enumerate(opt_leaves or ()):
+        payload[f"{_OPT}{i}"] = np.asarray(leaf)
     payload[_META + "epoch"] = np.asarray(epoch)
     tmp = path + ".tmp.npz"
     np.savez(tmp, **payload)

@@ -53,13 +53,14 @@ def jax_params_to_torch(np_params: Mapping[str, np.ndarray]) -> Dict[str, torch.
 def torch_to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Reference-layout state dict -> JAX parameter dict (numpy fp32, HWIO
     convs): the exact inverse of ``jax_params_to_torch``, as the JAX
-    ``from_torch_state_dict`` is of its ``to_torch_state_dict``."""
+    ``from_torch_state_dict`` is of its ``to_torch_state_dict``. The arrays
+    are copies: a later in-place update of a parameter does not reach them."""
     out: Dict[str, np.ndarray] = {}
     for name, value in state.items():
         arr = torch.as_tensor(value).detach().to("cpu", torch.float32).numpy()
         if _is_conv_weight(name, arr):
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        out[name] = np.ascontiguousarray(arr)
+        out[name] = np.array(arr, order="C")
     return out
 
 

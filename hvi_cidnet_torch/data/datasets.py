@@ -1,8 +1,10 @@
-"""Eval datasets: image files listed, sized, decoded and written.
+"""Datasets: image files listed, sized, decoded and written; the training
+samplers and the eval folders.
 
 This package's own copy of ``is_image_file``, ``load_image``,
-``list_images``, ``image_size`` and ``EvalDataset``
-(``hvi_cidnet_tpu/data/datasets.py:34-85,181-215``; that package is not
+``list_images``, ``image_size``, the training datasets
+``PairedFolderDataset`` and ``SceneFolderDataset`` and ``EvalDataset``
+(``hvi_cidnet_tpu/data/datasets.py:34-215``; that package is not
 importable without jax), and ``read_rgb``, the measure harness's reader.
 The one change is the decoder: a PNG is read by ``data/png.py`` (zlib and
 numpy; the port's paths must run where neither PIL nor cv2 is installed),
@@ -10,7 +12,8 @@ bit for bit what the JAX package's ``cv2.imread(..., IMREAD_COLOR)``
 returns, and its size comes from its ``IHDR`` chunk. Every
 other extension goes through PIL, imported inside the call, with its EXIF
 orientation applied as cv2 applies it. ``save_image`` writes a PNG the
-same way. The training datasets come with the training data pipeline.
+same way. So the SICE corpus's ``.JPG`` labels need PIL; every PNG corpus
+trains without it.
 """
 
 from __future__ import annotations
@@ -18,12 +21,16 @@ from __future__ import annotations
 import os
 from os import listdir
 from os.path import join
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from hvi_cidnet_torch.data import png
-from hvi_cidnet_torch.data.transforms import pad_to_multiple, to_float01
+from hvi_cidnet_torch.data.transforms import (
+    pad_to_multiple,
+    paired_random_crop_flip,
+    to_float01,
+)
 
 _IMG_EXTS = (".png", ".jpg", ".bmp", ".JPG", ".jpeg")
 # EXIF orientations that transpose the image (90 or 270 degrees)
@@ -103,6 +110,100 @@ def image_size(path: str) -> Tuple[int, int]:
     if orientation in _TRANSPOSING:
         w, h = h, w
     return h, w
+
+
+class PairedFolderDataset:
+    """Aligned low/high folders (LOLv1 low/high, LOLv2 Low/Normal, LMOT).
+
+    Reference classes: LOL*DatasetFromFolder / LMOTDatasetFromFolder
+    (data/LOLdataset.py). The reference hardcodes epoch lengths
+    (485/685/900, passed by ``cli/train.py``); the default is the file
+    count.
+    """
+
+    def __init__(self, low_dir: str, high_dir: str, crop_size: int = 256,
+                 length: Optional[int] = None):
+        self.low_files = sorted(list_images(low_dir))
+        self.high_files = sorted(list_images(high_dir))
+        if not self.low_files:
+            raise FileNotFoundError(f"no images in {low_dir}")
+        self.crop_size = crop_size
+        self._length = length if length is not None else len(self.low_files)
+
+    def __len__(self) -> int:
+        return self._length
+
+    def sample(self, index: int, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+        i = index % len(self.low_files)
+        im1 = load_image(self.low_files[i])
+        im2 = load_image(self.high_files[i])
+        im1, im2 = paired_random_crop_flip(im1, im2, self.crop_size, rng)
+        return to_float01(im1), to_float01(im2)
+
+
+class SceneFolderDataset:
+    """Folder-of-folders stochastic sampler (LOL-Blur / SID / SICE).
+
+    ``kind``:
+      * ``"blur"``: low_blur/NNNN vs high_sharp_scaled/NNNN, frame-aligned
+        pairs, scenes 1..260, virtual len 10200 (SICE_blur_SID.py:13-50);
+      * ``"sid"``: short/NNNNN vs long/NNNNN, GT = first long frame,
+        scenes 1..234, virtual len 2099 (:53-92);
+      * ``"sice"``: <root>/N vs <root>/../label/N.JPG, scenes 1..591,
+        virtual len 4803 (:96-133).
+
+    The index argument is ignored: sampling is purely stochastic, like the
+    reference's ``while True`` + fresh ``random.randint`` loops, bounded at
+    10,000 draws.
+    """
+
+    _SPEC = {
+        "blur": dict(n_scenes=260, length=10200, zfill=4),
+        "sid": dict(n_scenes=234, length=2099, zfill=5),
+        "sice": dict(n_scenes=591, length=4803, zfill=0),
+    }
+
+    def __init__(self, data_dir: str, kind: str, crop_size: int = 256):
+        if kind not in self._SPEC:
+            raise ValueError(f"unknown kind {kind}")
+        self.data_dir = data_dir
+        self.kind = kind
+        self.crop_size = crop_size
+        self.spec = self._SPEC[kind]
+
+    def __len__(self) -> int:
+        return self.spec["length"]
+
+    def _scene_dirs(self, scene: int) -> Tuple[str, str]:
+        z = self.spec["zfill"]
+        name = str(scene + 1).zfill(z) if z else str(scene + 1)
+        if self.kind == "blur":
+            return join(self.data_dir, "low_blur", name), join(self.data_dir, "high_sharp_scaled", name)
+        if self.kind == "sid":
+            return join(self.data_dir, "short", name), join(self.data_dir, "long", name)
+        return join(self.data_dir, name), join(os.path.dirname(self.data_dir), "label", name + ".JPG")
+
+    def sample(self, index: int, rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
+        del index  # stochastic by design (SICE_blur_SID.py:20-34)
+        for _ in range(10_000):
+            scene = int(rng.integers(0, self.spec["n_scenes"]))
+            low_dir, high_ref = self._scene_dirs(scene)
+            if not os.path.isdir(low_dir):
+                continue
+            files = sorted(list_images(low_dir))
+            if not files:
+                continue
+            j = int(rng.integers(0, len(files)))
+            im1 = load_image(files[j])
+            if self.kind == "blur":
+                im2 = load_image(sorted(list_images(high_ref))[j])
+            elif self.kind == "sid":
+                im2 = load_image(sorted(list_images(high_ref))[0])
+            else:
+                im2 = load_image(high_ref)
+            im1, im2 = paired_random_crop_flip(im1, im2, self.crop_size, rng)
+            return to_float01(im1), to_float01(im2)
+        raise FileNotFoundError(f"no usable scene folders under {self.data_dir}")
 
 
 class EvalDataset:

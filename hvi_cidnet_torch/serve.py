@@ -44,7 +44,9 @@ class Enhancer:
     """Serves CIDNet (base, MSSA or TNSM) on ``device``.
 
     ``weights``: a ``CIDNet`` (taken over: moved to ``device``, conv weights
-    cast to ``compute_dtype``; ``config``, if given, must be its config) or
+    cast to ``compute_dtype`` in place; ``config``, if given, must be its
+    config; a caller that goes on training the model passes a copy, as
+    ``cli/train.py``'s in-loop eval passes ``copy.deepcopy(model)``) or
     the path of a reference-layout state dict (``.pth`` / ``.npz`` /
     ``.safetensors``), of a JAX trainer checkpoint (``.npz`` with
     ``param::`` keys) or of an HF folder (``model.safetensors`` beside a
