@@ -145,9 +145,34 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    base step's ms and images/s at batch 8 and 16 with and without the
    perceptual term, peak memory, the perceptual term with TF32 on and off,
    and the share of the step in ``twin_backward`` and in each kernel;
-12. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
+12. scales out on the card (this slice's path), with PIL, cv2 and jax made
+   unimportable, in a temporary directory; on one card the replicas and
+   ranks share it (two ranks on gloo), on two or more they take a card
+   each (nccl): (a) ``dp_enhance_fn`` over two replicas, base and TNSM at
+   8 x 400 x 600, gates and gamma on, against ``Enhancer.enhance_batch`` on
+   one replica (fp32 within each variant's forward bars, bf16 within its
+   bf16 mean bar), the launches two batch-4 forwards, a batch of 7 raising
+   the JAX ValueError; (b) ``Evaluator(mesh=)`` fp32 on step 9's folder
+   within one uint8 level of ``cli/eval.py``'s single-device PNGs (99.9%
+   equal), ``cli/eval.py --dp`` printing the no-op line on one card; (c)
+   ``cli/train.py --multihost true`` as two processes (children with
+   jax, PIL and cv2 blocked; the kernels built here first), base fp32 with
+   deterministic algorithms, crop 256, global batch 16, 2 x 3 steps, the
+   perceptual term on a seeded VGG19, against one process at batch 16:
+   epoch losses within 1e-5 relative, final parameters within the lr bars,
+   the ranks' state digests equal; (d) ``--multihost true --num_processes
+   1`` on nccl: losses bitwise the one-process run's (two ranks on two
+   cards where there are two); (e) ``AsyncCheckpoints`` bitwise the
+   synchronous ``.npz``; ``--start_epoch 2`` over two ranks with the file
+   in rank 0's directory only: both resume the file's state bitwise;
+   ``--ckpt_backend orbax`` over two ranks: the kept file bitwise the
+   ranks' final state; (f) every rank's launches a step K1 3, K2 1, K3 6,
+   K4 6, K5 11, K6 33, K7 22; prints the bf16 step's ms for two ranks and
+   for one process (information: one card) and the step's seconds;
+13. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
    parity eval, ``launches_eval`` from step 9's, ``launches_train`` from
-   step 11b's) and, last, ``{"ok": true, "device": ...}``.
+   step 11b's, ``launches_dp_serving`` and ``launches_dp_train_step`` from
+   step 12's) and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -159,6 +184,7 @@ import copy
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2400,6 +2426,460 @@ def _train_step_info(dev, vgg, kernel_modules) -> None:
         torch.backends.cudnn.allow_tf32 = saved
 
 
+# step 12: scale-out on the card. The machine the script is written for has
+# one card, so the replicas and ranks share cuda:0 (two replicas one after the
+# other; two ranks on gloo, which NCCL's one-rank-a-device rule refuses);
+# with two cards or more they take cuda:0 and cuda:1 (ranks on nccl).
+DP_BATCH = 8
+DP_REPLICAS = 2
+# two ranks of 8 rows against one process of 16 (the global batch), crop 256,
+# 2 epochs of 3 steps, the perceptual term on a seeded VGG19
+DP_TRAIN = ["--synthetic_steps", "3", "--nEpochs", "2", "--snapshots", "1", "--batchSize", "16",
+            "--cropSize", str(TRAIN_CROP), "--allow_random_vgg", "true", "--start_warmup",
+            "false", "--seed", "1", "--variant", "base", "--threads", "4"]
+DP_STEPS = 6
+# 12c's epoch losses, two ranks against one process (fp32, TF32 off): the mean
+# of two 8-row means against one 16-row mean, in another order
+TOL_DP_LOSS = 1e-5
+# a child of step 12: the train CLI in a fresh process with jax, PIL and cv2
+# unimportable, the TF32 flags off as in this script, deterministic
+# algorithms for "fp32"; it prints one RESULT line (launches, step start
+# times, the record's losses on rank 0)
+RANK_CHILD = ("import sys; sys.modules.update(jax=None, PIL=None, cv2=None); "
+              "sys.path.insert(0, {root!r}); import chip_smoke; sys.exit(chip_smoke.rank_entry())")
+
+
+def kernel_table() -> dict:
+    """Every kernel's wrapper object, by key (the kernels line's order)."""
+    from hvi_cidnet_torch.ops import (
+        attention_cuda, batched_qk_cuda, conv3x3_cuda, head_attention_cuda, hvi_cuda, iel_cuda,
+        im2col_cuda, ln_iel_cuda, norm_cuda, relayout_cuda, resize_cuda,
+    )
+    return {"K1": hvi_cuda.RGB_TO_HVI, "K2": hvi_cuda.HVI_TO_RGB,
+            "K3": resize_cuda.HALF_PRELU, "K4": resize_cuda.DOUBLE,
+            "K5": attention_cuda.ATTENTION, "K6": norm_cuda.LAYER_NORM,
+            "K7": iel_cuda.IEL_BRANCH, "P2/P3": ln_iel_cuda.LN_IEL,
+            "P4": conv3x3_cuda.CONV3X3, "P5": conv3x3_cuda.CONV3X3_HALF_PRELU,
+            "P1": head_attention_cuda.HEAD_ATTENTION, "P6": im2col_cuda.IM2COL_DOTS,
+            "P10/P15": batched_qk_cuda.BATCHED_QK, **relayout_cuda.KERNELS}
+
+
+def rank_entry() -> int:
+    """A child process of step 12 (``RANK_CHILD``): ``cli/train.py``'s
+    ``main(argv)`` with the launches counted from 0 and each step's start
+    time taken; argv[1] the CLI's argv as JSON, argv[2] "fp32"
+    (deterministic algorithms) or "bf16"."""
+    argv, mode = json.loads(sys.argv[1]), sys.argv[2]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if mode == "fp32":
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+    from hvi_cidnet_torch.cli import train as train_cli
+
+    kernels = kernel_table()
+    reset(kernels)
+    starts = []
+    step = train_cli.train_step
+
+    def timed(*args, **kw):
+        starts.append(time.perf_counter())
+        return step(*args, **kw)
+
+    train_cli.train_step = timed
+    record = train_cli.main(argv)
+    on_card = torch.cuda.is_available()
+    if on_card:
+        torch.cuda.synchronize()
+    print("RESULT " + json.dumps({"launches": counts(kernels), "starts": starts,
+                                  "losses": record["losses"] if record else None,
+                                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+                                  if on_card else None}))
+    return 0
+
+
+def _child(argv: list, mode: str, workdir: str, name: str):
+    """Start one train CLI process (``RANK_CHILD``) in ``workdir``."""
+    os.makedirs(workdir, exist_ok=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    log_path = os.path.join(workdir, "stdout.txt")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", RANK_CHILD.format(root=ROOT), json.dumps(argv), mode],
+            cwd=workdir, env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+    proc.name, proc.log_path = name, log_path
+    return proc
+
+
+def _wait(procs: list, timeout: float = 600) -> dict:
+    """Wait for every child; any failure stops the others and raises. Returns
+    name -> (stdout, RESULT dict)."""
+    out = {}
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+            with open(p.log_path) as f:
+                text = f.read()
+            if p.returncode != 0:
+                raise AssertionError(f"12 {p.name}: exit {p.returncode}\n{text[-4000:]}")
+            result = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+            out[p.name] = (text, json.loads(result[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def _ranks(argv: list, mode: str, dirs: list, name: str) -> list:
+    """``cli/train.py --multihost true`` as one child a directory."""
+    from hvi_cidnet_torch.parallel.multihost import free_port
+
+    port = free_port()
+    return [_child(argv + ["--multihost", "true", "--coordinator_address", f"127.0.0.1:{port}",
+                           "--num_processes", str(len(dirs)), "--process_id", str(r)],
+                   mode, d, f"{name} rank {r}") for r, d in enumerate(dirs)]
+
+
+def _digest_lines(text: str, what: str = "") -> list:
+    return re.findall(rf"rank \d+: {what}.*state sha256 ([0-9a-f]+)", text)
+
+
+def _step_ms(result: dict) -> float:
+    """The median interval between consecutive step starts within an
+    epoch (each step ends in the CLI's one host read of the loss)."""
+    s = result["starts"]
+    per = len(s) // 2
+    gaps = [b - a for e in range(2) for a, b in zip(s[e * per:(e + 1) * per],
+                                                    s[e * per + 1:(e + 1) * per])]
+    return 1000 * float(np.median(gaps))
+
+
+def _npz_params(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: torch.from_numpy(z[k]) for k in z.files if k.startswith("param::")}
+
+
+def _file_digest(path: str) -> str:
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
+    from hvi_cidnet_torch.train import checkpoint as ckpt
+    from hvi_cidnet_torch.train.trainer import TrainConfig, make_optimizer
+
+    model = CIDNet(CIDNetConfig(variant="base"))
+    opt = make_optimizer(model, TrainConfig(model=model.config))
+    ckpt.load_checkpoint(path, model, opt)
+    return ckpt.state_digest(model, opt)
+
+
+def scale_out_path(dev, kernels, smi: str) -> dict:
+    """Step 12, with PIL, cv2 and jax unimportable, in a temporary
+    directory. Returns the launches of 12a's base bf16 DP forward and of a
+    DP train step per rank."""
+    t0 = time.perf_counter()
+    with without_modules("PIL", "cv2", "jax"), tempfile.TemporaryDirectory() as tmp, cwd(tmp):
+        out = _scale_out_path(dev, kernels, smi, tmp)
+    log(f"step 12 (scale-out) took {time.perf_counter() - t0:.1f} s; card {smi}")
+    return out
+
+
+def _scale_out_path(dev, kernels, smi: str, tmp: str) -> dict:
+    from hvi_cidnet_torch.parallel.mesh import make_mesh
+
+    cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(DP_REPLICAS)] if cards >= DP_REPLICAS
+               else [dev] * DP_REPLICAS)
+    mesh = make_mesh(devices=devices)
+    where = "separate cards" if cards >= DP_REPLICAS else f"one card ({dev}, in turns)"
+    serving = _dp_serving(dev, kernels, smi, mesh, where)
+    # 12c's two fp32 ranks and its one process start next (a child takes
+    # ~8 s to reach the card) and train while 12b and 12e's check run here;
+    # the other children follow in waves small enough for the card's memory
+    # (fp32 peaks: 15.2 GiB a rank of 8 rows, 22.3 a process of 16)
+    fp32 = DP_TRAIN + ["--compute_dtype", "float32"]
+    first = (_ranks(fp32, "fp32", [os.path.join(tmp, "r0"), os.path.join(tmp, "r1")], "12c")
+             + [_child(fp32, "fp32", os.path.join(tmp, "single"), "12c one process")])
+    try:
+        _dp_eval(kernels, smi, mesh, where, cards, tmp)
+        _async_checkpoints(dev)
+        res = _wait(first)
+    finally:
+        for p in first:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    per_step = _dp_training(res, smi, cards, where, tmp)
+    return {"serving": serving, "train_step": per_step}
+
+
+def _dp_serving(dev, kernels, smi: str, mesh, where: str) -> dict:
+    """12a: dp_enhance_fn against Enhancer.enhance_batch on one replica.
+    Returns the launches of base's bf16 batch."""
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates
+    from hvi_cidnet_torch.parallel.inference import dp_enhance_fn
+    from hvi_cidnet_torch.serve import Enhancer
+
+    gates = HVIGates(gated=True, gated2=True, alpha=0.95, alpha_s=1.1)
+    x = np.random.default_rng(12).uniform(0, 0.4, (DP_BATCH, H, W, 3)).astype(np.float32)
+    launches = {}
+    for variant in ("base", "tnsm"):
+        tol_max, tol_mean, tol_bf16 = (
+            (TOL_TNSM["max"], TOL_TNSM["mean"], TOL_TNSM["bf16_mean"]) if variant == "tnsm"
+            else (TOL_FORWARD_MAX, TOL_FORWARD_MEAN, TOL_BF16_FORWARD_MEAN))
+        model = CIDNet(CIDNetConfig(variant=variant), generator=torch.Generator().manual_seed(5))
+        for dtype in (torch.float32, torch.bfloat16):
+            one = Enhancer(copy.deepcopy(model), gates, gamma=0.8, compute_dtype=dtype,
+                           device=dev)
+            ref = one.enhance_batch(x)
+            fn = dp_enhance_fn(mesh, model, gates, gamma=0.8, compute_dtype=dtype)
+            fn(x)  # warm-up at the replicas' batch
+            torch.cuda.synchronize()
+            reset(kernels)
+            got = fn(x)
+            torch.cuda.synchronize()
+            launched = counts(kernels)
+            # the batch from host memory to its output on the card, in turns
+            ms = {"one": [], "dp": []}
+            for arm in ("one", "dp", "dp", "one"):
+                run = (lambda: fn(x)) if arm == "dp" else (lambda: one._forward(x))
+                ms[arm].append(time_ms(run, 3, 1))
+            want = {k: DP_REPLICAS * v for k, v in PER_FORWARD[variant].items()}
+            if launched != want:
+                raise AssertionError(f"12a {variant} {dtype}: launches {launched} != {want}")
+            got = got.cpu().numpy()
+            if got.shape != x.shape or not np.isfinite(got).all():
+                raise AssertionError(f"12a {variant} {dtype}: output {got.shape} bad")
+            err, mean = float(np.abs(got - ref).max()), float(np.abs(got - ref).mean())
+            if dtype == torch.float32:
+                check(f"12a {variant} DP fp32 vs one replica", err, tol_max)
+                check(f"12a {variant} DP fp32 vs one replica (mean)", mean, tol_mean)
+            else:
+                check(f"12a {variant} DP bf16 vs one replica (mean)", mean, tol_bf16)
+            launches[variant, dtype] = launched
+            log(f"12a {variant} dp_enhance_fn {str(dtype)[6:]} {DP_BATCH} x {H} x {W} over "
+                f"{DP_REPLICAS} replicas on {where}: against Enhancer.enhance_batch on one "
+                f"replica max_abs_err {err:.3e}, mean {mean:.3e}"
+                f"{' (bitwise)' if np.array_equal(got, ref) else ''}; launches "
+                f"{ {k: v for k, v in launched.items() if v} } (two batch-4 forwards); "
+                f"{DP_BATCH} images from host memory to the card's output, in turns one / dp / "
+                f"dp / one: {' / '.join(f'{t:.2f}' for t in (ms['one'][0], *ms['dp'], ms['one'][1]))}"
+                f" ms (information); card {smi}")
+        try:
+            fn(x[:7])
+        except ValueError as e:
+            if "global batch 7 must be divisible by the 2-device mesh" not in str(e):
+                raise
+        else:
+            raise AssertionError("12a: a batch of 7 over 2 replicas did not raise")
+        del model, fn, one
+    log("12a a batch of 7 over 2 replicas raises the JAX ValueError")
+    torch.cuda.empty_cache()
+    return launches["base", torch.bfloat16]
+
+
+def _dp_eval(kernels, smi: str, mesh, where: str, cards: int, tmp: str) -> None:
+    """12b: Evaluator(mesh=) over step 9's folder against the single-device
+    eval CLI's fp32 PNGs (step 9's run, made again here)."""
+    from hvi_cidnet_torch.cli import eval as eval_cli
+    from hvi_cidnet_torch.compat.checkpoint import save_checkpoint
+    from hvi_cidnet_torch.data import png
+    from hvi_cidnet_torch.data.datasets import EvalDataset
+    from hvi_cidnet_torch.eval.evaluator import Evaluator, gates_for_dataset
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
+
+    rng = np.random.default_rng(9)
+    src = os.path.join(tmp, "in")
+    os.makedirs(src)
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        png.write(os.path.join(src, f"{i:02d}_{w}x{h}.png"), synthetic_png(rng, h, w))
+    npz = os.path.join(tmp, "base.npz")
+    save_checkpoint(npz, CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+                    .state_dict())
+    argv = ["--unpaired", "--custome", "--custome_path", src, "--weights", npz, "--variant",
+            "base", "--eval_batch", str(EVAL_BATCH), "--dp"]
+    os.makedirs("cli")
+    with cwd("cli"):
+        reset(kernels)
+        text = run_cli(eval_cli.main, argv)
+        chunks = counts(kernels)["K1"]  # one forward a chunk on one device
+    if cards < 2 and "dp serving: single device, flag is a no-op" not in text:
+        raise AssertionError("12b: cli/eval.py --dp on one card did not print the no-op line")
+    ev = Evaluator(npz, CIDNetConfig(variant="base"), gates_for_dataset(unpaired=True),
+                   compute_dtype=torch.float32, mesh=mesh)
+    reset(kernels)
+    t0 = time.perf_counter()
+    n = ev.run_dataset(EvalDataset(src, pad=True), os.path.join(tmp, "dp_out"),
+                       batch_size=EVAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts(kernels)
+    want = {k: DP_REPLICAS * chunks * v for k, v in PER_FORWARD["base"].items()}
+    if n != len(EVAL_SIZES) or launched != want:
+        raise AssertionError(f"12b: {n} images, launches {launched} != {want}")
+    worst, equal, total = 0, 0, 0
+    for name in sorted(os.listdir(src)):
+        a = png.read(os.path.join("cli/output/custome", name)).astype(np.int16)
+        b = png.read(os.path.join(tmp, "dp_out", name)).astype(np.int16)
+        if a.shape != b.shape:
+            raise AssertionError(f"12b {name}: {b.shape} against {a.shape}")
+        worst = max(worst, int(np.abs(a - b).max()))
+        equal, total = equal + int((a == b).sum()), total + a.size
+    if worst > 1 or equal / total < 0.999:
+        raise AssertionError(f"12b: DP eval PNGs {worst} levels off, {equal / total:.5f} equal")
+    log(f"12b Evaluator(mesh=) fp32 over {DP_REPLICAS} replicas on {where}, step 9's folder "
+        f"({len(EVAL_SIZES)} PNGs, {chunks} chunks, the sliver and a partial chunk among them): "
+        f"within {worst} uint8 level of cli/eval.py's single-device PNGs, {equal / total:.5f} "
+        f"of values equal; {seconds:.2f} s; launches two replicas' forwards a chunk; "
+        f"cli/eval.py --dp on {cards} card(s) printed "
+        f"{'the no-op line' if cards < 2 else 'its mesh'}; card {smi}")
+    del ev
+    torch.cuda.empty_cache()
+
+
+def _async_checkpoints(dev) -> None:
+    """12e, in this process: AsyncCheckpoints against the synchronous .npz."""
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
+    from hvi_cidnet_torch.train import checkpoint as ckpt
+    from hvi_cidnet_torch.train.async_ckpt import AsyncCheckpoints
+    from hvi_cidnet_torch.train.trainer import TrainConfig, make_optimizer, train_step
+
+    cfg = TrainConfig(model=CIDNetConfig(), use_perceptual=False)
+    model = CIDNet(cfg.model, generator=torch.Generator().manual_seed(41)).to(dev)
+    opt = make_optimizer(model, cfg)
+    low, high = (t.to(dev) for t in _train_batch(44, n=2, hw=64))
+    train_step(model, opt, low, high, 1.0, None, cfg)
+    ckpt.save_checkpoint("sync.npz", model, opt, epoch=4)
+    with AsyncCheckpoints("async", max_to_keep=1) as ck:
+        ck.save(3, model, opt)
+        ck.save(4, model, opt)
+        ck.wait()
+        kept = ck.epochs()
+    with np.load("sync.npz") as a, np.load(os.path.join("async", "4", "checkpoint.npz")) as b:
+        same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+    if not same or kept != [4]:
+        raise AssertionError(f"12e: async checkpoint bitwise the synchronous one: {same}; "
+                             f"kept {kept}")
+    log("12e AsyncCheckpoints (max_to_keep 1) on the card: async/4/checkpoint.npz bitwise the "
+        "synchronous .npz after wait(); epoch 3 dropped")
+
+
+def _dp_training(res: dict, smi: str, cards: int, where: str, tmp: str) -> dict:
+    """12c-12f from the children: ``res`` holds 12c's two ranks. Returns
+    the launches of one step in a rank."""
+    from hvi_cidnet_torch.parallel.multihost import free_port
+
+    fp32 = DP_TRAIN + ["--compute_dtype", "float32"]
+    # 12d's one-process nccl world beside 12e's resume over two ranks (rank
+    # 1 in a directory without epoch_2.npz: both take rank 0's)
+    torch.cuda.empty_cache()
+    second = [_child(fp32 + ["--multihost", "true", "--coordinator_address",
+                             f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                             "--process_id", "0"], "fp32", os.path.join(tmp, "nccl1"), "12d")]
+    second += _ranks(fp32 + ["--start_epoch", "2", "--nEpochs", "1"], "fp32",
+                     [os.path.join(tmp, "r0"), os.path.join(tmp, "resume1")], "12e")
+    both = _wait(second)
+    res["12d"] = both.pop("12d")
+    resume = both
+    r0, r1 = res["12c rank 0"], res["12c rank 1"]
+    single, nccl1 = res["12c one process"], res["12d"]
+    backends = re.findall(r"backend (\w+) \(rule", r0[0] + r1[0])
+    want_backend = "nccl" if cards >= 2 else "gloo"
+    if backends != [want_backend] * 2:
+        raise AssertionError(f"12c: backends {backends}, expected {want_backend} on both ranks")
+    want = TRAIN_STEP["base"]
+    for name, (_, result) in res.items():
+        if result["launches"] != {k: DP_STEPS * v for k, v in want.items()}:
+            raise AssertionError(f"12f {name}: launches {result['launches']} != {DP_STEPS} x "
+                                 f"{want}")
+    # a step's launches in rank 0, as this run counted them
+    per_step = {k: v // DP_STEPS for k, v in r0[1]["launches"].items()}
+    got_losses = [float(np.mean(e)) for e in r0[1]["losses"]]
+    ref_losses = [float(np.mean(e)) for e in single[1]["losses"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got_losses, ref_losses))
+    check("12c two ranks' epoch losses vs one process (relative)", rel, TOL_DP_LOSS)
+    digests = _digest_lines(r0[0]) + _digest_lines(r1[0])
+    if len(digests) != 2 or digests[0] != digests[1]:
+        raise AssertionError(f"12c: the ranks' final states differ: {digests}")
+    got = _npz_params(os.path.join(tmp, "r0/weights/train/epoch_2.npz"))
+    ref = _npz_params(os.path.join(tmp, "single/weights/train/epoch_2.npz"))
+    lr = 1e-4  # the CLI's default --lr
+    diff = torch.cat([(got[k].double() - ref[k].double()).abs().flatten() for k in ref]) / lr
+    mean, share, worst = diff.mean().item(), (diff > 0.1).double().mean().item(), diff.max().item()
+    if not (mean <= LR_BARS["mean"] and share <= LR_BARS["share_past_0.1"]
+            and worst <= LR_BARS["max"] * DP_STEPS):
+        raise AssertionError(f"12c: final parameters mean {mean:.3e} lr, share past 0.1 lr "
+                             f"{share:.3e}, max {worst:.3e} lr past {LR_BARS} a step")
+    if os.path.exists(os.path.join(tmp, "r1/weights")):
+        raise AssertionError("12c: rank 1 wrote checkpoints")
+    log(f"12c cli/train.py --multihost true, 2 ranks ({backends[0]}) x 8 rows against one "
+        f"process of 16, base fp32 (TF32 off, deterministic algorithms) crop {TRAIN_CROP}, 2 "
+        f"epochs x 3 steps, perceptual on a seeded VGG19: epoch losses "
+        f"{', '.join(f'{v:.7f}' for v in got_losses)} against "
+        f"{', '.join(f'{v:.7f}' for v in ref_losses)} (worst relative {rel:.2e}); the ranks' "
+        f"final states bitwise equal (sha256 {digests[0]}); final parameters against one "
+        f"process: mean {mean:.3e} lr, share past 0.1 lr {share:.3e}, max {worst:.3e} lr; card "
+        f"{smi}")
+    nccl_backend = re.findall(r"backend (\w+) \(rule", nccl1[0])
+    if nccl_backend != ["nccl"]:
+        raise AssertionError(f"12d: the one-process world took {nccl_backend}, not nccl")
+    if nccl1[1]["losses"] != single[1]["losses"]:
+        raise AssertionError(f"12d: nccl world-of-one losses {nccl1[1]['losses']} != one "
+                             f"process's {single[1]['losses']}")
+    log(f"12d --multihost true --num_processes 1: backend nccl, loss and gradients all-reduced; "
+        f"its {DP_STEPS} step losses bitwise those of the run without --multihost; card {smi}")
+    if cards >= 2:
+        two = _wait(_ranks(fp32, "fp32", [os.path.join(tmp, "n0"), os.path.join(tmp, "n1")],
+                           "12d nccl"))
+        both = re.findall(r"backend (\w+) \(rule", "".join(t for t, _ in two.values()))
+        d2 = [d for t, _ in two.values() for d in _digest_lines(t)]
+        if both != ["nccl"] * 2 or len(d2) != 2 or len(set(d2)) != 1:
+            raise AssertionError(f"12d: two ranks on two cards: {both}, digests {d2}")
+        log(f"12d two ranks on two cards with nccl: final states bitwise equal ({d2[0]})")
+    else:
+        log("12d two ranks on nccl need two cards: this machine has one (not run)")
+
+    # 12e. the resume
+    file_digest = _file_digest(os.path.join(tmp, "r0/weights/train/epoch_2.npz"))
+    resumed = [_digest_lines(t, "resumed from") for t, _ in resume.values()]
+    if resumed != [[file_digest]] * 2:
+        raise AssertionError(f"12e: resumed states {resumed} != the file's {file_digest}")
+    for name, (_, result) in resume.items():
+        if result["launches"] != {k: 3 * v for k, v in per_step.items()}:
+            raise AssertionError(f"12f {name}: launches {result['launches']} != 3 x {per_step}")
+    log(f"12e --start_epoch 2 over 2 ranks, rank 1 in a directory without epoch_2.npz: both "
+        f"resumed bitwise the file's state (sha256 {file_digest}) from rank 0's broadcast")
+
+    # the bf16 step (information: with one card both ranks share it), the
+    # async backend through the CLI, then one process
+    bf16 = DP_TRAIN + ["--compute_dtype", "bfloat16"]
+    timing = _wait(_ranks(bf16 + ["--ckpt_backend", "orbax", "--ckpt_keep", "1"], "bf16",
+                          [os.path.join(tmp, "b0"), os.path.join(tmp, "b1")], "bf16"))
+    one = _wait([_child(bf16, "bf16", os.path.join(tmp, "b_single"), "bf16 one process")])
+    kept = sorted(os.listdir(os.path.join(tmp, "b0/weights/train/orbax")))
+    async_digest = _file_digest(os.path.join(tmp, "b0/weights/train/orbax/2/checkpoint.npz"))
+    ranks_digest = {d for t, _ in timing.values() for d in _digest_lines(t)}
+    if kept != ["2"] or ranks_digest != {async_digest}:
+        raise AssertionError(f"12e --ckpt_backend orbax: kept {kept}, file {async_digest}, "
+                             f"ranks {ranks_digest}")
+    for name, (_, result) in {**timing, **one}.items():
+        if result["launches"] != {k: DP_STEPS * v for k, v in per_step.items()}:
+            raise AssertionError(f"12f {name}: launches {result['launches']}")
+    two_ms = [_step_ms(r) for _, r in timing.values()]
+    one_ms = _step_ms(one["bf16 one process"][1])
+    log(f"12e --ckpt_backend orbax --ckpt_keep 1 over 2 ranks: rank 0 wrote orbax/2/"
+        f"checkpoint.npz in the background, bitwise the ranks' final state ({async_digest})")
+    log(f"12c bf16 step (information; both ranks on {where}, so not a scaling figure): 2 ranks x "
+        f"8 rows {two_ms[0]:.1f} / {two_ms[1]:.1f} ms a step, one process x 16 rows "
+        f"{one_ms:.1f} ms (medians of the step intervals, crop {TRAIN_CROP}, perceptual on); "
+        f"card {smi}")
+    peaks = {name: round(r["peak_gib"], 1) for name, (_, r) in
+             {**res, **resume, **timing, **one}.items()}
+    log(f"12f launches a step in every rank and process of 12c-12e: {per_step}; peak GiB "
+        f"{peaks}")
+    return per_step
+
+
 def counts(kernels) -> dict:
     return {k: v.launches for k, v in kernels.items()}
 
@@ -2515,10 +2995,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from hvi_cidnet_torch.models.cidnet import HVIGates, cidnet_forward
     from hvi_cidnet_torch.ops import _build
-    from hvi_cidnet_torch.ops import (
-        attention_cuda, batched_qk_cuda, conv3x3_cuda, head_attention_cuda, hvi_cuda, iel_cuda,
-        im2col_cuda, ln_iel_cuda, norm_cuda, relayout_cuda, resize_cuda,
-    )
     from hvi_cidnet_torch.ops.routes import FUSED as FUSED_ROUTE
     from hvi_cidnet_torch.ops.routes import PROBE as PROBE_ROUTE
     from hvi_cidnet_torch.serve import Enhancer
@@ -2536,13 +3012,7 @@ def main() -> int:
     log(f"built {os.path.relpath(path, ROOT)}: nvcc {nvcc_s:.1f} s, "
         f"build+load {time.perf_counter() - t0:.1f} s")
 
-    kernels = {"K1": hvi_cuda.RGB_TO_HVI, "K2": hvi_cuda.HVI_TO_RGB,
-               "K3": resize_cuda.HALF_PRELU, "K4": resize_cuda.DOUBLE,
-               "K5": attention_cuda.ATTENTION, "K6": norm_cuda.LAYER_NORM,
-               "K7": iel_cuda.IEL_BRANCH, "P2/P3": ln_iel_cuda.LN_IEL,
-               "P4": conv3x3_cuda.CONV3X3, "P5": conv3x3_cuda.CONV3X3_HALF_PRELU,
-               "P1": head_attention_cuda.HEAD_ATTENTION, "P6": im2col_cuda.IM2COL_DOTS,
-               "P10/P15": batched_qk_cuda.BATCHED_QK, **relayout_cuda.KERNELS}
+    kernels = kernel_table()
     results = {k: [] for k in kernels}
     compare_relayout(results, dev)
     compare_probe(results, dev)
@@ -2688,9 +3158,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     scoring = scoring_path(dev, kernels)
 
-    # this slice's path: training (K1-K7's launches_train are 11b's)
+    # training (K1-K7's launches_train are 11b's)
     torch.cuda.empty_cache()
     trained = training_path(dev, kernels)
+
+    # this slice's path: scale-out (launches_dp_serving: 12a's base bf16
+    # batch over two replicas; launches_dp_train_step: a rank's step)
+    torch.cuda.empty_cache()
+    scaled = scale_out_path(dev, kernels, smi)
 
     path_of = lambda key: ("fused" if key in FUSED else "probe" if key in PROBE else
                            "hwcb" if key in RELAYOUTS else "eval")
@@ -2701,6 +3176,8 @@ def main() -> int:
             line["launches_eval"] = line["launches"]
             line["launches"] = scoring[key]
         line["launches_train"] = trained[key]
+        line["launches_dp_serving"] = scaled["serving"][key]
+        line["launches_dp_train_step"] = scaled["train_step"][key]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

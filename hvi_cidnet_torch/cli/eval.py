@@ -14,19 +14,22 @@ default). Weights may be a ``.pth``, ``.npz`` (a bare state dict or the JAX
 trainer's checkpoint), ``.safetensors`` or an HF folder. Runs on the card
 unless ``--cpu`` is given. ``--compile_cache`` is accepted for the JAX
 CLI's flag surface and does nothing: the port compiles nothing per shape.
-``--dp`` is a no-op on one device; data-parallel eval over several CUDA
-devices is not ported yet and raises ``NotImplementedError``.
+``--dp`` serves each batch over every visible card (``make_mesh()``: one
+replica a card, the rows split between them, ``Evaluator(mesh=)``); on
+one card, or with ``--cpu``, it is a no-op and says so.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Union
 
 import torch
 
 from hvi_cidnet_torch.data.datasets import EvalDataset
 from hvi_cidnet_torch.eval.evaluator import Evaluator, gates_for_dataset
 from hvi_cidnet_torch.models.cidnet import VARIANTS, CIDNetConfig
+from hvi_cidnet_torch.parallel.mesh import Mesh, make_mesh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -62,8 +65,8 @@ def parser() -> argparse.ArgumentParser:
                         "which perturbs outputs inside the crop (channel attention "
                         "sees the padded pixels)")
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel eval over every CUDA device: a no-op on one "
-                        "device; not ported for more")
+                   help="data-parallel eval: each batch split over every CUDA device "
+                        "(a no-op on one)")
     p.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
                    help="accepted for the JAX CLI's flag surface; does nothing here")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
@@ -115,20 +118,27 @@ def route(ep):
     return eval_dir, out, weights, alpha, pad
 
 
-def device_of(ep) -> str:
-    """The CLIs' device: the card unless ``--cpu``. ``--dp`` with more than
-    one CUDA device raises: data-parallel eval is not ported."""
+def device_of(ep) -> Union[str, Mesh]:
+    """The CLIs' device: the card unless ``--cpu``; with ``--dp`` and more
+    than one CUDA device, the mesh of every visible card."""
     if ep.compile_cache:
         print("--compile_cache: no effect in the PyTorch port (nothing is compiled per shape)")
     device = "cpu" if ep.cpu else "cuda"
     if ep.dp:
         n = 0 if ep.cpu else torch.cuda.device_count()
         if n > 1:
-            raise NotImplementedError(
-                f"--dp over {n} CUDA devices: data-parallel eval is not ported yet "
-                "(ROADMAP.md queue 1, item 6, scale-out)")
+            mesh = make_mesh()
+            print(f"dp serving: batch sharded over {mesh.size} devices")
+            return mesh
         print("dp serving: single device, flag is a no-op")
     return device
+
+
+def placement(where: Union[str, Mesh]) -> dict:
+    """``Evaluator``'s keywords for ``device_of``'s answer."""
+    if isinstance(where, Mesh):
+        return {"mesh": where}
+    return {"device": where}
 
 
 def gates_of(ep, alpha):
@@ -140,7 +150,7 @@ def gates_of(ep, alpha):
 
 def main(argv=None) -> int:
     ep = parser().parse_args(argv)
-    device = device_of(ep)
+    where = device_of(ep)
     eval_dir, out, weights, alpha, pad = route(ep)
     if ep.weights:
         weights = ep.weights
@@ -152,7 +162,7 @@ def main(argv=None) -> int:
         gates,
         gamma=ep.gamma,
         compute_dtype=DTYPES[ep.dtype],
-        device=device,
+        **placement(where),
         # the bound is opt-in and only for arbitrary-size sets; paired sets
         # always keep the exact x8 pad, whatever the flag
         max_programs=ep.max_programs if (ep.unpaired or ep.custome) else None,

@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from hvi_cidnet_torch.cli.eval import DTYPES, device_of
+from hvi_cidnet_torch.cli.eval import DTYPES, device_of, placement
 from hvi_cidnet_torch.data.datasets import EvalDataset
 from hvi_cidnet_torch.eval.evaluator import Evaluator
 from hvi_cidnet_torch.models.cidnet import VARIANTS, CIDNetConfig, HVIGates
@@ -29,7 +29,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", type=str, default="base", choices=list(VARIANTS))
     p.add_argument("--dtype", type=str, default="float32", choices=list(DTYPES))
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel eval: a no-op on one device; not ported for more")
+                   help="data-parallel eval: each batch split over every CUDA device "
+                        "(a no-op on one)")
     p.add_argument("--compile_cache", type=str, default=None, metavar="DIR",
                    help="accepted for the JAX CLI's flag surface; does nothing here")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
@@ -38,7 +39,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     ep = parser().parse_args(argv)
-    device = device_of(ep)
+    where = device_of(ep)
     if ep.Blur:
         test_dir, weights, out_root = "./datasets/LOL_blur/test/low_blur/", "./weights/LOL-Blur.pth", "./output/LOL_Blur/"
         scenes = [str(i).zfill(4) for i in range(1, 257)]
@@ -50,7 +51,7 @@ def main(argv=None) -> None:
     if ep.weights:
         weights = ep.weights
     ev = Evaluator(weights, CIDNetConfig(variant=ep.variant), HVIGates(),
-                   compute_dtype=DTYPES[ep.dtype], device=device)
+                   compute_dtype=DTYPES[ep.dtype], **placement(where))
     os.makedirs(out_root, exist_ok=True)
     for scene in scenes:
         now_dir = os.path.join(test_dir, scene)

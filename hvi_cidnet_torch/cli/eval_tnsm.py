@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from hvi_cidnet_torch.cli.eval import DTYPES, device_of, gates_of, parser, route
+from hvi_cidnet_torch.cli.eval import DTYPES, device_of, gates_of, parser, placement, route
 from hvi_cidnet_torch.compat.jax_params import load_weights
 from hvi_cidnet_torch.data.datasets import EvalDataset
 from hvi_cidnet_torch.eval.evaluator import Evaluator
@@ -23,14 +23,14 @@ from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
 
 def main(argv=None) -> int:
     ep = parser().parse_args(argv)
-    device = device_of(ep)
+    where = device_of(ep)
     eval_dir, out, weights, alpha, pad = route(ep)
     if ep.weights:
         weights = ep.weights
     model = CIDNet(CIDNetConfig(variant="tnsm"), generator=torch.Generator().manual_seed(0))
     load_weights(model, weights, strict=False)  # prints "loaded n/m tensors from ..."
     ev = Evaluator(model, None, gates_of(ep, alpha), gamma=ep.gamma,
-                   compute_dtype=DTYPES[ep.dtype], device=device)
+                   compute_dtype=DTYPES[ep.dtype], **placement(where))
     n = ev.run_dataset(EvalDataset(eval_dir, pad=pad), out)
     print(f"===> End evaluation ({n} images)")
     return n

@@ -19,6 +19,24 @@ Runs on the card unless ``--cpu``. ``--vgg_weights`` must name a local
 torchvision ``vgg19.pth`` for the perceptual term; without one the term is
 disabled loudly, or trained against a seeded VGG19 with
 ``--allow_random_vgg true`` (smoke runs only). Nothing is downloaded.
+
+Data-parallel training (``parallel/multihost.py``; the JAX CLI's mesh and
+``--multihost``): on a machine with several cards the command starts one
+process per card (``launch``, through ``spawn_local``; ``main`` trains in
+its own process); ``--multihost true`` makes this
+process one rank of a ``torch.distributed`` group, from
+``--coordinator_address`` / ``--num_processes`` / ``--process_id`` or from
+torchrun's environment, and needs an explicit ``--seed`` when there is
+more than one. Each rank decodes its rows of every global batch
+(``--batchSize`` is global), the step mean-reduces the loss and the
+gradients over the group (``train_step(group=)``), and process 0 alone
+logs, writes the canaries, the checkpoints and the report and runs the
+in-loop eval; a resume is read by process 0 and broadcast. Every rank
+prints a digest of its final state. For example, two CPU ranks:
+
+    python -m hvi_cidnet_torch.cli.train --cpu --multihost true --coordinator_address \\
+        127.0.0.1:29500 --num_processes 2 --process_id {0,1} --seed 1 --synthetic_steps 2 ...
+    torchrun --nproc_per_node 2 -m hvi_cidnet_torch.cli.train --multihost true --seed 1 ...
 """
 
 from __future__ import annotations
@@ -27,11 +45,14 @@ import copy
 import dataclasses
 import os
 import random
+import sys
 import time
 from datetime import datetime
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hvi_cidnet_torch.data import png
 from hvi_cidnet_torch.data.datasets import EvalDataset, PairedFolderDataset, SceneFolderDataset
@@ -39,17 +60,29 @@ from hvi_cidnet_torch.data.pipeline import TrainLoader
 from hvi_cidnet_torch.eval.evaluator import Evaluator, gates_for_dataset
 from hvi_cidnet_torch.eval.measure import fmt_metric, metrics
 from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig
-from hvi_cidnet_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from hvi_cidnet_torch.parallel.multihost import (
+    MultiHostTrainLoader,
+    initialize_distributed,
+    spawn_local,
+)
+from hvi_cidnet_torch.train.async_ckpt import AsyncCheckpoints
+from hvi_cidnet_torch.train.checkpoint import (
+    broadcast_state_,
+    load_checkpoint,
+    save_checkpoint,
+    state_digest,
+)
 from hvi_cidnet_torch.train.schedule import build_reference_schedule
 from hvi_cidnet_torch.train.trainer import (
     DTYPES,
     TrainConfig,
+    check_dp_batch,
     make_optimizer,
     nonfinite_guard,
     set_learning_rate,
     train_step,
 )
-from hvi_cidnet_torch.utils.config import check_supported, option, selected_dataset
+from hvi_cidnet_torch.utils.config import option, selected_dataset
 
 
 class SyntheticDataset:
@@ -153,24 +186,93 @@ def _canary(path: str, img: torch.Tensor) -> None:
     png.write(path, (np.clip(img.float().cpu().numpy(), 0, 1) * 255).astype(np.uint8))
 
 
-def main(argv=None) -> dict:
-    """Train; returns the run's record: ``losses`` (per epoch, per step),
-    ``epochs``, ``psnr`` / ``ssim`` / ``lpips`` per snapshot and ``model``."""
+def _rank_main(rank: int, argv: list) -> None:
+    """One process of ``spawn_local``'s group (torchrun's environment set)."""
+    main(argv)
+
+
+def _resume(opt, model, optimizer, ckpts, primary: bool, group) -> None:
+    """Load ``--start_epoch``'s checkpoint on process 0 and, in a group, hand
+    it to every rank (``broadcast_state_``): a rank whose working directory
+    lacks the file resumes from the same bytes."""
+    if ckpts is not None:
+        path = ckpts.path(opt.start_epoch)
+        if primary:
+            ckpts.restore(opt.start_epoch, model, optimizer)
+    else:
+        path = f"./weights/train/epoch_{opt.start_epoch}.npz"
+        if primary:
+            load_checkpoint(path, model, optimizer)
+    if group is None:
+        print(f"resumed from {path}")
+        return
+    broadcast_state_(model, optimizer, src=0, group=group)
+    print(f"===> rank {dist.get_rank()}: resumed from {path} (read by rank 0, broadcast): "
+          f"state sha256 {state_digest(model, optimizer)}")
+
+
+def launch(argv=None) -> Optional[dict]:
+    """The command line's entry: ``main(argv)``, except that without
+    ``--multihost`` and ``--cpu`` a machine with several cards trains in
+    one process per card (``spawn_local``), as the JAX CLI uses every local
+    chip; that returns None."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     opt = option().parse_args(argv)
-    check_supported(opt)
+    cards = 0 if opt.cpu else torch.cuda.device_count()
+    if opt.multihost or cards <= 1:
+        return main(argv)
+    # the seed is drawn here so that every process draws the same
+    seed = opt.seed if opt.seed >= 0 else random.randint(1, 1_000_000)
+    print(f"===> data-parallel over {cards} devices: one process per card")
+    spawn_local(cards, _rank_main, argv + ["--multihost", "true", "--seed", str(seed)])
+    return None
+
+
+def main(argv=None) -> Optional[dict]:
+    """Train in this process (one rank with ``--multihost``); returns the
+    run's record (on process 0 of a group; None on the others):
+    ``losses`` (per epoch, per step; a group's mean), ``epochs``, ``psnr``
+    / ``ssim`` / ``lpips`` per snapshot and ``model``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    opt = option().parse_args(argv)
     if opt.compile_cache:
         print("--compile_cache: no effect in the PyTorch port (nothing is compiled per shape)")
-    device = torch.device("cpu" if opt.cpu else "cuda")
+
+    group = info = None
+    if opt.multihost:
+        info = initialize_distributed(coordinator_address=opt.coordinator_address,
+                                      num_processes=opt.num_processes,
+                                      process_id=opt.process_id, cpu=opt.cpu)
+        group = dist.group.WORLD
+        device = info.device
+    else:
+        device = torch.device("cpu" if opt.cpu else "cuda")
+    world = info.world if info is not None else 1
+    multiproc = world > 1
+    primary = info is None or info.rank == 0
+
+    def log(*a, **k):
+        if primary:
+            print(*a, **k)
 
     seed = opt.seed if opt.seed >= 0 else random.randint(1, 1_000_000)
-    print(f"===> seed {seed}")
+    if multiproc and opt.seed < 0:
+        raise SystemExit(
+            "multihost training requires an explicit --seed: every process "
+            "must draw the same global batch order and augmentation stream"
+        )
+    log(f"===> seed {seed}")
+    if multiproc:
+        log(f"===> multihost: {world} processes, backend {info.backend}")
 
     synthetic = opt.synthetic_steps > 0
     ds_name = "synthetic" if synthetic else selected_dataset(opt)
     tcfg = train_config(opt)
     model_cfg = tcfg.model
+    if group is not None:
+        check_dp_batch(opt.batchSize, max(opt.grad_accum, 1), world)
 
-    print("===> Loading datasets")
+    log("===> Loading datasets")
     if synthetic:
         train_set = SyntheticDataset(opt.cropSize, opt.synthetic_steps, opt.batchSize)
         val_set = gt_dir = out_folder = None
@@ -178,15 +280,19 @@ def main(argv=None) -> dict:
         train_set = build_train_dataset(opt, ds_name)
         val_set, gt_dir, out_folder = build_val(opt, ds_name)
 
-    print("===> Building model")
+    log("===> Building model")
     model = CIDNet(model_cfg, generator=torch.Generator().manual_seed(seed)).to(device)
     optimizer = make_optimizer(model, tcfg)
+    ckpts = None
+    if opt.ckpt_backend == "orbax":
+        ckpts = AsyncCheckpoints("./weights/train/orbax", max_to_keep=opt.ckpt_keep)
+        log("--ckpt_backend orbax: the card has no orbax; the port writes the JAX trainer's "
+            ".npz per epoch, ./weights/train/orbax/<epoch>/checkpoint.npz, in the background "
+            "(not an orbax tree)")
     start_epoch = 0
     if opt.start_epoch > 0:
-        path = f"./weights/train/epoch_{opt.start_epoch}.npz"
-        load_checkpoint(path, model, optimizer)
+        _resume(opt, model, optimizer, ckpts, primary, group if multiproc else None)
         start_epoch = opt.start_epoch
-        print(f"resumed from {path}")
 
     vgg, tcfg = load_vgg(opt, tcfg, device)
     sched = build_reference_schedule(
@@ -198,13 +304,19 @@ def main(argv=None) -> dict:
         cos_restart=opt.cos_restart,
         cos_restart_cyclic=opt.cos_restart_cyclic,
     )
-    loader = TrainLoader(train_set, opt.batchSize, seed=seed, num_threads=opt.threads,
-                         shuffle=opt.shuffle, device=device)
+    if group is not None:
+        # every rank draws the same global batches and decodes its own rows
+        loader = MultiHostTrainLoader(train_set, opt.batchSize, seed=seed,
+                                      num_threads=opt.threads, shuffle=opt.shuffle, device=device)
+    else:
+        loader = TrainLoader(train_set, opt.batchSize, seed=seed, num_threads=opt.threads,
+                             shuffle=opt.shuffle, device=device)
 
     host_rng = random.Random(seed)
     psnrs, ssims, lpipss = [], [], []
     record = {"losses": [], "epochs": []}
-    os.makedirs(opt.val_folder, exist_ok=True)
+    if primary:
+        os.makedirs(opt.val_folder, exist_ok=True)
 
     with torch.autograd.set_detect_anomaly(opt.grad_detect):
         for epoch in range(start_epoch + 1, opt.nEpochs + start_epoch + 1):
@@ -214,7 +326,8 @@ def main(argv=None) -> dict:
             last_out = last_gt = None
             for low, high in loader.epoch():
                 g = host_rng.randint(opt.start_gamma, opt.end_gamma) / 100.0 if opt.gamma else 1.0
-                loss, out = train_step(model, optimizer, low, high, np.float32(g), vgg, tcfg)
+                loss, out = train_step(model, optimizer, low, high, np.float32(g), vgg, tcfg,
+                                       group=group)
                 loss = float(loss)  # the step's one host read
                 nonfinite_guard(loss, epoch, n_batches)
                 losses.append(loss)
@@ -224,22 +337,30 @@ def main(argv=None) -> dict:
             dt = time.time() - t0
             record["losses"].append(losses)
             record["epochs"].append(epoch)
-            print(
+            log(
                 f"===> Epoch[{epoch}]: Loss: {epoch_loss / max(n_batches, 1):.4f} || "
                 f"lr={sched(epoch - 1):.3e} || {n_batches} steps in {dt:.1f}s"
             )
-            # gradient-explosion canary images (train.py:84-89)
-            if last_out is not None:
+            # gradient-explosion canary images (train.py:84-89); process 0's
+            # first row is the global batch's
+            if last_out is not None and primary:
                 canary_dir = os.path.join(opt.val_folder, "training")
                 os.makedirs(canary_dir, exist_ok=True)
                 _canary(os.path.join(canary_dir, "test.png"), last_out[0])
                 _canary(os.path.join(canary_dir, "gt.png"), last_gt[0])
 
-            if epoch % opt.snapshots == 0:
-                ckpt = save_checkpoint(f"./weights/train/epoch_{epoch}.npz", model, optimizer,
-                                       epoch)
-                print(f"Checkpoint saved to {ckpt}")
+            snapshot = epoch % opt.snapshots == 0
+            if snapshot and ckpts is not None:
+                # every rank calls save (rank 0 writes, in the background)
+                ckpts.save(epoch, model, optimizer)
+                log(f"Checkpoint queued ({ckpts.path(epoch)})")
+            if snapshot and primary:
+                if ckpts is None:
+                    ckpt = save_checkpoint(f"./weights/train/epoch_{epoch}.npz", model,
+                                           optimizer, epoch)
+                    log(f"Checkpoint saved to {ckpt}")
                 if val_set is not None:
+                    # the other ranks wait in the next step's all-reduce
                     gates = gates_for_dataset(
                         lol=opt.lol_v1, v2=opt.lolv2_real, lmot=opt.lmot, alpha=0.8
                     )
@@ -252,12 +373,22 @@ def main(argv=None) -> dict:
                     del ev
                     avg_psnr, avg_ssim, avg_lpips = metrics(os.path.join(out_dir, "*.png"), gt_dir,
                                                             device=device)
-                    print(f"===> Avg.PSNR: {avg_psnr:.4f} dB  SSIM: {avg_ssim:.4f}  "
-                          f"LPIPS: {fmt_metric(avg_lpips)}")
+                    log(f"===> Avg.PSNR: {avg_psnr:.4f} dB  SSIM: {avg_ssim:.4f}  "
+                        f"LPIPS: {fmt_metric(avg_lpips)}")
                     psnrs.append(avg_psnr)
                     ssims.append(avg_ssim)
                     lpipss.append(avg_lpips)
     loader.close()
+    if ckpts is not None:
+        # every rank waits until the background writes are on disk
+        ckpts.close()
+        log("async checkpoints on disk")
+    if group is not None:
+        print(f"===> rank {info.rank}: state sha256 {state_digest(model, optimizer)}")
+        if info.created:
+            dist.destroy_process_group()
+    if not primary:
+        return None
 
     # final markdown report (train.py:276-290)
     report_dir = os.path.join(opt.val_folder, "training")
@@ -277,4 +408,4 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    launch()

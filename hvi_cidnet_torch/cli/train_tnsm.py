@@ -5,22 +5,28 @@ train_tnsm.py).
 
 ``cli/train.py`` with ``--variant=tnsm`` added when no ``--variant`` is
 given: the step adds the noise consistency + smoothing losses for the TNSM
-graph (``train/trainer.py``, train_tnsm.py:68-72).
+graph (``train/trainer.py``, train_tnsm.py:68-72). From the command line
+it starts one process per card as ``cli/train.py`` does (``train.launch``).
 """
 
 from __future__ import annotations
 
 import sys
+from typing import Optional
 
 from hvi_cidnet_torch.cli import train
 
 
-def main(argv=None) -> dict:
+def tnsm_argv(argv=None) -> list:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not any(a.startswith("--variant") for a in argv):
         argv.append("--variant=tnsm")
-    return train.main(argv)
+    return argv
+
+
+def main(argv=None) -> Optional[dict]:
+    return train.main(tnsm_argv(argv))
 
 
 if __name__ == "__main__":
-    main()
+    train.launch(tnsm_argv())

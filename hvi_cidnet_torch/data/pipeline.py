@@ -6,12 +6,14 @@ Counterpart of ``TrainLoader`` in ``hvi_cidnet_tpu/data/pipeline.py``
 with the same seed stream, so one seed gives the same batches in either
 package: a permutation per epoch (when shuffling) and, per batch, one seed
 ``integers(0, 2**31)`` per sample, each sample augmented by its own
-``default_rng(seed)``. Decode (``data/png.py``: zlib releases the GIL)
-runs on a thread pool; a producer thread keeps up to ``prefetch`` batches
-ready. Batches come out as NHWC fp32: host numpy when ``device`` is None,
-else tensors pinned by the producer and copied to ``device`` with
-``non_blocking=True`` on the consumer thread, so the copy overlaps the
-step still running.
+``default_rng(seed)``; with ``batch_rows`` only that slice of each batch
+is decoded, after the full batch's seeds are drawn. Decode
+(``data/png.py``: zlib releases the GIL) runs on a thread pool; a
+producer thread keeps up to ``prefetch`` batches ready. Batches come out
+as NHWC fp32: host numpy when ``device`` is None, else tensors pinned by
+the producer and copied to ``device`` with ``non_blocking=True`` on the
+consumer thread, so the copy overlaps the step still running. ``eval_batches`` yields an eval set one image at a
+time, as the JAX ``eval_batches`` does.
 """
 
 from __future__ import annotations
@@ -38,12 +40,17 @@ class TrainLoader:
         shuffle: bool = True,
         prefetch: int = 4,
         device: Optional[Union[str, torch.device]] = None,
+        batch_rows: Optional[slice] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.prefetch = prefetch
         self.device = None if device is None else torch.device(device)
+        # decode only this row range of every batch while still drawing the
+        # augmentation seeds of the full batch: a multi-process rank's slice
+        # (parallel/multihost.py), with one seed stream in every rank
+        self.batch_rows = batch_rows
         self._rng = np.random.default_rng(seed)
         self.steps_per_epoch = max(1, len(dataset) // batch_size)
         self._pool = ThreadPoolExecutor(max_workers=num_threads)
@@ -53,6 +60,9 @@ class TrainLoader:
 
     def _make_batch(self, indices) -> Tuple[np.ndarray, np.ndarray]:
         seeds = self._rng.integers(0, 2**31, size=len(indices))
+        if self.batch_rows is not None:
+            indices = indices[self.batch_rows]
+            seeds = seeds[self.batch_rows]
 
         def one(args):
             idx, s = args
@@ -116,3 +126,19 @@ class TrainLoader:
                     q.get_nowait()
                 except queue.Empty:
                     t.join(0.01)
+
+
+def eval_batches(dataset, device=None):
+    """Yield ``(image[1, H, W, 3], name, orig_h, orig_w)`` per eval file:
+    host numpy when ``device`` is None, else a tensor on ``device``."""
+    for i in range(len(dataset)):
+        item = dataset[i]
+        if len(item) == 4:
+            img, name, h, w = item
+        else:
+            img, name = item
+            h, w = img.shape[:2]
+        x = img[None]
+        if device is not None:
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        yield x, name, h, w

@@ -7,12 +7,16 @@ padding, PNGs into ``output_folder``. ``Evaluator`` is ``serve.Enhancer``
 (pad, forward, clip, crop on one device) with the JAX evaluator's bucket
 quantum and ``run_dataset``: images grouped by padded shape and run in
 batches, decoded and written by host threads while the card computes.
+With a ``mesh`` of several devices each batch is split over the replicas
+(``parallel/inference.py``, as ``dp_enhance_fn``), its rows padded to a multiple
+of the mesh size by repeating the last, as the JAX evaluator pads them.
 ``_bucket`` and ``_pad_to`` live in ``serve.py``, the base class's module
 (which this one imports, so it cannot import them from here).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -22,6 +26,8 @@ import numpy as np
 
 from hvi_cidnet_torch.data.datasets import save_image
 from hvi_cidnet_torch.models.cidnet import HVIGates
+from hvi_cidnet_torch.parallel.inference import over_replicas
+from hvi_cidnet_torch.parallel.mesh import Mesh
 from hvi_cidnet_torch.serve import Enhancer, _bucket, _pad_to
 
 
@@ -55,14 +61,36 @@ def plan_bucket_quantum(
 class Evaluator(Enhancer):
     """``Enhancer`` with the JAX ``Evaluator``'s positional order
     (``weights, config, gates``), its ``max_programs`` (``run_dataset``'s
-    opt-in bound on the number of padded shapes) and ``run_dataset``. The
-    other keywords (``bucket_factor``, ``gamma``, ``compute_dtype``,
-    ``device``, ...) are ``Enhancer``'s."""
+    opt-in bound on the number of padded shapes), its ``mesh`` and
+    ``run_dataset``. The other keywords (``bucket_factor``, ``gamma``,
+    ``compute_dtype``, ``routes``, ...) are ``Enhancer``'s; with a mesh of
+    several devices, ``device`` is its first (where the rows come back)."""
 
     def __init__(self, weights, config=None, gates: HVIGates = HVIGates(), *,
-                 max_programs: Optional[int] = None, **kw):
+                 max_programs: Optional[int] = None, mesh: Optional[Mesh] = None, **kw):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            kw["device"] = self.mesh.devices[0]
         super().__init__(weights, gates, config=config, **kw)
         self.max_programs = max_programs
+        if self.mesh is not None:
+            # this evaluator is the first device's replica; the others
+            # are copies of its (cast) model
+            self._dp = over_replicas(self.mesh, [self] + [
+                Enhancer(copy.deepcopy(self.model), gates, gamma=self.gamma,
+                         compute_dtype=self.compute_dtype, device=d, routes=self.routes)
+                for d in self.mesh.devices[1:]])
+
+    def enhance_batch(self, imgs: np.ndarray) -> np.ndarray:
+        """Enhance a stacked NHWC batch whose H, W are multiples of 8 (over
+        the mesh when there is one)."""
+        if self.mesh is None:
+            return super().enhance_batch(imgs)
+        n = imgs.shape[0]
+        pad = (-n) % self.mesh.size
+        if pad:  # repeat rows to a multiple of the mesh; their outputs are dropped
+            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
+        return self._dp(imgs)[:n].cpu().numpy()
 
     def run_dataset(
         self, dataset, output_folder: str, *, verbose: bool = True, batch_size: int = 8

@@ -15,7 +15,8 @@ used: it would replace IEEE division and ``sinf``/``cosf``/``powf``/
 ``atan2f`` with approximations.
 
 Each kernel is a :class:`CudaKernel`: a C symbol plus a plain integer
-``launches`` count that goes up by one for every successful launch.
+``launches`` count that goes up by one for every successful launch, under a
+lock (data-parallel serving launches from one host thread per replica).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Sequence
@@ -130,6 +132,7 @@ class CudaKernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + the stream
         self.launches = 0
         self._fn = None
+        self._lock = threading.Lock()
 
     def __call__(self, device: torch.device, *args) -> None:
         """Launch on ``device``'s current stream, with ``device`` current.
@@ -148,7 +151,8 @@ class CudaKernel:
                 err = self._fn(*args, _raw_stream(index))
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: cudaError {err}")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 def widest_vector(size: int, offset: int, itemsize: int) -> int:

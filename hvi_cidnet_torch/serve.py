@@ -95,8 +95,10 @@ class Enhancer:
         self.bucket_factor = bucket_factor
 
     @torch.no_grad()
-    def _forward(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device, self.compute_dtype)
+    def _forward(self, x: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        t = x.to(self.device, self.compute_dtype)
         if self.gamma != 1.0:
             t = t**self.gamma  # eval.py:64
         out = cidnet_forward(self.model, t, self.gates, compute_dtype=self.compute_dtype,

@@ -18,16 +18,23 @@ leafless state with ``"clip"``), laid out by ``opt_leaf_names``:
   last n     Adam's second moment (``exp_avg_sq``), sorted by name
 
 Conv weights' moments are HWIO, as their ``param::`` entries are.
+
+``broadcast_state_`` hands process 0's parameters and Adam state to every
+rank of a group (the JAX CLI's ``multihost_utils.broadcast_one_to_all`` of
+a resumed checkpoint); ``state_digest`` names a state by its bytes, so
+ranks and files can be compared.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hvi_cidnet_torch.compat import checkpoint as _compat
 from hvi_cidnet_torch.compat.jax_params import (
@@ -83,6 +90,23 @@ def save_checkpoint(path: str, model: torch.nn.Module,
     return _compat.save_checkpoint(path, model.state_dict(), epoch, leaves)
 
 
+def _load_adam_state(model, optimizer, moments: Dict[str, Dict[str, torch.Tensor]],
+                     steps: Dict[str, float], lr: float) -> None:
+    """Give ``optimizer`` these Adam moments (``exp_avg`` / ``exp_avg_sq``
+    by parameter name), step counts and lr, through ``load_state_dict``
+    (which puts each on its parameter's device, as Adam keeps it)."""
+    named = dict(model.named_parameters())
+    sd = optimizer.state_dict()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    index = {id(p): i for i, p in enumerate(params)}
+    sd["state"] = {index[id(named[n])]: {"step": torch.tensor(float(steps[n])),
+                                         **{key: moments[key][n] for _, key in MOMENTS}}
+                   for n in named}
+    for g in sd["param_groups"]:
+        g["lr"] = lr
+    optimizer.load_state_dict(sd)
+
+
 def _set_optimizer_state(model, optimizer, leaves: List[np.ndarray]) -> None:
     named = dict(model.named_parameters())
     names = sorted(named)
@@ -93,15 +117,8 @@ def _set_optimizer_state(model, optimizer, leaves: List[np.ndarray]) -> None:
     count = float(leaf["adam.count"])
     moments = {key: jax_params_to_torch({n: leaf[f"{m}.{n}"] for n in names})
                for m, key in MOMENTS}
-    sd = optimizer.state_dict()
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    index = {id(p): i for i, p in enumerate(params)}
-    sd["state"] = {index[id(named[n])]: {"step": torch.tensor(count),
-                                         **{key: moments[key][n] for _, key in MOMENTS}}
-                   for n in names}
-    for g in sd["param_groups"]:
-        g["lr"] = float(leaf["hyperparams.learning_rate"])
-    optimizer.load_state_dict(sd)
+    _load_adam_state(model, optimizer, moments, dict.fromkeys(names, count),
+                     float(leaf["hyperparams.learning_rate"]))
 
 
 def load_checkpoint(path: str, model: torch.nn.Module,
@@ -136,3 +153,68 @@ def latest_epoch(weights_dir: str) -> int:
             if m:
                 best = max(best, int(m.group(1)))
     return best
+
+
+def broadcast_state_(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer] = None,
+                     src: int = 0, group=None) -> None:
+    """Make every rank's parameters and Adam state (moments, step counts,
+    lr) rank ``src``'s, bit for bit: a header (whether ``src`` holds Adam
+    state, its lr) and one flat fp32 buffer (parameters, then first and
+    second moments, then step counts, in ``named_parameters`` order) are
+    broadcast on the parameters' device. Only ``src`` needs to have read
+    the checkpoint; a rank without the file resumes all the same."""
+    named = list(model.named_parameters())
+    device = named[0][1].device
+    is_src = dist.get_rank() == src
+    states = [optimizer.state.get(p, {}) for _, p in named] if optimizer is not None else []
+    has = is_src and bool(states) and all("exp_avg" in st for st in states)
+    lr = optimizer.param_groups[0]["lr"] if optimizer is not None else 0.0
+    header = torch.tensor([float(has), lr], dtype=torch.float64, device=device)
+    dist.broadcast(header, src, group=group)
+    has, lr = bool(header[0].item()), header[1].item()
+    sizes = [p.numel() for _, p in named] * (3 if has else 1) + ([len(named)] if has else [])
+    if is_src:
+        parts = [p.detach().float().reshape(-1) for _, p in named]
+        if has:
+            for _, key in MOMENTS:
+                parts += [st[key].float().reshape(-1) for st in states]
+            parts.append(torch.stack([torch.as_tensor(st["step"]).float().to(device)
+                                      for st in states]))
+        flat = torch.cat(parts)
+    else:
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    dist.broadcast(flat, src, group=group)
+    if is_src:
+        return
+    chunks = iter(flat.split(sizes))
+    with torch.no_grad():
+        for _, p in named:
+            p.copy_(next(chunks).view_as(p))
+    if optimizer is None:
+        return
+    if has:
+        moments = {key: {n: next(chunks).view_as(p).clone() for n, p in named}
+                   for _, key in MOMENTS}
+        steps = dict(zip((n for n, _ in named), next(chunks).tolist()))
+        _load_adam_state(model, optimizer, moments, steps, lr)
+    else:
+        for g in optimizer.param_groups:
+            g["lr"] = lr
+
+
+def state_digest(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer] = None) -> str:
+    """A sha256 (16 hex digits) of the parameters' bytes and, when given,
+    Adam's moments, step counts and lr, in ``named_parameters`` order."""
+    h = hashlib.sha256()
+    named = list(model.named_parameters())
+    for _, p in named:
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    if optimizer is not None:
+        for _, p in named:
+            st = optimizer.state.get(p, {})
+            h.update(repr(float(st["step"]) if "step" in st else 0.0).encode())
+            for _, key in MOMENTS:
+                if key in st:
+                    h.update(st[key].detach().float().cpu().numpy().tobytes())
+        h.update(repr(float(optimizer.param_groups[0]["lr"])).encode())
+    return h.hexdigest()[:16]

@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from hvi_cidnet_torch.losses.basic import edge_loss, l1_loss, ssim_loss
@@ -223,6 +224,35 @@ def accumulate_gradients(model, low, high, gamma, vgg, config) -> Tuple[torch.Te
     return sum(losses) / accum, torch.cat(outs)
 
 
+def check_dp_batch(batch: int, accum: int, world: int) -> None:
+    """The JAX step's checks on the global batch: it must split into
+    ``accum`` microbatches, and each microbatch over the ``world`` ranks."""
+    if accum > 1 and batch % accum:
+        raise ValueError(f"batch {batch} must be divisible by --grad_accum {accum}")
+    if (batch // accum) % world:
+        raise ValueError(
+            f"microbatch {batch // accum} (batch {batch} / grad_accum {accum}) must be "
+            f"divisible by the {world}-process group for the data-parallel train step — "
+            "choose --batchSize as a multiple of devices * grad_accum"
+        )
+
+
+def all_reduce_mean_(loss: torch.Tensor, params, group=None) -> torch.Tensor:
+    """``jax.lax.pmean`` of the loss and the gradients over ``group``: one
+    flat fp32 buffer (the loss, then each parameter's gradient in order),
+    one ``all_reduce(SUM)``, a division by the world size, the gradients
+    written back. Returns the group's mean loss."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([loss.detach().float().reshape(1)] + [g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat.div_(dist.get_world_size(group))
+    offset = 1
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[0]
+
+
 def train_step(
     model: CIDNet,
     optimizer: torch.optim.Optimizer,
@@ -231,10 +261,28 @@ def train_step(
     gamma,
     vgg: Optional[VGGFeatures],
     config: TrainConfig,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One update on the batch (NHWC fp32 on the model's device). Returns
-    (loss, output_rgb) as device tensors: nothing is read back here."""
+    (loss, output_rgb) as device tensors: nothing is read back here.
+
+    ``group``: a ``torch.distributed`` group (``dist.group.WORLD`` for all
+    processes) whose ranks each hold their rows of one global batch. The
+    loss and gradients of the local microbatches are mean-reduced over it
+    before the clip and the update (``all_reduce_mean_``), so every rank
+    makes the same update: the JAX step's per-microbatch ``pmean``, taken
+    once after the microbatches (the mean is linear: equal up to
+    rounding). The returned loss is the group's mean; the output is this
+    rank's rows. Not ``DistributedDataParallel``: it reduces inside each
+    microbatch's backward, and base's ``I_LCA5`` gets no autograd gradient
+    (it only holds the zero one ``make_optimizer`` gives it), which DDP
+    would have to search for."""
+    if group is not None:
+        check_dp_batch(low.shape[0] * dist.get_world_size(group),
+                       max(int(config.grad_accum), 1), dist.get_world_size(group))
     loss, out = accumulate_gradients(model, low, high, gamma, vgg, config)
+    if group is not None:
+        loss = all_reduce_mean_(loss, model.parameters(), group)
     if config.grad_clip_mode == "clip":
         clip_by_global_norm_(p.grad for p in model.parameters())
     optimizer.step()

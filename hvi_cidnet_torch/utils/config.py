@@ -8,9 +8,10 @@ true/false strings; the dataset selector is validated up front) and its
 additions (compute dtype, remat, gradient accumulation, synthetic smoke
 mode, ...). Flags with no meaning here stay parseable, so a reference or
 JAX command line runs unchanged: ``--gpu_mode`` and ``--compile_cache``
-do nothing; ``--multihost true`` and ``--ckpt_backend orbax`` raise
-``NotImplementedError`` (``check_supported``). ``--cpu`` runs on the CPU;
-the default is the card.
+do nothing; ``--multihost true`` trains as one process of a
+``torch.distributed`` group and ``--ckpt_backend orbax`` writes the
+``.npz`` per epoch in the background (``train/async_ckpt.py``: the card has
+no orbax). ``--cpu`` runs on the CPU; the default is the card.
 """
 
 from __future__ import annotations
@@ -143,10 +144,11 @@ def option() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_steps", type=int, default=0,
                    help=">0: train on synthetic data for N steps/epoch (smoke mode)")
 
-    # ---- multi-host launch (the JAX package's; no reference twin: the
-    # reference is single-GPU, train.py:34). Not ported: true raises ----
+    # ---- multi-process launch (the JAX package's; no reference twin: the
+    # reference is single-GPU, train.py:34) ----
     p.add_argument("--multihost", type=str2bool, default=False,
-                   help="multi-host training: not ported, true raises")
+                   help="train as one process of a torch.distributed group "
+                        "(flags below or torchrun's environment); requires --seed")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of process 0 (multihost)")
     p.add_argument("--num_processes", type=int, default=None,
@@ -156,7 +158,8 @@ def option() -> argparse.ArgumentParser:
 
     p.add_argument("--ckpt_backend", type=str, default="npz", choices=["npz", "orbax"],
                    help="checkpoint format: npz (single file, the default); "
-                        "orbax is not ported and raises")
+                        "orbax: the same .npz per epoch under weights/train/orbax/<epoch>/, "
+                        "written in the background (the port has no orbax)")
     p.add_argument("--ckpt_keep", type=int, default=None,
                    help="orbax only: keep at most N checkpoints (default all)")
 
@@ -175,15 +178,3 @@ def selected_dataset(opt) -> str:
             f"(pass e.g. --lol_v1 true --lmot false)"
         )
     return chosen[0]
-
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, item 6, scale-out)"
-
-
-def check_supported(opt) -> None:
-    """Raise for the flags whose paths are not ported: multi-host training
-    and orbax checkpoints."""
-    if opt.multihost:
-        raise NotImplementedError(f"--multihost: multi-host training {NOT_PORTED}")
-    if opt.ckpt_backend == "orbax":
-        raise NotImplementedError(f"--ckpt_backend orbax: orbax checkpoints {NOT_PORTED}")

@@ -6,7 +6,7 @@ and weights, at full width as the CLIs run: the same files, each PNG within
 one uint8 level (the forwards agree within 2e-5 and truncation may flip at a
 level's boundary), and TNSM's ``loaded n/m tensors`` line. The route table
 and the flag surface equal the JAX CLI's; ``--dp`` over several CUDA devices
-raises. The module-scoped fixture runs each JAX CLI once, with the JAX
+gives a mesh of them. The module-scoped fixture runs each JAX CLI once, with the JAX
 Pallas kernels in interpret mode (``PALLAS_FORCE_INTERPRET=1``).
 """
 
@@ -133,9 +133,14 @@ def test_eval_cli_routes_like_jax():
 
 def test_dp_raises_on_several_cuda_devices_and_compile_cache_says_it_does_nothing(
         monkeypatch, capsys):
+    """``--dp`` with two cards (the count monkeypatched) gives a mesh of
+    both, which ``placement`` hands to ``Evaluator``; with one, a no-op."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eval_cli.device_of(eval_cli.parser().parse_args(["--lol", "--dp"]))
+    mesh = eval_cli.device_of(eval_cli.parser().parse_args(["--lol", "--dp"]))
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert mesh.axis_names == ("data",) and eval_cli.placement(mesh) == {"mesh": mesh}
+    assert "dp serving: batch sharded over 2 devices" in capsys.readouterr().out
+    assert eval_cli.device_of(eval_cli.parser().parse_args(["--lol", "--dp", "--cpu"])) == "cpu"
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert eval_cli.device_of(eval_cli.parser().parse_args(
         ["--lol", "--dp", "--compile_cache", "d"])) == "cuda"

@@ -7,8 +7,9 @@ The flag surface and defaults equal the JAX parser's (``--cpu`` added);
 included), and trains a generated LMOT layout with the in-loop eval, once
 with ``Evaluator.run_dataset`` stubbed out: the eval gets a copy of the
 model, so the parameters after epoch 2 are the same and still fp32. The
-dataset lengths of the other layouts, the raises of the flags not ported
-and the report's rows are checked too. Each run happens in ``tmp_path``
+dataset lengths of the other layouts, ``--multihost``'s error without a
+coordinator, ``--ckpt_backend orbax``'s files and the report's rows are
+checked too. Each run happens in ``tmp_path``
 (the CLI writes ``./weights/train`` and ``--val_folder`` there).
 """
 
@@ -22,6 +23,7 @@ from PIL import Image
 
 from hvi_cidnet_tpu.utils.config import option as jax_option
 from hvi_cidnet_torch.cli import train, train_tnsm
+from hvi_cidnet_torch.compat.jax_params import torch_to_jax_params
 from hvi_cidnet_torch.data import png
 from hvi_cidnet_torch.eval.evaluator import Evaluator
 from hvi_cidnet_torch.train import checkpoint as ckpt
@@ -136,9 +138,27 @@ def test_dataset_lengths_of_the_layouts(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--multihost", "true"], ["--ckpt_backend", "orbax"]])
 def test_flags_not_ported_raise(tmp_path, monkeypatch, flags):
+    """Both flags are ported now: ``--multihost true`` with no coordinator
+    and no launcher environment raises a clear error before training;
+    ``--ckpt_backend orbax`` writes ``weights/train/orbax/<epoch>/
+    checkpoint.npz`` in the background and no ``epoch_N.npz``."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        train.main(SMOKE + flags)
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    if flags[0] == "--multihost":
+        with pytest.raises(ValueError, match="no coordinator; pass --coordinator_address"):
+            train.main(SMOKE + flags)
+        assert not os.path.exists("weights")
+        return
+    record = train.main(SMOKE + flags + ["--use_perceptual", "false"])
+    assert sorted(os.listdir("weights/train")) == ["orbax"]
+    assert sorted(os.listdir("weights/train/orbax")) == ["1", "2"]
+    assert ckpt.latest_epoch("weights/train") == 0
+    leaves = np.load("weights/train/orbax/2/checkpoint.npz")
+    assert int(leaves["opt::6"]) == 4 and int(leaves["meta::epoch"]) == 2
+    saved = {k[len("param::"):]: leaves[k] for k in leaves.files if k.startswith("param::")}
+    ours = torch_to_jax_params(record["model"].state_dict())
+    assert set(saved) == set(ours) and all(np.array_equal(saved[k], ours[k]) for k in ours)
 
 
 def test_no_cpu_fallback_without_a_card(tmp_path, monkeypatch):
