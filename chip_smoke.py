@@ -169,10 +169,30 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    ranks' final state; (f) every rank's launches a step K1 3, K2 1, K3 6,
    K4 6, K5 11, K6 33, K7 22; prints the bf16 step's ms for two ranks and
    for one process (information: one card) and the step's seconds;
-13. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
+13. serves one image with its rows split over a row group on the card
+   (this slice's path), with PIL, cv2 and jax made unimportable, on the
+   cards or, with one card, on it repeated, every plain version made to
+   raise on a CUDA tensor: (a) base, MSSA and TNSM at full width, a 1 x 720
+   x 1280 frame (gates and gamma on) through ``spatial_enhance_fn`` over 2
+   shards against one device's forward of the same frame (fp32 within each
+   variant's forward bars, bf16 within its bf16 mean bar); (b) the same over
+   4 shards, 720 padded to 736 and cropped back (fp32); (c)
+   ``dp_spatial_enhance_fn`` on a (2, 2) mesh at 4 x 400 x 600 (fp32, bf16)
+   and its indivisible batch; (d) on every run of (a) and (b), K5's A
+   bitwise equal on every shard at every site, and each K3, K4 and K7 site's
+   band outputs bitwise the whole-plane kernel's on the shards' inputs put
+   together; (e) the launches of a frame, per shard, base K1 1, K2 1, K3 6,
+   K4 6, K5 11 (its split entries; the one-call entry 0), K6 33, K7 22, MSSA
+   and TNSM at theirs; (f) ``cli/demo.py --spatial --random_init`` against
+   the same call without the flag; (g) prints the frame's ms over 2 and 4
+   shards against one device's in turns, the shards' host time in
+   exchanges and halo assembly and the device time of the concatenation
+   kernels (information);
+14. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
    parity eval, ``launches_eval`` from step 9's, ``launches_train`` from
    step 11b's, ``launches_dp_serving`` and ``launches_dp_train_step`` from
-   step 12's) and, last, ``{"ok": true, "device": ...}``.
+   step 12's, ``launches_spatial`` from 13a's base bf16 frame) and, last,
+   ``{"ok": true, "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -188,6 +208,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2880,6 +2901,618 @@ def _dp_training(res: dict, smi: str, cards: int, where: str, tmp: str) -> dict:
     return per_step
 
 
+# step 13: spatial row sharding on the card. A LOL-Blur frame (1280 x 720)
+# over 2 row shards (720 divides 16) and 4 (720 pads to 736), a (2, 2) mesh
+# at 4 x 400 x 600; the card's devices repeated where there is one card
+SPATIAL_FRAME = (720, 1280)
+SPATIAL_DP_BATCH = 4
+TNSM_ULP_FACTOR = 10  # TOL_TNSM sits at 9-12x its measured sensitivities
+CLI_DEVICE: list = []  # the demo's device flags (none: the card)
+
+
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """``module.name`` replaced by ``wrap(original)`` inside the block."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def plain_versions_forbidden():
+    """Every kernel's plain version raises when it is handed a CUDA tensor
+    inside the block (the spatial path must launch the kernels). Yields the
+    plain versions themselves by name, for the checks."""
+    from hvi_cidnet_torch.ops import (
+        attention, attention_cuda, hvi_cuda, iel_cuda, norm_cuda, resize_cuda,
+    )
+
+    def forbid(name):
+        def wrap(fn):
+            def guarded(*args, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    raise AssertionError(f"{name} ran on the card")
+                return fn(*args, **kw)
+            return guarded
+        return wrap
+
+    sites = [(hvi_cuda, "rgb_to_hvi_plain"), (hvi_cuda, "hvi_to_rgb_plain"),
+             (resize_cuda, "half_prelu_plain"), (resize_cuda, "double_bilinear_plain"),
+             (attention_cuda, "channel_attention_plain"), (attention, "attention_partials"),
+             (attention, "attention_from_partials"), (norm_cuda, "layer_norm_plain"),
+             (iel_cuda, "iel_branch_plain")]
+    plain = {name: getattr(module, name) for module, name in sites}
+    with contextlib.ExitStack() as stack:
+        for module, name in sites:
+            stack.enter_context(patched(module, name, forbid(f"{module.__name__}.{name}")))
+        yield plain
+
+
+@contextlib.contextmanager
+def band_capture(record: dict):
+    """Record, by rank, in call order, what a sharded forward hands the
+    kernels: ``record[key][rank]`` lists (args, output) of every K3, K4 and
+    K7 launch on a band ("K3", "K4", "K7"), of every call of the layers'
+    dispatchers ("K3 site", "K4 site", "K7 site": the shard's own rows),
+    of K5's split ("K5": q, k, v, temperature, heads, normalize_qk, w_proj
+    and the output; "K5 scores": its partials; "K5 A": the rows pass's A)
+    and TNSM's pools ("pools": x and the (mean, max) every shard uses)."""
+    from hvi_cidnet_torch.models import layers, tnsm
+    from hvi_cidnet_torch.ops import attention_cuda, iel_cuda, resize_cuda
+    from hvi_cidnet_torch.parallel import rows
+
+    def keep(key, pick=lambda args, kw, out: (args, out)):
+        def wrap(fn):
+            def recorded(*args, **kw):
+                out = fn(*args, **kw)
+                shard = rows.current()
+                if shard is not None:
+                    record.setdefault(key, {}).setdefault(shard.rank, []).append(
+                        pick(args, kw, out))
+                return out
+            return recorded
+        return wrap
+
+    def k5(args, kw, out):
+        q, k, v, temp, heads = args[1:6]
+        return (q, k, v, temp, heads, kw.get("normalize_qk", True), kw.get("w_proj")), out
+
+    with patched(layers, "half_prelu", keep("K3 site")), \
+            patched(layers, "double_bilinear", keep("K4 site")), \
+            patched(layers, "iel_branch", keep("K7 site")), \
+            patched(resize_cuda, "half_prelu_kernel", keep("K3")), \
+            patched(resize_cuda, "double_bilinear_kernel", keep("K4")), \
+            patched(iel_cuda, "iel_branch_kernel", keep("K7")), \
+            patched(attention_cuda, "channel_attention_rows", keep("K5", k5)), \
+            patched(attention_cuda, "attention_scores_kernel",
+                    keep("K5 scores", lambda a, kw, out: out)), \
+            patched(attention_cuda, "attention_rows_apply_kernel",
+                    keep("K5 A", lambda a, kw, out: out[1])), \
+            patched(tnsm, "global_pools",
+                    keep("pools", lambda a, kw, out: (a[0], out))):
+        yield
+
+
+# K5's scores pass against its plain version: each entry of a shard's
+# partial sums (its splits added in float64) within TOL_K5_PARTIALS of the
+# Cauchy-Schwarz bound of that entry (|q_r| |k_c| for a score, the entry
+# itself for a squared norm): an fp32 sum over up to 460,800 pixels in
+# another order than the plain bmm's
+TOL_K5_PARTIALS = 1e-5
+# TNSM's pools: the mean over the whole frame within TOL_POOL of the mean of
+# |x| (fp32: sums over the shards' rows in another order), in bf16 one ulp
+# of the bf16 mean more; the max bitwise
+TOL_POOL = 1e-6
+
+
+def check_bands(record: dict, n: int, what: str, plain: dict) -> dict:
+    """(d) on one sharded forward's ``record`` (``band_capture``):
+
+    * K5's A bitwise equal on every shard at each site; the scores pass's
+      partial sums against ``attention_partials`` on the shard's q and k
+      (TOL_K5_PARTIALS); the rows and apply passes' output against
+      ``attention_from_partials`` over the shards' plain partials on the
+      CPU in fp32, at K5's bars (fp32 TOL_FP32["K5"], bf16 TOL_BF16_REL
+      relative), and in fp32 A itself against ``partials_matrix``;
+    * every K3, K4 and K7 launch on a band bitwise its plain version on the
+      same band (K3 and K4 with the band's slice of the whole image's H
+      taps), and each site's band outputs, stacked, bitwise the whole-plane
+      kernel's on the shards' rows stacked;
+    * TNSM's pools on every shard against the whole frame's;
+    * planted faults, at the first site: a K5 gather that misses a shard, a
+      score partial met one column off, a halo row of K4 and K7 one row
+      off, K3's taps the band's own, a mean over one shard's rows: each
+      must fail its check.
+
+    Returns the sites checked by kernel and the largest errors."""
+    from hvi_cidnet_torch.models import layers
+    from hvi_cidnet_torch.models.tnsm import global_pools
+    from hvi_cidnet_torch.ops import attention
+    from hvi_cidnet_torch.ops.resize import axis_weights
+
+    sites, worst = {}, {"K5 partials": 0.0, "K5 out": 0.0, "K5 A": 0.0, "pool mean": 0.0}
+    a = record["K5 A"]
+    for i in range(len(a[0])):
+        for r in range(1, n):
+            if not torch.equal(a[0][i], a[r][i]):
+                raise AssertionError(f"{what}: K5 site {i}: shard {r}'s A differs from shard 0's")
+
+    def partials_err(got, want, c, heads):
+        """max over entries of |got - want| / the entry's Cauchy-Schwarz
+        bound; ``got`` (B, S, stride) added over S in float64, ``want`` (B,
+        1, stride)."""
+        b, cp = want.shape[0], c // heads
+        got, want = got.double().sum(1), want.double()[:, 0]
+        sq_q, sq_k = want[:, c * cp:c * cp + c], want[:, c * cp + c:]
+        bound = (sq_q.reshape(b, heads, cp, 1) * sq_k.reshape(b, heads, 1, cp)).sqrt()
+        scale = torch.cat([bound.reshape(b, c * cp), sq_q, sq_k], dim=1).clamp_min(1e-30)
+        return ((got - want).abs() / scale).max().item()
+
+    for i in range(len(record["K5"][0])):
+        calls = [record["K5"][r][i][0] for r in range(n)]
+        q0, _, v0, temp, heads, norm, wp = calls[0]
+        dt, c = v0.dtype, v0.shape[1]
+        cpu = lambda t: None if t is None else t.cpu()
+        parts = [plain["attention_partials"](cpu(q), cpu(k), heads) for q, k, *_ in calls]
+        whole = torch.cat(parts, dim=1)
+        for r in range(n):
+            err = partials_err(record["K5 scores"][r][i].cpu(), parts[r], c, heads)
+            worst["K5 partials"] = max(worst["K5 partials"], err)
+            check(f"{what}: K5 site {i} shard {r} scores pass vs plain (relative to "
+                  f"|q_r| |k_c|)", err, TOL_K5_PARTIALS)
+            want = plain["attention_from_partials"](whole, cpu(calls[r][2]), cpu(temp), heads,
+                                                    normalize_qk=norm, w_proj=cpu(wp))
+            got = record["K5"][r][i][1].cpu()
+            if dt == torch.float32:
+                err = max_err(got, want)
+                check(f"{what}: K5 site {i} shard {r} rows+apply vs the plain split", err,
+                      TOL_FP32["K5"])
+                mat = attention.partials_matrix(whole, cpu(temp), heads, normalize_qk=norm,
+                                                w_proj=cpu(wp))
+                got_a = a[r][i].view(torch.float32)[:mat.numel()].reshape(mat.shape).cpu()
+                a_err = max_err(got_a, mat)
+                check(f"{what}: K5 site {i} shard {r} A vs the plain split", a_err,
+                      TOL_FP32["K5"])
+                worst["K5 A"] = max(worst["K5 A"], a_err)
+            else:
+                err = rel_err(got, want)
+                if not err <= TOL_BF16_REL:
+                    raise AssertionError(f"{what}: K5 site {i} shard {r} rows+apply vs the plain "
+                                         f"split: rel err {err:.3e} > {TOL_BF16_REL:.1e}")
+            worst["K5 out"] = max(worst["K5 out"], err)
+        if i == 0:  # planted faults: each must fail the check that holds the kernel
+            missing = torch.cat([parts[0]] * n, dim=1)
+            off = parts[1].clone()
+            off[..., :c * c // heads] = off[..., :c * c // heads].roll(1, dims=-1)
+            if partials_err(record["K5 scores"][1][0].cpu(), off, c, heads) <= TOL_K5_PARTIALS:
+                raise AssertionError(f"{what}: K5 scores check passes a column-off partial")
+            got = record["K5"][0][0][1].cpu()
+            bar = TOL_FP32["K5"] if dt == torch.float32 else TOL_BF16_REL
+            errors = {}
+            for fault, (p, rows_v) in {"a gather missing shard 1": (missing, calls[0][2]),
+                                       "the apply on shard 1's rows": (whole, calls[1][2])}.items():
+                bad = plain["attention_from_partials"](p, cpu(rows_v), cpu(temp), heads,
+                                                       normalize_qk=norm, w_proj=cpu(wp))
+                errors[fault] = max_err(got, bad) if dt == torch.float32 else rel_err(got, bad)
+            # a bf16 A rounds away what a missing shard changes in a near-uniform softmax
+            # (random weights, q and k normalised): there it is information only
+            must = [f for f in errors if dt == torch.float32 or not norm or "apply" in f]
+            passed = [f for f in must if errors[f] <= bar]
+            if passed:
+                raise AssertionError(f"{what}: K5 rows+apply check passes a planted fault: "
+                                     f"{passed[0]} ({errors[passed[0]]:.3e})")
+            worst["K5 faults"] = errors
+    sites["K5"] = len(a[0])
+
+    # K3, K4, K7 launches on bands against their plain versions, bitwise
+    for key, fn in (("K3", "half_prelu_plain"), ("K4", "double_bilinear_plain"),
+                    ("K7", "iel_branch_plain")):
+        for r in range(n):
+            for j, (args, out) in enumerate(record[key][r]):
+                check_equal(f"{what}: {key} launch {j} shard {r} on its band vs its plain "
+                            f"version", out, plain[fn](*args))
+        args, out = record[key][n - 1][0]
+        band = args[0]
+        if key == "K3":  # the band's own taps in place of the image's: the drift shows
+            wrong = plain[fn](band, args[1], axis_weights("half", 2 * out.shape[-2], band.device))
+        else:  # the first halo row one row off
+            shifted = torch.cat([band[..., 1:2, :], band[..., 1:, :]], dim=-2)
+            wrong = plain[fn](shifted, *args[1:])
+        if torch.equal(wrong, out):
+            raise AssertionError(f"{what}: {key}'s band check passes a planted fault")
+    whole = {"K3": layers.half_prelu, "K4": layers.double_bilinear, "K7": layers.iel_branch}
+    for key, fn in whole.items():
+        calls = record[f"{key} site"]
+        for i in range(len(calls[0])):
+            args = [calls[r][i][0] for r in range(n)]
+            planes = torch.cat([x[0] for x in args], dim=-2)
+            got = torch.cat([calls[r][i][1] for r in range(n)], dim=-2)
+            check_equal(f"{what}: {key} site {i}, bands vs the whole plane",
+                        got, fn(planes, *args[0][1:]))
+        sites[key] = len(calls[0])
+
+    # TNSM's pools against the whole frame's
+    pools = record.get("pools", {})
+    for i in range(len(pools.get(0, []))):
+        x = torch.cat([pools[r][i][0] for r in range(n)], dim=-2)
+        avg, mx = global_pools(x)
+        scale = x.float().abs().mean(dim=(2, 3), keepdim=True)
+        for r in range(n):
+            got_avg, got_mx = pools[r][i][1]
+            err = (got_avg.float() - avg.float()).abs()
+            bar = TOL_POOL * scale + (avg.float().abs() * 2.0**-7 if x.dtype == torch.bfloat16
+                                      else 0.0)
+            if not (err <= bar).all():
+                raise AssertionError(f"{what}: TNSM pools site {i} shard {r}: mean off the whole "
+                                     f"frame's by {err.max().item():.3e}")
+            worst["pool mean"] = max(worst["pool mean"], (err / scale).max().item())
+            check_equal(f"{what}: TNSM pools site {i} shard {r}: max vs the whole frame's",
+                        got_mx, mx)
+        if i == 0:  # the mean over one shard's rows only
+            one = pools[0][i][0].float().mean(dim=(2, 3), keepdim=True)
+            if ((one - avg.float()).abs() <= TOL_POOL * scale).all():
+                raise AssertionError(f"{what}: the pools check passes a one-shard mean")
+    sites["pools"] = len(pools.get(0, []))
+    return sites, worst
+
+
+def split_line(worst: dict) -> str:
+    return (f"K5's split vs its plain split on the CPU: scores pass {worst['K5 partials']:.3e} "
+            f"(relative to |q_r| |k_c|, bar {TOL_K5_PARTIALS:.0e}), rows+apply output "
+            f"{worst['K5 out']:.3e}" + (f", A {worst['K5 A']:.3e}" if worst["K5 A"] else "")
+            + "; planted faults at site 0: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in worst["K5 faults"].items()))
+
+
+def pools_line(sites: dict, worst: dict) -> str:
+    if not sites["pools"]:
+        return ""
+    return (f"; TNSM's pools at {sites['pools']} sites: max bitwise the whole frame's, mean "
+            f"within {worst['pool mean']:.3e} of it (relative to the mean |x|)")
+
+
+def spatial_path(dev, kernels, smi: str) -> dict:
+    """Step 13, with PIL, cv2 and jax unimportable, in a temporary
+    directory. Returns the launches of base's bf16 frame over 2 shards (K5:
+    its split entries)."""
+    t0 = time.perf_counter()
+    with without_modules("PIL", "cv2", "jax"), tempfile.TemporaryDirectory() as tmp, cwd(tmp):
+        out = _spatial_path(dev, kernels, smi, tmp)
+    log(f"step 13 (spatial) took {time.perf_counter() - t0:.1f} s; card {smi}")
+    return out
+
+
+def _spatial_path(dev, kernels, smi: str, tmp: str) -> dict:
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates
+    from hvi_cidnet_torch.ops import attention_cuda
+    from hvi_cidnet_torch.parallel.inference import (
+        dp_spatial_enhance_fn, pad_to_mesh, spatial_enhance_fn,
+    )
+    from hvi_cidnet_torch.parallel.mesh import make_mesh
+    from hvi_cidnet_torch.serve import Enhancer
+
+    cards = torch.cuda.device_count()
+
+    def mesh(n, shape=None, axes=("spatial",)):
+        devices = [torch.device("cuda", i) for i in range(n)] if cards >= n else [dev] * n
+        return make_mesh(shape, axes, devices)
+
+    where = lambda n: "separate cards" if cards >= n else f"one card ({dev}, in turns)"
+    gates = HVIGates(gated=True, gated2=True, alpha=0.95, alpha_s=1.1)
+    gamma = 0.8
+    h, w = SPATIAL_FRAME
+    x = np.random.default_rng(13).uniform(0, 0.4, (1, h, w, 3)).astype(np.float32)
+    models = {v: CIDNet(CIDNetConfig(variant=v), generator=torch.Generator().manual_seed(13))
+              for v in VARIANTS}
+    split = {"scores": attention_cuda.ATTENTION_SCORES,
+             "rows_apply": attention_cuda.ATTENTION_ROWS_APPLY}
+
+    sensitivity = {}
+
+    def bars(variant, n):
+        if variant != "tnsm":
+            return TOL_FORWARD_MAX, TOL_FORWARD_MEAN, TOL_BF16_FORWARD_MEAN
+        # TNSM's softmax rows sum raw products over the level's pixels (230,400
+        # at level 1 of this frame, 4x TOL_TNSM's largest frame): its bars at this frame
+        # are TNSM_ULP_FACTOR x its own forward's change under a one-ulp input
+        # change (tests/tnsm_sensitivity.py's measure), never below TOL_TNSM
+        if n not in sensitivity:
+            sensitivity[n] = ulp_sensitivity(models["tnsm"], n)
+        s_max, s_mean = sensitivity[n]
+        return (max(TOL_TNSM["max"], TNSM_ULP_FACTOR * s_max),
+                max(TOL_TNSM["mean"], TNSM_ULP_FACTOR * s_mean), TOL_TNSM["bf16_mean"])
+
+    def single(model, dtype, n, xs=x):
+        """One device's forward of ``xs`` padded as n row shards pad it."""
+        one = Enhancer(copy.deepcopy(model), gates, gamma=gamma, compute_dtype=dtype, device=dev)
+        xp = pad_to_mesh(torch.from_numpy(xs), n)
+        return torch.from_numpy(one.enhance_batch(xp.numpy())[:, :xs.shape[1], :xs.shape[2]])
+
+    def ulp_sensitivity(model, n):
+        """(max, mean) change of one device's fp32 forward of the frame when
+        each input value moves one fp32 ulp, up or down at random."""
+        flip = np.where(np.random.default_rng(16).random(x.shape) < 0.5, -1, 1).astype(np.float32)
+        moved = (x + flip * np.spacing(x)).astype(np.float32)
+        d = (single(model, torch.float32, n, moved) - single(model, torch.float32, n)).abs()
+        log(f"13a/b tnsm fp32 frame padded for {n} shards, one device, input moved one ulp: "
+            f"output max {d.max().item():.3e}, mean {d.mean().item():.3e}; card {smi}")
+        return d.max().item(), d.mean().item()
+
+    def compare(what, got, ref, variant, dtype, n):
+        got = got.cpu()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: {tuple(got.shape)} != {tuple(ref.shape)} or not finite")
+        tol_max, tol_mean, tol_bf16 = bars(variant, n)
+        err = (got - ref).abs()
+        if dtype == torch.float32:
+            check(f"{what} (max)", err.max().item(), tol_max)
+            check(f"{what} (mean)", err.mean().item(), tol_mean)
+            bar = f"bars {tol_max:.1e} / {tol_mean:.1e}"
+        else:
+            check(f"{what} (mean)", err.mean().item(), tol_bf16)
+            bar = f"mean bar {tol_bf16:.1e}"
+        return err.max().item(), err.mean().item(), bar
+
+    launches = {}
+    with plain_versions_forbidden() as plain:
+        # (a) 2 shards, fp32 and bf16, each variant; (d) and (e) on each run
+        for variant, model in models.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                fn = spatial_enhance_fn(mesh(2), model, gates, gamma=gamma, compute_dtype=dtype)
+                ref = single(model, dtype, 2)
+                fn(x)  # warm-up
+                torch.cuda.synchronize()
+                reset(kernels)
+                reset(split)
+                record = {}
+                with band_capture(record):
+                    got = fn(x)
+                torch.cuda.synchronize()
+                count, count_split = counts(kernels), counts(split)
+                errs = compare(f"13a {variant} {dtype} 2 shards vs one device", got, ref, variant,
+                               dtype, 2)
+                sites, worst = check_bands(record, 2, f"13d {variant} {dtype}", plain)
+                del record
+                want = {k: 2 * v for k, v in PER_FORWARD[variant].items()}
+                want_split = want.pop("K5")
+                if count != dict(want, K5=0) or count_split != {"scores": want_split,
+                                                                 "rows_apply": want_split}:
+                    raise AssertionError(f"13e {variant} {dtype}: launches {count}, K5 split "
+                                         f"{count_split}; want two shards of {PER_FORWARD[variant]}"
+                                         f" with K5 split")
+                if variant == "base" and dtype == torch.bfloat16:
+                    launches = dict(count, K5=count_split["scores"])
+                log(f"13a {variant} {str(dtype)[6:]} 1x{h}x{w} over 2 shards ({where(2)}) vs one "
+                    f"device: max {errs[0]:.3e}, mean {errs[1]:.3e} ({errs[2]}); 13d K5's A bitwise equal "
+                    f"on both shards at {sites['K5']} sites, {split_line(worst)}; K3/K4/K7 "
+                    f"launches bitwise their plain versions on their bands and the bands the "
+                    f"whole plane at {sites['K3']}/{sites['K4']}/{sites['K7']} sites"
+                    f"{pools_line(sites, worst)}; planted faults rejected; 13e launches a "
+                    f"shard K1 {count['K1'] // 2}, K2 {count['K2'] // 2}, K3 {count['K3'] // 2}, "
+                    f"K4 {count['K4'] // 2}, K5 {count_split['scores'] // 2} (split; one-call "
+                    f"{count['K5']}), K6 {count['K6'] // 2}, K7 {count['K7'] // 2}; card {smi}")
+        # (b) 4 shards: 720 pads to 736 and is cropped back
+        for variant, model in models.items():
+            fn = spatial_enhance_fn(mesh(4), model, gates, gamma=gamma)
+            record = {}
+            with band_capture(record):
+                got = fn(x)
+            errs = compare(f"13b {variant} fp32 4 shards vs one device", got,
+                           single(model, torch.float32, 4), variant, torch.float32, 4)
+            sites, worst = check_bands(record, 4, f"13b/d {variant} fp32 4 shards", plain)
+            del record
+            log(f"13b {variant} fp32 1x{h}x{w} (padded to {-(-h // 32) * 32} rows) "
+                f"over 4 shards ({where(4)}) vs one device: max {errs[0]:.3e}, mean {errs[1]:.3e} ({errs[2]}); "
+                f"A equal on 4 shards at {sites['K5']} sites, {split_line(worst)}; bands bitwise"
+                f"{pools_line(sites, worst)}; card {smi}")
+        # (c) a (2, 2) mesh at 4 x 400 x 600, base
+        xb = np.random.default_rng(14).uniform(0, 0.4, (SPATIAL_DP_BATCH, H, W, 3)).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            fn = dp_spatial_enhance_fn(mesh(4, (2, 2), ("data", "spatial")), models["base"], gates,
+                                       gamma=gamma, compute_dtype=dtype)
+            errs = compare(f"13c base {dtype} (2, 2) mesh vs one device", fn(xb),
+                           single(models["base"], dtype, 2, xb), "base", dtype, 2)
+            log(f"13c dp_spatial_enhance_fn base {str(dtype)[6:]} {SPATIAL_DP_BATCH}x{H}x{W} on a "
+                f"(2, 2) mesh ({where(4)}) vs one device: max {errs[0]:.3e}, mean {errs[1]:.3e} ({errs[2]}); "
+                f"card {smi}")
+        try:
+            fn(xb[:3])
+            raise AssertionError("13c: a batch of 3 on the (2, 2) mesh did not raise")
+        except ValueError as e:
+            if "must be divisible by the 2-way 'data' axis" not in str(e):
+                raise
+        # (f) demo --spatial on the visible cards
+        _spatial_demo(cards, smi, tmp)
+    # (g) times in turns (information)
+    _spatial_times(dev, models["base"], mesh, gates, gamma, x, smi, where)
+    return launches
+
+
+def _spatial_demo(cards: int, smi: str, tmp: str) -> None:
+    """13f: ``cli/demo.py --spatial --random_init`` against the same call
+    without ``--spatial``: on one card the same PNG bytes (no effect), on
+    several within one uint8 level."""
+    from hvi_cidnet_torch.cli import demo
+    from hvi_cidnet_torch.data import png
+
+    img = (np.random.default_rng(15).uniform(0, 0.4, (H, W, 3)) * 255).astype(np.uint8)
+    src = os.path.join(tmp, "frame.png")
+    png.write(src, img)
+    argv = ["--random_init", "--input", src] + CLI_DEVICE
+    plain = run_cli(demo.main, argv + ["--output_dir", os.path.join(tmp, "plain")])
+    out = run_cli(demo.main, argv + ["--spatial", "--output_dir", os.path.join(tmp, "spatial")])
+    a, b = (png.read(os.path.join(tmp, d, "enhanced_frame.png")).astype(int)
+            for d in ("plain", "spatial"))
+    said = "spatial serving: rows sharded over" in out
+    if cards == 1:
+        if said or not np.array_equal(a, b):
+            raise AssertionError("13f: --spatial on one card changed the output or sharded")
+    elif not said or np.abs(a - b).max() > 1:
+        raise AssertionError("13f: --spatial over the cards: not sharded, or off by > 1 level")
+    log(f"13f cli/demo.py --spatial --random_init on {cards} card(s): "
+        f"{'no effect, the same PNG' if cards == 1 else 'sharded, within one uint8 level'}; "
+        f"plain run printed {len(plain.splitlines())} lines; card {smi}")
+
+
+def _spatial_times(dev, model, mesh, gates, gamma, x, smi: str, where) -> None:
+    """13g: ms of the frame over 2 and 4 shards against one device's forward
+    of the same padded frame (720 rows for 2 shards, 736 for 4), bf16, in
+    turns; where the host's time goes over 1, 2 and 4 shards and one
+    device (``_host_split``); the device time of the concatenation kernels
+    (the halo bands) beside one device's."""
+    from hvi_cidnet_torch.parallel.inference import pad_to_mesh, spatial_enhance_fn
+    from hvi_cidnet_torch.serve import Enhancer
+
+    bf = torch.bfloat16
+    one = Enhancer(copy.deepcopy(model), gates, gamma=gamma, compute_dtype=bf, device=dev)
+    frame = {n: spatial_enhance_fn(mesh(n), model, gates, gamma=gamma, compute_dtype=bf)
+             for n in (2, 4)}
+    padded = {n: pad_to_mesh(torch.from_numpy(x), n) for n in (2, 4)}
+    fns = {"one 720": lambda: one._forward(padded[2]), "2 shards": lambda: frame[2](x),
+           "one 736": lambda: one._forward(padded[4]), "4 shards": lambda: frame[4](x)}
+    ms = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in ("one 720", "2 shards", "one 736", "4 shards", "4 shards", "one 736", "2 shards",
+                  "one 720"):
+            ms[k].append(time_ms(fns[k], iters=5, warmup=2))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    log(f"13g base bf16 frame {SPATIAL_FRAME[1]}x{SPATIAL_FRAME[0]}: 2 shards "
+        f"{mean['2 shards']:.3f} ms against one device {mean['one 720']:.3f} ms ({where(2)}), "
+        f"4 shards {mean['4 shards']:.3f} ms against one device at 736 rows "
+        f"{mean['one 736']:.3f} ms ({where(4)}); in turns {ms}; card {smi}")
+    # the shards' threads hand the interpreter lock to each other at every
+    # exchange: the same frames with the lock's switch interval at 10 us
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with torch.no_grad():
+            fast = {k: time_ms(fns[k], iters=5, warmup=2) for k in ("2 shards", "4 shards")}
+    finally:
+        sys.setswitchinterval(interval)
+    log(f"13g the same with the interpreter's switch interval at 10 us (default "
+        f"{interval * 1e3:g} ms): 2 shards {fast['2 shards']:.3f} ms, 4 shards "
+        f"{fast['4 shards']:.3f} ms; card {smi}")
+    frames = {"1 shard": spatial_enhance_fn(mesh(1), model, gates, gamma=gamma, compute_dtype=bf),
+              "2 shards": frame[2], "4 shards": frame[4]}
+    with torch.no_grad():
+        host = {k: _host_split(f, x) for k, f in frames.items()}
+        host["one device"] = _host_split(fns["one 720"], None)
+        # the same forward on a new host thread each frame, as the row
+        # group's shards run (cuDNN keeps its execution plans per thread)
+        host["one device, a new thread a frame"] = _host_split(
+            lambda: in_new_thread(fns["one 720"]), None)
+    for k, v in host.items():
+        per = v["threads"]
+        log(f"13g host, base bf16 frame, {k}: {v['wall']:.3f} ms a frame on the host's clock; "
+            f"each of its {per} thread(s) in the forward {v['forward']:.3f} ms, of it on the "
+            f"CPU {v['cpu']:.3f} ms, in {v['exchanges']:.0f} row-group exchanges {v['exchange']:.3f}"
+            f" ms (barrier waits), in halo assembly {v['extend']:.3f} ms (its exchanges "
+            f"included), blocked otherwise (waiting for the interpreter lock or on the card) "
+            f"{v['forward'] - v['cpu'] - v['exchange']:.3f} ms; profiler: the ops' own CPU time "
+            f"{v['ops_ms']:.3f} ms over {v['op_calls']} op calls on {v['op_threads']} thread(s); "
+            f"{', '.join(v['top'])}; card {smi}")
+    cat_ms = {}
+    for k in fns:
+        torch.cuda.synchronize()
+        with torch.no_grad(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fns[k]()
+            torch.cuda.synchronize()
+        total = cat = 0.0
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+            total += t
+            cat += t if "cat" in ev.key.lower() else 0.0
+        cat_ms[k] = (cat / 1000, total / 1000)
+    if not cat_ms["one 720"][1]:
+        log(f"13g device shares: not measured (the profiler saw no device time); card {smi}")
+        return
+    log("13g device time of one frame (profiler, kernels summed): " + "; ".join(
+        f"{k} {t:.3f} ms, of it concatenation {c:.3f} ms ({100 * c / t:.1f}%)"
+        for k, (c, t) in cat_ms.items()) + f"; card {smi}")
+
+
+def in_new_thread(fn):
+    """``fn()`` on a new host thread, joined."""
+    out = []
+    th = threading.Thread(target=lambda: out.append(fn()))
+    th.start()
+    th.join()
+    return out[0]
+
+
+def _host_split(fn, x) -> dict:
+    """Where the host time of ``fn(x)`` (a sharded frame, or with ``x`` None
+    one device's forward) goes, over 3 frames after one warm-up: the wall
+    time a frame; each forward's thread: its wall and CPU time
+    (``time.thread_time``), its row-group exchanges (count, time) and its
+    halo assembly (``Shard.extend``); and one frame under
+    ``torch.profiler`` (CPU activity): the ops' own CPU time summed, their
+    calls, the threads they ran on, the three costliest ops."""
+    from hvi_cidnet_torch.parallel import rows
+    from hvi_cidnet_torch.serve import Enhancer
+
+    run = (lambda: fn(x)) if x is not None else fn
+    spent = {"forward": 0.0, "cpu": 0.0, "exchange": 0.0, "exchanges": 0, "extend": 0.0}
+    forwards = []
+    lock = threading.Lock()
+    exchange, extend, forward = rows.RowGroup.exchange, rows.Shard.extend, Enhancer._forward
+
+    def timed(fn, key, cpu=False):
+        def call(*a, **kw):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    spent[key] += time.perf_counter() - t0
+                    if cpu:
+                        spent["cpu"] += time.thread_time() - c0
+                        forwards.append(1)
+                    if key == "exchange":
+                        spent["exchanges"] += 1
+        return call
+
+    run()
+    torch.cuda.synchronize()
+    frames = 3
+    rows.RowGroup.exchange = timed(exchange, "exchange")
+    rows.Shard.extend = timed(extend, "extend")
+    Enhancer._forward = timed(forward, "forward", cpu=True)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / frames
+    finally:
+        rows.RowGroup.exchange, rows.Shard.extend, Enhancer._forward = exchange, extend, forward
+    calls = len(forwards)  # the threads' forwards over the frames
+    per = {k: 1000 * v / calls if k != "exchanges" else v / calls for k, v in spent.items()}
+    try:  # every thread's ops, where this torch can (else the caller's thread's)
+        config = {"experimental_config": torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)}
+    except (AttributeError, TypeError):
+        config = {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU], **config) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CPU]
+    own = {}
+    for e in events:
+        own[e.name] = own.get(e.name, 0.0) + e.self_cpu_time_total / 1000
+    top = sorted(own.items(), key=lambda kv: -kv[1])[:3]
+    return dict(per, wall=1000 * wall, threads=calls // frames, ops_ms=sum(own.values()),
+                op_calls=len(events), op_threads=len({e.thread for e in events}),
+                top=[f"{name} {ms:.3f} ms" for name, ms in top])
+
+
 def counts(kernels) -> dict:
     return {k: v.launches for k, v in kernels.items()}
 
@@ -3167,6 +3800,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     scaled = scale_out_path(dev, kernels, smi)
 
+    # this slice's path: spatial row sharding (launches_spatial: 13a's base
+    # bf16 frame over two shards, K5 its split entries)
+    torch.cuda.empty_cache()
+    spatial = spatial_path(dev, kernels, smi)
+
     path_of = lambda key: ("fused" if key in FUSED else "probe" if key in PROBE else
                            "hwcb" if key in RELAYOUTS else "eval")
     summary = [(summarise_relayout if key in RELAYOUTS else summarise)(
@@ -3178,6 +3816,7 @@ def main() -> int:
         line["launches_train"] = trained[key]
         line["launches_dp_serving"] = scaled["serving"][key]
         line["launches_dp_train_step"] = scaled["train_step"][key]
+        line["launches_spatial"] = spatial[key]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

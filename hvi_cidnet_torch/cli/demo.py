@@ -5,7 +5,7 @@ demo.py:11-73): reflect-pad to x8, run with both HVI gates on, crop, save
     python -m hvi_cidnet_torch.cli.demo --input IMG [--output_dir output]
         [--weight weights/SICE.pth | --random_init] [--gamma 1.0]
         [--alpha_s 1.0] [--alpha_i 1.0] [--variant base|mssa|tnsm] [--cpu]
-        [--fused | --probe]
+        [--fused | --probe | --spatial]
 
 Weights are a reference-layout ``.pth``, ``.npz`` or ``.safetensors``
 state dict, the JAX trainer's ``.npz`` checkpoint (``param::`` keys) or an
@@ -14,7 +14,11 @@ HF folder, whose ``config.json`` gives the model's config in place of
 evaluator does. With ``--random_init`` the model is drawn from a generator
 seeded 0. Runs on the card unless ``--cpu`` is given; ``--fused`` takes
 the fused block route, ``--probe`` the probe route (``ops/routes.py``).
-A PNG is read and written by ``data/png.py``, any other format by PIL.
+``--spatial`` splits the image's rows over every visible card
+(``parallel/inference.py:spatial_enhance_fn``); on one card or with
+``--cpu`` it has no effect. Its shards are host threads of one process:
+the frame is slower than on one card (PERF.md). A PNG is read and written by ``data/png.py``,
+any other format by PIL.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from hvi_cidnet_torch.data.datasets import load_image, save_image
 from hvi_cidnet_torch.data.transforms import to_float01
 from hvi_cidnet_torch.models.cidnet import VARIANTS, CIDNet, CIDNetConfig, HVIGates
 from hvi_cidnet_torch.ops import routes
+from hvi_cidnet_torch.parallel.inference import spatial_enhance_fn
+from hvi_cidnet_torch.parallel.mesh import make_mesh
 from hvi_cidnet_torch.serve import Enhancer
 
 
@@ -44,8 +50,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     p.add_argument("--random_init", action="store_true",
                    help="run with fresh random weights (no weight file needed)")
+    p.add_argument("--spatial", action="store_true",
+                   help="shard the image's rows over all visible cards (full-res multi-card "
+                        "inference; halo exchange between the shards). Equals one card when H "
+                        "divides 8*cards; otherwise H pads to that multiple inside the call, "
+                        "which perturbs values slightly (padding is visible through channel "
+                        "attention: the same class of effect as the reference's own pad-to-x8). "
+                        "No effect on one device. Here the shards are threads of one process "
+                        "that share the interpreter lock, so a frame takes longer over several "
+                        "cards than on one until each card gets a process of its own (PERF.md, "
+                        "ROADMAP)")
     routes.add_flags(p)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.spatial and (args.fused or args.probe):
+        p.error("--spatial serves the default route only: drop --fused / --probe")
+    return args
+
+
+def spatial_devices(args: argparse.Namespace) -> list:
+    """The devices ``--spatial`` splits the rows over: every visible card
+    where there are two or more and ``--cpu`` is not given, else none."""
+    n = 0 if args.cpu else torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if args.spatial and n > 1 else []
 
 
 def main(argv=None) -> str:
@@ -65,7 +91,15 @@ def main(argv=None) -> str:
                         device="cpu" if args.cpu else "cuda", routes=routes.from_flags(args))
 
     print(f"processing: {args.input}")
-    out = enhancer.enhance(to_float01(load_image(args.input)))
+    img = to_float01(load_image(args.input))
+    devices = spatial_devices(args)
+    if devices:  # the rows over the cards; pad-to-mesh and the crop inside the call
+        mesh = make_mesh(axis_names=("spatial",), devices=devices)
+        print(f"spatial serving: rows sharded over {mesh.size} devices")
+        fn = spatial_enhance_fn(mesh, enhancer.model, gates, gamma=args.gamma)
+        out = fn(img[None])[0].cpu().numpy()
+    else:
+        out = enhancer.enhance(img)
     out_path = os.path.join(args.output_dir, f"enhanced_{os.path.basename(args.input)}")
     save_image(out_path, (np.clip(out, 0, 1) * 255.0).astype(np.uint8))
     print(f"saved: {out_path}")

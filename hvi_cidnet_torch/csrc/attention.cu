@@ -32,6 +32,14 @@
 //    (unfolded: attn on the diagonal block, zeros elsewhere), in v's type.
 // 3. apply: out = A v, grid (splits, B), long-lived blocks over N.
 //
+// The same passes also run as two entries around a reduction the caller
+// makes (a row group: one image's rows split over shards, each on its own
+// host thread): attention_scores runs pass 1 on a shard's columns, the
+// caller gathers the shards' partial buffers in rank order into one of
+// (B, shards * splits, C*cp + 2C), and attention_rows_apply runs passes 2
+// and 3 over all of them. Pass 2 sums whatever splits it is given in its
+// fixed order, so every shard derives the same A, bit for bit.
+//
 // Bound: the bytes of q, k, v and out (the C x C matrices are tiny): per
 // column of one image 8C bytes in bf16 against ~2C(C + cp + 2) operations,
 // at most 41 operations a byte, far below the 295 of the tensor cores.
@@ -882,12 +890,12 @@ bool plan_ok(const AttentionPlan& p, int dtype, int64_t b, int c, int heads, int
 }
 
 template <typename T>
-int launch_rows(const AttentionPlan& p, const float* part, const float* temp, const void* w,
-                int w_dtype, T* a, int64_t b, int c, int heads, int normalize,
+int launch_rows(const AttentionPlan& p, int64_t splits, const float* part, const float* temp,
+                const void* w, int w_dtype, T* a, int64_t b, int c, int heads, int normalize,
                 cudaStream_t stream) {
   const dim3 grid(heads * kRowsCluster, static_cast<unsigned int>(b));
   const int cp = c / heads;
-  const int sp = static_cast<int>(p.splits);
+  const int sp = static_cast<int>(splits);
   const bool f32 = sizeof(T) == 4;
   const int a_rows = f32 ? c : round16(c), a_pitch = f32 ? c : round16(c) + 8;
   if (w == nullptr)
@@ -906,9 +914,9 @@ int launch_rows(const AttentionPlan& p, const float* part, const float* temp, co
                 a_pitch);
 }
 
-int launch_f32(const AttentionPlan& p, const float* q, const float* k, const float* v, float* out,
-               const float* temp, const void* w, int w_dtype, float* part, float* a, int64_t b,
-               int c, int heads, int64_t n, int normalize, cudaStream_t stream) {
+// pass 1, fp32
+int scores_f32(const AttentionPlan& p, const float* q, const float* k, float* part, int64_t b,
+               int c, int heads, int64_t n, cudaStream_t stream) {
   const int cp = c / heads;
   const int entries = c * cp;
   const int per_thread = (std::min(entries, kEntriesPerBlock) + kAttnThreads - 1) / kAttnThreads;
@@ -918,22 +926,28 @@ int launch_f32(const AttentionPlan& p, const float* q, const float* k, const flo
     return launch(kernel, grid, kAttnThreads, p.score_smem, stream, q, k, part, c, cp, n,
                   p.chunk, static_cast<int>(p.splits), p.part_stride);
   };
-  int err = per_thread <= 1   ? scores(scores_f32_kernel<1>)
-            : per_thread <= 2 ? scores(scores_f32_kernel<2>)
-            : per_thread <= 4 ? scores(scores_f32_kernel<4>)
-            : per_thread <= 8 ? scores(scores_f32_kernel<8>)
-                              : scores(scores_f32_kernel<16>);
-  if (err) return err;
-  err = launch_rows<float>(p, part, temp, w, w_dtype, a, b, c, heads, normalize, stream);
+  return per_thread <= 1   ? scores(scores_f32_kernel<1>)
+         : per_thread <= 2 ? scores(scores_f32_kernel<2>)
+         : per_thread <= 4 ? scores(scores_f32_kernel<4>)
+         : per_thread <= 8 ? scores(scores_f32_kernel<8>)
+                           : scores(scores_f32_kernel<16>);
+}
+
+// passes 2 and 3, fp32, over `splits` partials per image
+int rows_apply_f32(const AttentionPlan& p, int64_t splits, const float* part, const float* v,
+                   float* out, const float* temp, const void* w, int w_dtype, float* a, int64_t b,
+                   int c, int heads, int64_t n, int normalize, cudaStream_t stream) {
+  const int err =
+      launch_rows<float>(p, splits, part, temp, w, w_dtype, a, b, c, heads, normalize, stream);
   if (err) return err;
   return launch(apply_f32_kernel,
                 dim3(static_cast<unsigned int>(p.apply_splits), static_cast<unsigned int>(b)),
                 kAttnThreads, p.apply_smem, stream, a, v, out, c, (c + 3) / 4 * 4, n);
 }
 
-int launch_bf16(const AttentionPlan& p, const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                const float* temp, const void* w, int w_dtype, float* part, bf16* a, int64_t b,
-                int c, int heads, int64_t n, int normalize, cudaStream_t stream) {
+// pass 1, bf16
+int scores_bf16(const AttentionPlan& p, const bf16* q, const bf16* k, float* part, int64_t b,
+                int c, int heads, int64_t n, cudaStream_t stream) {
   const int cp = c / heads;
   const int64_t total = b * c * n;
   const int tile = static_cast<int>(p.score_tile);
@@ -950,12 +964,19 @@ int launch_bf16(const AttentionPlan& p, const bf16* q, const bf16* k, const bf16
   auto by_stages = [&](auto two, auto four) {
     return p.score_stages == 2 ? scores(two) : scores(four);
   };
-  int err = p.items_per_warp == 1 ? by_stages(scores_mma_kernel<1, 2>, scores_mma_kernel<1, 4>)
-            : p.items_per_warp == 2 ? by_stages(scores_mma_kernel<2, 2>, scores_mma_kernel<2, 4>)
-                                    : by_stages(scores_mma_kernel<4, 2>, scores_mma_kernel<4, 4>);
+  return p.items_per_warp == 1 ? by_stages(scores_mma_kernel<1, 2>, scores_mma_kernel<1, 4>)
+         : p.items_per_warp == 2 ? by_stages(scores_mma_kernel<2, 2>, scores_mma_kernel<2, 4>)
+                                 : by_stages(scores_mma_kernel<4, 2>, scores_mma_kernel<4, 4>);
+}
+
+// passes 2 and 3, bf16, over `splits` partials per image
+int rows_apply_bf16(const AttentionPlan& p, int64_t splits, const float* part, const bf16* v,
+                    bf16* out, const float* temp, const void* w, int w_dtype, bf16* a, int64_t b,
+                    int c, int heads, int64_t n, int normalize, cudaStream_t stream) {
+  const int err =
+      launch_rows<bf16>(p, splits, part, temp, w, w_dtype, a, b, c, heads, normalize, stream);
   if (err) return err;
-  err = launch_rows<bf16>(p, part, temp, w, w_dtype, a, b, c, heads, normalize, stream);
-  if (err) return err;
+  const int64_t total = b * c * n;
   const dim3 agrid(static_cast<unsigned int>(p.apply_splits), static_cast<unsigned int>(b));
   auto apply = [&](auto kernel) {
     return launch(kernel, agrid, static_cast<int>(p.apply_threads), p.apply_smem, stream, a, v,
@@ -994,11 +1015,62 @@ extern "C" int attention_forward(const void* q, const void* k, const void* v, vo
   const float* tp = static_cast<const float*>(temp);
   float* part = static_cast<float*>(scratch);
   void* a = static_cast<unsigned char*>(scratch) + p.a_offset;
+  if (dtype == kFloat32) {
+    const int err = scores_f32(p, static_cast<const float*>(q), static_cast<const float*>(k), part,
+                               b, c, heads, n, stream);
+    if (err) return err;
+    return rows_apply_f32(p, p.splits, part, static_cast<const float*>(v),
+                          static_cast<float*>(out), tp, w, w_dtype, static_cast<float*>(a), b, c,
+                          heads, n, normalize, stream);
+  }
+  const int err = scores_bf16(p, static_cast<const bf16*>(q), static_cast<const bf16*>(k), part,
+                              b, c, heads, n, stream);
+  if (err) return err;
+  return rows_apply_bf16(p, p.splits, part, static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                         tp, w, w_dtype, static_cast<bf16*>(a), b, c, heads, n, normalize, stream);
+}
+
+// Pass 1 alone: q, k as attention_forward's; part: (b, plan->splits, c*cp
+// + 2c) fp32 on the device. The plan is the one attention_rows_apply takes
+// for the same call (its `direct` covers v and out too).
+extern "C" int attention_scores(const void* q, const void* k, int dtype, void* part,
+                                const AttentionPlan* plan, int64_t b, int c, int heads, int64_t n,
+                                cudaStream_t stream) {
+  if (plan == nullptr || part == nullptr || b < 1 || b > 65535 || c < 1 || c > kMaxChannels ||
+      heads < 1 || c % heads || n < 1 || (dtype != kFloat32 && dtype != kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(*plan, dtype, b, c, heads, n, q, k, nullptr, nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* pt = static_cast<float*>(part);
   if (dtype == kFloat32)
-    return launch_f32(p, static_cast<const float*>(q), static_cast<const float*>(k),
-                      static_cast<const float*>(v), static_cast<float*>(out), tp, w, w_dtype,
-                      part, static_cast<float*>(a), b, c, heads, n, normalize, stream);
-  return launch_bf16(p, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<bf16*>(out), tp, w, w_dtype, part,
-                     static_cast<bf16*>(a), b, c, heads, n, normalize, stream);
+    return scores_f32(*plan, static_cast<const float*>(q), static_cast<const float*>(k), pt, b, c,
+                      heads, n, stream);
+  return scores_bf16(*plan, static_cast<const bf16*>(q), static_cast<const bf16*>(k), pt, b, c,
+                     heads, n, stream);
+}
+
+// Passes 2 and 3 over `splits` partials per image: part (b, splits, c*cp +
+// 2c) fp32, the shards' pass-1 buffers in rank order; a: the plan's A
+// region (plan->scratch_bytes - plan->a_offset bytes); v, out, temp, w as
+// attention_forward's; n: this shard's columns.
+extern "C" int attention_rows_apply(const void* part, int64_t splits, const void* v, void* out,
+                                    int dtype, const void* temp, const void* w, int w_dtype,
+                                    void* a, const AttentionPlan* plan, int64_t b, int c,
+                                    int heads, int64_t n, int normalize, cudaStream_t stream) {
+  if (plan == nullptr || part == nullptr || a == nullptr || splits < 1 || splits > 0x7fffffffLL ||
+      b < 1 || b > 65535 || c < 1 || c > kMaxChannels || heads < 1 || c % heads || n < 1 ||
+      (dtype != kFloat32 && dtype != kBFloat16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (w != nullptr && w_dtype != kFloat32 && w_dtype != kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(*plan, dtype, b, c, heads, n, nullptr, nullptr, v, out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* pt = static_cast<const float*>(part);
+  const float* tp = static_cast<const float*>(temp);
+  if (dtype == kFloat32)
+    return rows_apply_f32(*plan, splits, pt, static_cast<const float*>(v), static_cast<float*>(out),
+                          tp, w, w_dtype, static_cast<float*>(a), b, c, heads, n, normalize,
+                          stream);
+  return rows_apply_bf16(*plan, splits, pt, static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                         tp, w, w_dtype, static_cast<bf16*>(a), b, c, heads, n, normalize, stream);
 }

@@ -58,7 +58,8 @@ from hvi_cidnet_torch.ops.conv import conv2d
 from hvi_cidnet_torch.ops.hvi_cuda import hvi_to_rgb, rgb_to_hvi
 from hvi_cidnet_torch.ops.relayout_cuda import pack_blocked, relayout_t2_rev
 from hvi_cidnet_torch.ops.resize import resize_bilinear
-from hvi_cidnet_torch.ops.routes import Routes, resolve
+from hvi_cidnet_torch.ops.routes import Routes, require_default, resolve
+from hvi_cidnet_torch.parallel import rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,8 +222,15 @@ def _hvi_and_noise(
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The output HVI map and, for TNSM, the per-level noise maps in the
     reference's order (I before HV, levels 1-6; ``I_TNSM5``'s only with
-    ``training``), through the blocks on ``routes``."""
+    ``training``), through the blocks on ``routes``. In a row group
+    (``parallel/rows.py``) ``x`` is a shard's rows of the image, and the
+    ops that reach across rows exchange with the other shards: serving
+    only, on the default route."""
     _check_x8(x)
+    if rows.current() is not None:
+        if training:
+            raise ValueError("a row group serves only: training=True does not shard rows")
+        require_default(routes, "a row group")
     x = _input(x)
     m = model
     r = routes
@@ -339,6 +347,8 @@ def cidnet_forward(
     if input_layout not in LAYOUTS:
         raise ValueError(f"input_layout must be 'nhwc' or 'hwcb', got {input_layout!r}")
     hwcb = input_layout == "hwcb"
+    if hwcb and rows.current() is not None:
+        raise ValueError("a row group takes NHWC input only, not input_layout='hwcb'")
     if hwcb:
         _check_x8(x, input_layout)
         x = _input(x)

@@ -49,6 +49,7 @@ from hvi_cidnet_torch.ops.ln_iel_cuda import ln_iel
 from hvi_cidnet_torch.ops.norm_cuda import layer_norm
 from hvi_cidnet_torch.ops.resize_cuda import double_bilinear, half_prelu
 from hvi_cidnet_torch.ops.routes import UNFUSED, Routes
+from hvi_cidnet_torch.parallel import rows
 
 
 def dense3x3(x: torch.Tensor, w: torch.Tensor, routes: Routes, pad_mode: str = "zero") -> torch.Tensor:
@@ -229,7 +230,8 @@ class I_LCA(HV_LCA):
 class SpatialAttention(nn.Module):
     """Channel mean and max -> 7x7 conv (2 -> 1, zero SAME padding) ->
     sigmoid gate on ``x`` (net/CIDNet_MSSA.py:10-25). Plain PyTorch: the JAX
-    package has no kernel for it."""
+    package has no kernel for it. In a row group the conv reads three halo
+    rows each side of the pooled map (the pools are per pixel)."""
 
     def __init__(self):
         super().__init__()
@@ -237,4 +239,8 @@ class SpatialAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pooled = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
+        shard = rows.current()
+        if shard is not None:
+            band = shard.extend(pooled, 3, 3, "zero")[0]
+            return x * torch.sigmoid(conv2d(band, self.conv1.weight, padding=(0, 3)))
         return x * torch.sigmoid(conv2d(pooled, self.conv1.weight, padding=3))

@@ -14,7 +14,9 @@ temperature, an fp32 softmax and the value product run as plain ops, and
 ``project_out`` as a 1x1 conv. The rest is plain
 PyTorch, as the JAX package runs it as plain XLA: the 1x1 and depthwise
 3x3 convs, ``leaky_relu(0.2)``, the sigmoids and the global mean and max
-pools. The noise map has one channel and broadcasts over the others.
+pools. The noise map has one channel and broadcasts over the others. In a
+row group (``parallel/rows.py``) the global pools combine the shards'
+fp32 partial sums and maxes in rank order.
 """
 
 from __future__ import annotations
@@ -30,6 +32,21 @@ from hvi_cidnet_torch.ops.attention_cuda import channel_attention
 from hvi_cidnet_torch.ops.batched_qk_cuda import batched_qk
 from hvi_cidnet_torch.ops.conv import conv1x1, dwconv3x3
 from hvi_cidnet_torch.ops.routes import UNFUSED, Routes
+from hvi_cidnet_torch.parallel import rows
+
+
+def global_pools(x: torch.Tensor) -> tuple:
+    """``DynamicNoiseMap``'s (B, C, 1, 1) mean and max over the image; the
+    mean sums up to H * W values per channel: in fp32, rounded once. In a
+    row group the shards' sums over their rows, over the whole image's
+    H * W."""
+    shard = rows.current()
+    if shard is None:
+        avg = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+        return avg, x.amax(dim=(2, 3), keepdim=True)
+    total = shard.sum(x.sum(dim=(2, 3), keepdim=True, dtype=torch.float32))
+    avg = (total / (x.shape[2] * shard.size * x.shape[3])).to(x.dtype)
+    return avg, shard.max(x.amax(dim=(2, 3), keepdim=True))
 
 
 class DynamicNoiseMap(nn.Module):
@@ -45,9 +62,7 @@ class DynamicNoiseMap(nn.Module):
         self.final_conv = Conv(dim, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the mean sums up to H * W values per channel: in fp32, rounded once
-        avg = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
-        mx = x.amax(dim=(2, 3), keepdim=True)
+        avg, mx = global_pools(x)
 
         def squeeze_excite(v):
             return conv1x1(torch.relu(conv1x1(v, self.fc1.weight)), self.fc2.weight)

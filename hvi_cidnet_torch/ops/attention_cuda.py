@@ -20,6 +20,18 @@ shape, so two calls give the same bits.
 
 Dispatch is by device only: a CPU tensor takes the plain twin, a CUDA
 tensor the kernel. Backward runs the twin's autograd.
+
+In a row group (``parallel/rows.py``: one image's rows over shards) the
+kernel is split at its reduction over space: each shard runs the scores
+pass alone on its rows (``attention_scores_kernel``, C entry
+``attention_scores``), the shards' partial buffers are gathered in rank
+order onto every shard, and each runs the rows and apply passes over all
+of them (``attention_rows_apply_kernel``, ``attention_rows_apply``). The
+rows pass adds the splits in a fixed order, so every shard derives the
+same A, bit for bit, and the apply is local. The plain versions split
+the same way (``attention.attention_partials`` /
+``attention_from_partials``). The one-call entry runs the same three
+passes as before.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch
 
 from hvi_cidnet_torch.ops import attention
 from hvi_cidnet_torch.ops._build import DTYPE_CODES, CudaKernel, check_input, twin_backward
+from hvi_cidnet_torch.parallel import rows
 
 MAX_CHANNELS = 192      # the apply's A (C16 x C16) and v tiles fit shared memory
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -230,6 +243,12 @@ ATTENTION = CudaKernel(
     "attention_forward",
     [_p, _p, _p, _p, _i, _p, _p, _i, _p, ctypes.POINTER(_PlanStruct), _i64, _i, _i, _i64, _i],
 )
+ATTENTION_SCORES = CudaKernel(
+    "attention_scores", [_p, _p, _i, _p, ctypes.POINTER(_PlanStruct), _i64, _i, _i, _i64])
+ATTENTION_ROWS_APPLY = CudaKernel(
+    "attention_rows_apply",
+    [_p, _i64, _p, _p, _i, _p, _p, _i, _p, ctypes.POINTER(_PlanStruct), _i64, _i, _i, _i64, _i],
+)
 
 
 @functools.lru_cache(maxsize=256)
@@ -258,6 +277,21 @@ def channel_attention_kernel(
     w_proj: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch K5 on contiguous NCHW q, k, v on the card."""
+    plan, struct, wp, w_code = _prepare(q, k, v, temperature, heads, w_proj)
+    b, c, h, w = q.shape
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=q.device)
+    out = torch.empty_like(q)
+    ATTENTION(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+        temperature.data_ptr(), wp, w_code, scratch.data_ptr(), ctypes.byref(struct),
+        b, c, heads, h * w, int(normalize_qk),
+    )
+    return out
+
+
+def _prepare(q, k, v, temperature, heads, w_proj) -> tuple:
+    """K5's checks of its operands; (plan, its C struct, the fold's pointer
+    and dtype code)."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         check_input(t, name, 4)
     if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype \
@@ -290,14 +324,63 @@ def channel_attention_kernel(
     n = h * w
     direct = n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     plan, struct = _plan_struct(b, c, heads, n, q.element_size(), direct)
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=q.device)
-    out = torch.empty_like(q)
-    ATTENTION(
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
-        temperature.data_ptr(), wp, w_code, scratch.data_ptr(), ctypes.byref(struct),
-        b, c, heads, n, int(normalize_qk),
-    )
-    return out
+    return plan, struct, wp, w_code
+
+
+def attention_scores_kernel(q: torch.Tensor, k: torch.Tensor, plan: AttentionPlan, struct,
+                            heads: int) -> torch.Tensor:
+    """K5's scores pass alone on the card: the (B, plan.splits, C*cp + 2C)
+    fp32 partial sums over this shard's columns."""
+    b, c, h, w = q.shape
+    part = torch.empty((b, plan.splits, plan.part_stride), dtype=torch.float32, device=q.device)
+    ATTENTION_SCORES(q.device, q.data_ptr(), k.data_ptr(), DTYPE_CODES[q.dtype], part.data_ptr(),
+                     ctypes.byref(struct), b, c, heads, h * w)
+    return part
+
+
+def attention_rows_apply_kernel(parts: torch.Tensor, v: torch.Tensor, temperature: torch.Tensor,
+                                heads: int, plan: AttentionPlan, struct, wp, w_code: int,
+                                normalize_qk: bool) -> tuple:
+    """K5's rows and apply passes on the card over ``parts`` (B, S, C*cp +
+    2C), every shard's partial sums in rank order. Returns (out, A's
+    scratch: (B, C, C) fp32, or bf16 (B, C16, C16 + 8))."""
+    b, c, h, w = v.shape
+    if parts.dtype != torch.float32 or parts.dim() != 3 or parts.shape[0] != b \
+            or parts.shape[2] != plan.part_stride or not parts.is_contiguous() \
+            or parts.device != v.device:
+        raise ValueError(f"parts: expected contiguous fp32 (B={b}, S, {plan.part_stride}) on "
+                         f"{v.device}, got {tuple(parts.shape)} {parts.dtype} on {parts.device}")
+    a = torch.empty(plan.scratch_bytes - plan.a_offset, dtype=torch.uint8, device=v.device)
+    out = torch.empty_like(v)
+    ATTENTION_ROWS_APPLY(v.device, parts.data_ptr(), parts.shape[1], v.data_ptr(), out.data_ptr(),
+                         DTYPE_CODES[v.dtype], temperature.data_ptr(), wp, w_code, a.data_ptr(),
+                         ctypes.byref(struct), b, c, heads, h * w, int(normalize_qk))
+    return out, a
+
+
+def channel_attention_rows(
+    shard: "rows.Shard",
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    temperature: torch.Tensor,
+    heads: int,
+    *,
+    normalize_qk: bool = True,
+    w_proj: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Channel attention of one image whose rows are split over ``shard``'s
+    group (forward only): the partial sums over this shard's rows, gathered
+    from every shard in rank order, then the rows and apply passes. CPU:
+    the plain split; CUDA: K5's two entries."""
+    if q.device.type == "cpu":
+        parts = torch.cat(shard.gather(attention.attention_partials(q, k, heads)), dim=1)
+        return attention.attention_from_partials(parts, v, temperature, heads,
+                                                 normalize_qk=normalize_qk, w_proj=w_proj)
+    plan, struct, wp, w_code = _prepare(q, k, v, temperature, heads, w_proj)
+    parts = torch.cat(shard.gather(attention_scores_kernel(q, k, plan, struct, heads)), dim=1)
+    return attention_rows_apply_kernel(parts, v, temperature, heads, plan, struct, wp, w_code,
+                                       normalize_qk)[0]
 
 
 class _Attention(torch.autograd.Function):
@@ -331,7 +414,12 @@ def channel_attention(
     normalize_qk: bool = True,
     w_proj: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Channel attention of the CAB (and TNSM) blocks. CPU: twin; CUDA: K5."""
+    """Channel attention of the CAB (and TNSM) blocks. CPU: twin; CUDA: K5.
+    In a row group, split at its reduction (``channel_attention_rows``)."""
+    shard = rows.current()
+    if shard is not None:
+        return channel_attention_rows(shard, q, k, v, temperature, heads,
+                                      normalize_qk=normalize_qk, w_proj=w_proj)
     if q.device.type == "cpu":
         return channel_attention_plain(
             q, k, v, temperature, heads, normalize_qk=normalize_qk, w_proj=w_proj

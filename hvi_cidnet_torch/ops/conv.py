@@ -4,6 +4,11 @@ Counterpart of ``hvi_cidnet_tpu/ops/conv.py``. Weights are OIHW, as in the
 reference ``state_dict``; every conv casts its weight to the activation
 dtype, as the JAX ``conv2d`` does. The TPU layout machinery (HWCB, the
 border-corrected replication-pad conv, LN moments on the MXU) stays behind.
+
+In a row group (``parallel/rows.py``) the 3x3 convs take one halo row of
+the neighbouring shards on each side (zero rows, or for the replication
+pad copies of the edge row, only at the image's top and bottom) and pad
+only the columns.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+
+from hvi_cidnet_torch.parallel import rows
 
 
 @contextlib.contextmanager
@@ -40,17 +47,27 @@ def conv1x1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def dwconv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise 3x3 with zero SAME padding. ``w``: (C, 1, 3, 3)."""
+    shard = rows.current()
+    if shard is not None:
+        return conv2d(shard.extend(x, 1, 1, "zero")[0], w, padding=(0, 1), groups=x.shape[1])
     return conv2d(x, w, padding=1, groups=x.shape[1])
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dense 3x3 with zero SAME padding (the NormDown/Up convs)."""
+    shard = rows.current()
+    if shard is not None:
+        return conv2d(shard.extend(x, 1, 1, "zero")[0], w, padding=(0, 1))
     return conv2d(x, w, padding=1)
 
 
 def conv3x3_replpad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``ReplicationPad2d(1)`` + VALID 3x3 conv: the stems and heads
     (net/CIDNet.py:21-24, 32-35, 39-42, 50-53)."""
+    shard = rows.current()
+    if shard is not None:
+        band = shard.extend(x, 1, 1, "replicate")[0]
+        return conv2d(F.pad(band, (1, 1, 0, 0), mode="replicate"), w)
     return conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), w)
 
 

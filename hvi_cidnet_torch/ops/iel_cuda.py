@@ -12,6 +12,12 @@ which the CPU tests walk.
 
 Dispatch is by device only: a CPU tensor takes the plain twin, a CUDA
 tensor the kernel. Backward runs the twin's autograd.
+
+In a row group (``parallel/rows.py``) each shard runs the branch on its
+rows with two halo rows each side (none past the image's top and bottom),
+and keeps its own rows: the kernel runs unchanged on the band. It zeroes
+t1 outside the band, which moves only the halo rows' outputs, and those
+are cropped; a band's rows are, bit for bit, the whole plane's.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from hvi_cidnet_torch.ops import iel
 from hvi_cidnet_torch.ops._build import DTYPE_CODES, CudaKernel, check_input, twin_backward
+from hvi_cidnet_torch.parallel import rows
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 IEL_BRANCH = CudaKernel("iel_branch", [_p, _p, _i, _p, _p, _i64, _i, _i, _i] + [_i] * 9)
@@ -151,7 +158,17 @@ class _IelBranch(torch.autograd.Function):
 
 
 def iel_branch(y: torch.Tensor, w_dw1: torch.Tensor, w_dw2: torch.Tensor) -> torch.Tensor:
-    """The IEL gate branch. CPU: twin; CUDA: K7."""
+    """The IEL gate branch. CPU: twin; CUDA: K7. In a row group, on the
+    shard's band (forward only)."""
+    shard = rows.current()
+    if shard is not None:
+        band, top = shard.extend(y, 2, 2)
+        if y.device.type == "cpu":
+            with rows.suspended():  # the twin's convs take the band as it is
+                out = iel_branch_plain(band, w_dw1, w_dw2)
+        else:
+            out = iel_branch_kernel(band, w_dw1, w_dw2)
+        return out[..., top:top + y.shape[-2], :]
     if y.device.type == "cpu":
         return iel_branch_plain(y, w_dw1, w_dw2)
     return _IelBranch.apply(y, w_dw1, w_dw2)

@@ -29,6 +29,7 @@ device, as JAX runs it as plain XLA: no Pallas kernel computes it there.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -98,27 +99,39 @@ def axis_weights(kind: str, size: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(w.copy()).to(device)
 
 
+@functools.lru_cache(maxsize=256)
+def band_taps(kind: str, size: int, start: int, count: int, device: torch.device) -> torch.Tensor:
+    """Columns [start, start + count) of ``axis_weights(kind, size,
+    device)``, contiguous: the taps of a row band of an axis of ``size``
+    (a shard's rows, with its halo rows for "double"), cut from the whole
+    axis's table."""
+    return axis_weights(kind, size, device)[:, start:start + count].contiguous()
+
+
 def _taps(x: torch.Tensor, dim: int, index: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Rows ``index`` of ``x`` along ``dim`` (-2 or -1), times per-row ``w``."""
     shape = (-1, 1) if dim == -2 else (-1,)
     return x.index_select(dim, index) * w.reshape(shape)
 
 
-def _half_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+def _half_axis(x: torch.Tensor, dim: int, taps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x0.5 along ``dim``: output i = a*x[2i] + b*x[2i+1] + c*x[2i+2]. The
-    last tap is clamped at the edge, where its weight is 0."""
+    last tap is clamped at the edge, where its weight is 0. ``taps``: the
+    (3, size // 2) weights, by default those of an axis of this size."""
     size = x.shape[dim]
-    a, b, c = axis_weights("half", size, x.device)
+    a, b, c = axis_weights("half", size, x.device) if taps is None else taps
     even = torch.arange(0, 2 * (size // 2), 2, device=x.device)
     return (_taps(x, dim, even, a) + _taps(x, dim, even + 1, b)
             + _taps(x, dim, (even + 2).clamp_max(size - 1), c))
 
 
-def _double_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+def _double_axis(x: torch.Tensor, dim: int, taps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x2 along ``dim``: output 2j = ae*x[j-1] + be*x[j], output 2j+1 =
-    ao*x[j] + bo*x[j+1], interleaved. Edge taps are clamped (weight 0)."""
+    ao*x[j] + bo*x[j+1], interleaved. Edge taps are clamped (weight 0).
+    ``taps``: the (4, size) weights, by default those of an axis of this
+    size."""
     size = x.shape[dim]
-    ae, be, ao, bo = axis_weights("double", size, x.device)
+    ae, be, ao, bo = axis_weights("double", size, x.device) if taps is None else taps
     j = torch.arange(size, device=x.device)
     even = _taps(x, dim, (j - 1).clamp_min(0), ae) + _taps(x, dim, j, be)
     odd = _taps(x, dim, j, ao) + _taps(x, dim, (j + 1).clamp_max(size - 1), bo)
@@ -128,16 +141,18 @@ def _double_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out.reshape(shape)
 
 
-def scale_half_f32(x: torch.Tensor) -> torch.Tensor:
+def scale_half_f32(x: torch.Tensor, h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``UpsamplingBilinear2d(0.5)`` on NCHW ``x``, computed and returned in
     fp32: the H pass, then the W pass, in the Pallas kernel's and the CUDA
-    kernel's order."""
-    return _half_axis(_half_axis(x.float(), -2), -1)
+    kernel's order. ``h_taps``: the H pass's (3, H // 2) weights where ``x``
+    is a row band of a taller image (``band_taps``)."""
+    return _half_axis(_half_axis(x.float(), -2, h_taps), -1)
 
 
-def scale_double_f32(x: torch.Tensor) -> torch.Tensor:
-    """``UpsamplingBilinear2d(2)`` on NCHW ``x``, in fp32, H pass first."""
-    return _double_axis(_double_axis(x.float(), -2), -1)
+def scale_double_f32(x: torch.Tensor, h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``UpsamplingBilinear2d(2)`` on NCHW ``x``, in fp32, H pass first.
+    ``h_taps``: the H pass's (4, H) weights where ``x`` is a row band."""
+    return _double_axis(_double_axis(x.float(), -2, h_taps), -1)
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -12,13 +12,21 @@ CPU tests walk.
 
 Dispatch is by device only: a CPU tensor takes the plain twin, a CUDA
 tensor the kernel. Backward runs the twin's autograd.
+
+In a row group (``parallel/rows.py``) each shard resizes its own rows as a
+band: K3 takes the shard's rows and the first row of the next shard
+(output rows [a, a + m) read source rows [2a, 2a + 2m]) and K4 the shard's
+rows with one halo row each side, its outer outputs cropped; both with the
+H-axis taps cut from the whole image's table (``resize.band_taps``), so a
+band's rows are, bit for bit, the whole plane's. The kernels run unchanged:
+they take their tables as pointers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,7 +39,8 @@ from hvi_cidnet_torch.ops._build import (
     widest_vector,
 )
 from hvi_cidnet_torch.ops.conv import prelu
-from hvi_cidnet_torch.ops.resize import axis_weights, scale_double_f32, scale_half_f32
+from hvi_cidnet_torch.ops.resize import axis_weights, band_taps, scale_double_f32, scale_half_f32
+from hvi_cidnet_torch.parallel import rows
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 HALF_PRELU = CudaKernel("resize_half_prelu",
@@ -45,9 +54,11 @@ DOUBLE = CudaKernel("resize_double",
 # --------------------------------------------------------------------------
 
 
-def half_prelu_plain(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Twin of K3: ``prelu(UpsamplingBilinear2d(0.5)(x), alpha)``, in fp32."""
-    return prelu(scale_half_f32(x), alpha).to(x.dtype)
+def half_prelu_plain(x: torch.Tensor, alpha: torch.Tensor,
+                     h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Twin of K3: ``prelu(UpsamplingBilinear2d(0.5)(x), alpha)``, in fp32.
+    ``h_taps``: a row band's H-axis weights (``resize.band_taps``)."""
+    return prelu(scale_half_f32(x, h_taps), alpha).to(x.dtype)
 
 
 SMS = 132                # streaming multiprocessors of an H100 SXM
@@ -119,8 +130,18 @@ def half_plan(planes: int, h: int, w: int, itemsize: int, offset: int = 0) -> Ha
     return HalfPlan(chunk, load, tx, ty, rows, (planes, gy, gz))
 
 
-def half_prelu_kernel(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Launch K3 on contiguous NCHW ``x`` on the card."""
+def _check_taps(taps: torch.Tensor, kinds: int, count: int, x: torch.Tensor) -> torch.Tensor:
+    if tuple(taps.shape) != (kinds, count) or taps.dtype != torch.float32 \
+            or taps.device != x.device or not taps.is_contiguous():
+        raise ValueError(f"h_taps: expected contiguous ({kinds}, {count}) fp32 weights on "
+                         f"{x.device}, got {tuple(taps.shape)} {taps.dtype} on {taps.device}")
+    return taps
+
+
+def half_prelu_kernel(x: torch.Tensor, alpha: torch.Tensor,
+                      h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K3 on contiguous NCHW ``x`` on the card; ``h_taps`` as the
+    twin's."""
     check_input(x, "x", 4)
     b, c, h, w = x.shape
     if h < 2 or w < 2:
@@ -129,9 +150,10 @@ def half_prelu_kernel(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x: K3 takes planes below 2**31 elements, got {h} x {w}")
     out = torch.empty((b, c, h // 2, w // 2), dtype=x.dtype, device=x.device)
     plan = half_plan(b * c, h, w, x.element_size(), x.data_ptr() % 16)
+    taps = (axis_weights("half", h, x.device) if h_taps is None
+            else _check_taps(h_taps, 3, h // 2, x))
     HALF_PRELU(
-        x.device, x.data_ptr(), out.data_ptr(), DTYPE_CODES[x.dtype],
-        axis_weights("half", h, x.device).data_ptr(),
+        x.device, x.data_ptr(), out.data_ptr(), DTYPE_CODES[x.dtype], taps.data_ptr(),
         axis_weights("half", w, x.device).data_ptr(),
         scalar_pointer(alpha, x.device, "prelu slope"), b * c, h, w,
         plan.load, plan.tx, plan.ty, plan.rows_per_thread, *plan.grid[1:],
@@ -152,7 +174,16 @@ class _HalfPrelu(torch.autograd.Function):
 
 
 def half_prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """NormDownsample's tail: bilinear x0.5 then PReLU. CPU: twin; CUDA: K3."""
+    """NormDownsample's tail: bilinear x0.5 then PReLU. CPU: twin; CUDA: K3.
+    In a row group, on the shard's band (forward only)."""
+    shard = rows.current()
+    if shard is not None:
+        m = x.shape[-2]
+        band, _ = shard.extend(x, 0, 1)
+        taps = band_taps("half", m * shard.size, shard.rank * m // 2, m // 2, x.device)
+        if x.device.type == "cpu":
+            return half_prelu_plain(band, alpha, taps)
+        return half_prelu_kernel(band, alpha, taps)
     if x.device.type == "cpu":
         return half_prelu_plain(x, alpha)
     return _HalfPrelu.apply(x, alpha)
@@ -163,9 +194,10 @@ def half_prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def double_bilinear_plain(x: torch.Tensor) -> torch.Tensor:
-    """Twin of K4: ``UpsamplingBilinear2d(2)(x)``, in fp32."""
-    return scale_double_f32(x).to(x.dtype)
+def double_bilinear_plain(x: torch.Tensor, h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Twin of K4: ``UpsamplingBilinear2d(2)(x)``, in fp32. ``h_taps``: a
+    row band's H-axis weights (``resize.band_taps``)."""
+    return scale_double_f32(x, h_taps).to(x.dtype)
 
 
 # K4's block: a warp covers 32 chunks (512 contiguous bytes) of one output
@@ -210,17 +242,18 @@ def double_plan(planes: int, h: int, w: int, itemsize: int) -> DoublePlan:
     return DoublePlan(chunk, store, tx, ty, DOUBLE_ROWS, (planes, gy, gz))
 
 
-def double_bilinear_kernel(x: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on contiguous NCHW ``x`` on the card."""
+def double_bilinear_kernel(x: torch.Tensor, h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K4 on contiguous NCHW ``x`` on the card; ``h_taps`` as the
+    twin's."""
     check_input(x, "x", 4)
     b, c, h, w = x.shape
     if h * w >= 2**31:
         raise ValueError(f"x: K4 takes planes below 2**31 elements, got {h} x {w}")
     out = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     plan = double_plan(b * c, h, w, x.element_size())
+    taps = axis_weights("double", h, x.device) if h_taps is None else _check_taps(h_taps, 4, h, x)
     DOUBLE(
-        x.device, x.data_ptr(), out.data_ptr(), DTYPE_CODES[x.dtype],
-        axis_weights("double", h, x.device).data_ptr(),
+        x.device, x.data_ptr(), out.data_ptr(), DTYPE_CODES[x.dtype], taps.data_ptr(),
         axis_weights("double", w, x.device).data_ptr(),
         b * c, h, w, plan.store, plan.tx, plan.ty, plan.rows_per_thread, *plan.grid[1:],
     )
@@ -240,7 +273,16 @@ class _Double(torch.autograd.Function):
 
 
 def double_bilinear(x: torch.Tensor) -> torch.Tensor:
-    """NormUpsample's bilinear x2. CPU: twin; CUDA: K4."""
+    """NormUpsample's bilinear x2. CPU: twin; CUDA: K4. In a row group, on
+    the shard's band (forward only)."""
+    shard = rows.current()
+    if shard is not None:
+        m = x.shape[-2]
+        band, top = shard.extend(x, 1, 1)
+        taps = band_taps("double", m * shard.size, shard.rank * m - top, band.shape[-2], x.device)
+        out = (double_bilinear_plain(band, taps) if x.device.type == "cpu"
+               else double_bilinear_kernel(band, taps))
+        return out[..., 2 * top:2 * (top + m), :]
     if x.device.type == "cpu":
         return double_bilinear_plain(x)
     return _Double.apply(x)

@@ -85,6 +85,15 @@ def resolve(routes: "Routes | None") -> Routes:
     return from_env() if routes is None else routes
 
 
+def require_default(routes: Routes, what: str) -> None:
+    """Raise ``ValueError`` naming each switch ``routes`` turns on: ``what``
+    runs the default route only."""
+    on = [f"{field} ({ENV[field]})" for field in ENV if getattr(routes, field)]
+    if on:
+        raise ValueError(f"{what} runs the default route only, but {', '.join(on)} is on: "
+                         "unset the override or pass routes=None")
+
+
 def add_flags(parser: argparse.ArgumentParser) -> None:
     """The CLIs' route flags, ``--fused`` and ``--probe``, at most one."""
     group = parser.add_mutually_exclusive_group()

@@ -8,8 +8,10 @@ split into contiguous row blocks in device order (``batch_slices``, the
 per device (``replicate``, the replicated sharding of ``shard_params``).
 A device may appear more than once: two replicas on one card run
 one after the other on it, which is how a one-card machine exercises the
-multi-replica path. The ``spatial`` axis of the JAX mesh (row sharding of
-one image) is not ported yet.
+multi-replica path. A ``spatial`` axis splits one image's rows
+(``spatial_sharding``, the ``P(None, "spatial")`` sharding): on a 2-D
+("data", "spatial") mesh, batch block i is served by the row group of the
+devices in row i of the mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    def axis_size(self, name: str) -> int:
+        """The length of axis ``name`` (the JAX ``mesh.shape[name]``)."""
+        return self.shape[self.axis_names.index(name)]
+
 
 def make_mesh(
     shape: Optional[Tuple[int, ...]] = None,
@@ -68,6 +74,19 @@ def batch_slices(mesh: Mesh, n: int) -> List[slice]:
         raise ValueError(f"batch {n} is not divisible by the {mesh.size}-device mesh")
     per = n // mesh.size
     return [slice(i * per, (i + 1) * per) for i in range(mesh.size)]
+
+
+def spatial_sharding(mesh: Mesh, h: int, axis: str = "spatial") -> List[slice]:
+    """The global rows of an ``h``-row image that each device of the mesh
+    takes, in device order: contiguous blocks along ``axis`` (a device's
+    block is its index on that axis), the same on every other axis."""
+    n = mesh.axis_size(axis)
+    if h % n:
+        raise ValueError(f"{h} rows are not divisible by the {n}-way {axis!r} axis")
+    per = h // n
+    stride = math.prod(mesh.shape[mesh.axis_names.index(axis) + 1:])
+    return [slice((i // stride) % n * per, ((i // stride) % n + 1) * per)
+            for i in range(mesh.size)]
 
 
 def replicate(model: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module]:

@@ -4,6 +4,9 @@
 as ``python cli/<script> argv`` runs it (several parse their flags at
 import), for the port's CLIs to be held to.
 
+``on_rows``: a function run on the row blocks of its inputs in a row group
+(the spatial tests, on the CPU and on the card).
+
 ``one_torch_thread``: an autouse module fixture (import it into a test
 module) that runs the module's torch CPU ops on one intra-op thread and
 restores the count after. The port's tests run tiny shapes, where torch's
@@ -37,6 +40,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def on_rows(n: int, fn, *planes) -> list:
+    """``fn`` on each of ``n`` row blocks of the NCHW ``planes`` (each shard
+    its contiguous block of every plane, rows on dim -2) in a row group on
+    the planes' device, repeated (``parallel/rows.py``); the shards'
+    outputs in rank order."""
+    from hvi_cidnet_torch.parallel import rows
+
+    group = rows.RowGroup([planes[0].device] * n)
+    per = planes[0].shape[-2] // n
+
+    def shard(s):
+        with torch.no_grad():
+            return fn(*(p[..., s.rank * per:(s.rank + 1) * per, :].contiguous() for p in planes))
+
+    return rows.run_groups([group], shard)[0]
 
 
 def dp_step_rank(rank: int, out_dir: str, batch: tuple, accums: tuple, lr: float) -> None:

@@ -26,6 +26,7 @@ from hvi_cidnet_torch.ops import hvi_cuda as hc
 from hvi_cidnet_torch.ops import iel_cuda as ic
 from hvi_cidnet_torch.ops import norm_cuda as nc
 from hvi_cidnet_torch.ops import resize_cuda as rc
+from _torch_port import on_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -1083,3 +1084,126 @@ def test_run_dataset_on_the_card_matches_enhance(cuda, tmp_path):
         equal += int((got == ref).sum())
         total += got.size
     assert equal >= 0.999 * total
+
+
+# --------------------------------------------------------------------------
+# spatial row sharding: K3, K4 and K7 on row bands, K5 split at its sum
+# --------------------------------------------------------------------------
+
+
+def _levels(h, w, n):
+    """The four levels' (H, W) of an h x w frame padded as n row shards pad
+    it (H to a multiple of 8 n, W to 8)."""
+    hp, wp = -(-h // (8 * n)) * 8 * n, -(-w // 8) * 8
+    return [(hp >> lv, wp >> lv) for lv in range(4)]
+
+
+# K3, K4 and K7 on each shard's band give the whole plane's rows bitwise, at
+# every level of 1280 x 720 and 600 x 400, over 2 and 4 shards
+@pytest.mark.parametrize("frame", [(720, 1280), (400, 600)], ids=["1280x720", "600x400"])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k3_k4_k7_bands_are_the_whole_plane_rows(cuda, dt, n, frame):
+    a = torch.full((1,), 0.25, device=cuda)
+    w1, w2 = (_rand((3, 1, 3, 3), cuda, dt, -0.5, 0.5, seed=s) for s in (60, 61))
+    counts = rc.HALF_PRELU.launches, rc.DOUBLE.launches, ic.IEL_BRANCH.launches
+    for lv, (h, w) in enumerate(_levels(*frame, n)):
+        x = _rand((1, 3, h, w), cuda, dt, -1.0, 1.0, seed=62 + lv)
+        if lv < 3:
+            got = torch.cat(on_rows(n, lambda t: rc.half_prelu(t, a), x), dim=-2)
+            assert torch.equal(got, rc.half_prelu(x, a)), (lv, "K3")
+        got = torch.cat(on_rows(n, rc.double_bilinear, x), dim=-2)
+        assert torch.equal(got, rc.double_bilinear(x)), (lv, "K4")
+        got = torch.cat(on_rows(n, lambda t: ic.iel_branch(t, w1, w2), x), dim=-2)
+        assert torch.equal(got, ic.iel_branch(x, w1, w2)), (lv, "K7")
+    # every band ran the kernel: one launch a shard and one whole plane a level
+    assert (rc.HALF_PRELU.launches - counts[0], rc.DOUBLE.launches - counts[1],
+            ic.IEL_BRANCH.launches - counts[2]) == (3 * (n + 1), 4 * (n + 1), 4 * (n + 1))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_band_checks_reject_a_wrong_halo_row(cuda, dt):
+    """K4 and K7 on the second of two shards' bands with row 6 where the
+    halo row 7 belongs, and K3 on the second shard's band with the band's
+    own taps in place of the whole image's (the resize's drift): not the
+    whole plane's rows. (K3's third tap weighs 0 under align_corners x0.5:
+    its halo row below changes no finite output.)"""
+    from hvi_cidnet_torch.ops.resize import band_taps
+
+    x = _rand((1, 3, 16, 40), cuda, dt, -1.0, 1.0, seed=70)
+    wrong = torch.cat([x[..., 6:7, :], x[..., 8:16, :]], dim=-2).contiguous()
+    right = x[..., 7:16, :].contiguous()
+    taps = band_taps("double", 16, 7, 9, cuda)
+    whole = rc.double_bilinear(x)[..., 16:, :]
+    assert torch.equal(rc.double_bilinear_kernel(right, taps)[..., 2:, :], whole)
+    assert not torch.equal(rc.double_bilinear_kernel(wrong, taps)[..., 2:, :], whole)
+    w1, w2 = (_rand((3, 1, 3, 3), cuda, dt, -0.5, 0.5, seed=s) for s in (71, 72))
+    whole = ic.iel_branch(x, w1, w2)[..., 8:, :]
+    right = x[..., 6:16, :].contiguous()
+    wrong = torch.cat([x[..., 5:6, :], x[..., 7:16, :]], dim=-2).contiguous()
+    assert torch.equal(ic.iel_branch_kernel(right, w1, w2)[..., 2:, :], whole)
+    assert not torch.equal(ic.iel_branch_kernel(wrong, w1, w2)[..., 2:, :], whole)
+    a = torch.full((1,), 0.25, device=cuda)
+    whole = rc.half_prelu(x, a)[..., 4:, :]
+    band = x[..., 8:, :].contiguous()
+    assert torch.equal(rc.half_prelu_kernel(band, a, band_taps("half", 16, 4, 4, cuda)), whole)
+    assert not torch.equal(rc.half_prelu_kernel(band, a), whole)
+
+
+def _k5_split(q, k, v, temp, heads, n, **kw):
+    """K5 over n row shards through the dispatcher; (the shards' outputs
+    stacked along H, each shard's A as the rows pass wrote it)."""
+    seen = {}
+    entry = ac.attention_rows_apply_kernel
+
+    def capture(*args, **kwargs):
+        from hvi_cidnet_torch.parallel import rows
+
+        out, a = entry(*args, **kwargs)
+        seen[rows.current().rank] = a
+        return out, a
+
+    ac.attention_rows_apply_kernel = capture
+    try:
+        outs = on_rows(n, lambda q_, k_, v_: ac.channel_attention(q_, k_, v_, temp, heads, **kw),
+                        q, k, v)
+    finally:
+        ac.attention_rows_apply_kernel = entry
+    return torch.cat(outs, dim=-2), [seen[r] for r in range(n)]
+
+
+# K5's two entries: on one shard bitwise the one-call kernel; over 2 and 4
+# shards every shard's A bitwise equal, and the output within K5's bars of
+# its twin (on the CPU in fp32); a planted fault in a gathered partial
+# is rejected
+@pytest.mark.parametrize("arm", ["forward", "unfolded", "unnormalised"])
+@pytest.mark.parametrize("level", [(36, 2, 48, 76), (72, 4, 24, 150), (144, 8, 24, 76),
+                                   (144, 8, 4, 9)], ids=["l1", "l2", "l3", "odd"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_k5_split_entries(cuda, dt, level, arm):
+    c, heads, h, w = level
+    normalize = arm != "unnormalised"
+    q, k, temp = _qk((2, c, h, w), heads, cuda, dt, normalize, seed=80)
+    v = _rand((2, c, h, w), cuda, dt, -1.0, 1.0, seed=81)
+    wp = None if arm == "unfolded" else _rand((c, c, 1, 1), cuda, dt, -c**-0.5, c**-0.5, seed=82)
+    kw = dict(normalize_qk=normalize, w_proj=wp)
+    one = ac.channel_attention(q, k, v, temp, heads, **kw)
+    plan, struct, wptr, wcode = ac._prepare(q, k, v, temp, heads, wp)
+    counts = ac.ATTENTION_SCORES.launches, ac.ATTENTION_ROWS_APPLY.launches
+    part = ac.attention_scores_kernel(q, k, plan, struct, heads)
+    got, _ = ac.attention_rows_apply_kernel(part, v, temp, heads, plan, struct, wptr, wcode,
+                                            normalize)
+    assert torch.equal(got, one)
+    assert (ac.ATTENTION_SCORES.launches - counts[0],
+            ac.ATTENTION_ROWS_APPLY.launches - counts[1]) == (1, 1)
+    ref = _k5_twin(q, k, v, temp, heads, **kw)
+    for n in (2, 4):
+        got, a = _k5_split(q, k, v, temp, heads, n, **kw)
+        assert all(torch.equal(a[0], x) for x in a[1:])
+        _close_rel(got, ref, dt, 2e-5)
+    # one shard's score entries met one column off: past the bar
+    bad = part.clone()
+    bad[..., :c * c // heads] = bad[..., :c * c // heads].roll(1, dims=-1)
+    got, _ = ac.attention_rows_apply_kernel(bad, v, temp, heads, plan, struct, wptr, wcode,
+                                            normalize)
+    assert _over_tolerance(got, ref, dt, 2e-5)
