@@ -188,11 +188,32 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    shards against one device's in turns, the shards' host time in
    exchanges and halo assembly and the device time of the concatenation
    kernels (information);
-14. prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step 10's
-   parity eval, ``launches_eval`` from step 9's, ``launches_train`` from
-   step 11b's, ``launches_dp_serving`` and ``launches_dp_train_step`` from
-   step 12's, ``launches_spatial`` from 13a's base bf16 frame) and, last,
-   ``{"ok": true, "device": ...}``.
+15. the utilities on the card (this slice's path), with PIL, cv2 and jax
+   made unimportable and every plain version made to raise on a CUDA
+   tensor, in a temporary directory: (a) ``cli/app.py``'s fallback server
+   on port 0 with base's seeded weights as ``weights/base.pth``: a 600 x
+   400 and a 601 x 397 PNG posted (gates and gamma set), each reply within
+   one uint8 level of ``Evaluator.enhance`` on this thread (99.9% equal),
+   its NIQE (score=1) as ``calculate_niqe`` on the decoded reply, each
+   request one base forward's launches; an unknown weights entry 400, a bad
+   body 500; (b) ``utils/profiling.trace`` around three base bf16 forwards
+   at 8 x 400 x 600: their launches step 6's three times, ``op_breakdown``
+   the trace's device events summed by hand and naming K1-K7's kernels,
+   the forward's ranges (the JAX ``named_scope`` names) each forward's as
+   the CPU forward's, nested alike; the host us of a ``scope`` as a share
+   of a batch-1 forward; (c) ``model_card``'s flops of base, MSSA and TNSM
+   in bf16 at 1 x 400 x 600 equal to the same forward's count in fp32 on
+   the CPU, its seconds a call at batch 8; (d) under
+   ``kernel_flags(ln_iel=True)`` the next forward launches P2/P3 11, K6 22,
+   K7 0, the default counts after, and an override over
+   ``HVI_TORCH_LN_IEL=1``; (e) ``cli/net_test.py``'s FLOPs line on the card
+   equal to its ``--cpu`` line;
+14. (last) prints ``{"kernels": [...]}`` (K1-K7's ``launches`` from step
+   10's parity eval, ``launches_eval`` from step 9's, ``launches_train``
+   from step 11b's, ``launches_dp_serving`` and ``launches_dp_train_step``
+   from step 12's, ``launches_spatial`` from 13a's base bf16 frame,
+   ``launches_app`` from 15a's two requests) and, last, ``{"ok": true,
+   "device": ...}``.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -504,32 +525,31 @@ def compare_resize(results: dict, dev) -> None:
                                      "bound_by": bound[1], "site": site})
 
 
-# nominal fp32 operations per output element of the kernels whose work is
-# not a product (CUDA-core arithmetic): they show that bytes bound them
-OPS_PER_ELEMENT = {"K1": 40, "K2": 50, "K3": 24, "K4": 12, "K6": 8, "K7": 38}
-
-
 def bound_ms(key: str, x: torch.Tensor, *, heads: int = 1, fold: bool = True,
              peak: str = "") -> tuple:
     """(least time in ms, "bytes" or "operations") for kernel ``key`` on
     input ``x`` (K5: q): each input read once and each output written once
-    over 3.35 TB/s, against the operations over the peak of their type."""
+    over 3.35 TB/s, against the operations (``utils/flops.py:kernel_ops``,
+    the count ``model_card`` reports; K1-K4, K6, K7: nominal fp32
+    operations an element, which show that bytes bound them) over the peak
+    of their type."""
+    from hvi_cidnet_torch.utils.flops import kernel_ops
+
     it, n_el = x.element_size(), x.numel()
     if key in ("K1", "K2"):
-        nbytes, ops = 2 * n_el * it, OPS_PER_ELEMENT[key] * n_el // 3
+        nbytes = 2 * n_el * it
     elif key == "K3":
-        nbytes, ops = n_el * it + n_el // 4 * it, OPS_PER_ELEMENT[key] * n_el // 4
+        nbytes = n_el * it + n_el // 4 * it
     elif key == "K4":
-        nbytes, ops = 5 * n_el * it, OPS_PER_ELEMENT[key] * 4 * n_el
+        nbytes = 5 * n_el * it
     elif key == "K6":
-        nbytes, ops = 2 * n_el * it + 8 * x.shape[1], OPS_PER_ELEMENT[key] * n_el
+        nbytes = 2 * n_el * it + 8 * x.shape[1]
     elif key == "K7":
-        nbytes, ops = 2 * n_el * it + 18 * x.shape[1] * it, OPS_PER_ELEMENT[key] * n_el
-    else:  # K5: q, k, v read, out written; block-diagonal scores, norms, the apply
-        b, c = x.shape[:2]
-        cp, n = c // heads, n_el // (x.shape[0] * x.shape[1])
+        nbytes = 2 * n_el * it + 18 * x.shape[1] * it
+    else:  # K5: q, k, v read, out written
+        c = x.shape[1]
         nbytes = 4 * n_el * it + (c * c * it if fold else 0)
-        ops = 2 * b * c * cp * n + 4 * b * c * n + 2 * b * c * (c if fold else cp) * n
+    ops = kernel_ops(key, x, heads=heads, fold=fold)
     peak = peak or ("bf16_tensor" if key == "K5" and x.dtype == torch.bfloat16 else "fp32")
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[peak]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -834,20 +854,19 @@ def fused_bound_ms(key: str, x: torch.Tensor, cout: int = 0) -> tuple:
     """(least time in ms, "bytes" or "operations") of P2/P3, P4 or P5 on
     input ``x``: x read once, the output and the weights once, over 3.35
     TB/s, against the operations over the fp32 CUDA-core peak (the kernels'
-    arithmetic; at these widths their operations bound them)."""
+    arithmetic, ``utils/flops.py:kernel_ops``; at these widths their
+    operations bound them)."""
+    from hvi_cidnet_torch.utils.flops import kernel_ops
+
     it = x.element_size()
     b, c, h, w = x.shape
-    px = b * h * w
     if key == "P2/P3":
         hid = int(c * 2.66)
         nbytes = 2 * x.numel() * it + (3 * hid * c + 36 * hid) * it + 8 * c
-        # LN, the two 1x1 products, both depthwise convs of both halves,
-        # tanh + add, the product, the residual
-        ops = px * (8 * c + 2 * 3 * hid * c + 4 * 2 * hid * 9 + 4 * hid + hid + c)
     else:
         oh, ow = (h, w) if key == "P4" else (h // 2, w // 2)
         nbytes = (x.numel() + b * cout * oh * ow + 9 * c * cout) * it
-        ops = 2 * px * cout * c * 9 + (24 * b * cout * oh * ow if key == "P5" else 0)
+    ops = kernel_ops(key, x, cout=cout)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["fp32"]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -956,21 +975,20 @@ def probe_bound_ms(key: str, x: torch.Tensor, c: int = 0, cout: int = 0) -> tupl
     (G, c, N) q, or of P6 on a (B, K, N) operand: each input read once and
     each output written once over 3.35 TB/s, against the operations over the
     peak of the inputs' type (bf16: the tensor cores; fp32: the CUDA
-    cores)."""
+    cores; the operations: ``utils/flops.py:kernel_ops``)."""
+    from hvi_cidnet_torch.utils.flops import kernel_ops
+
     it = x.element_size()
     peak = PEAK_FLOPS["bf16_tensor" if x.dtype == torch.bfloat16 else "fp32"]
     if key == "P6":
         b, k, n = x.shape
         nbytes = (x.numel() + cout * k + b * cout * n) * it
-        ops = 2 * b * cout * k * n
-    else:
-        g, _, n = x.shape
-        if key == "P1":  # q, k, v read, out written; scores, norms, apply
-            nbytes = 4 * x.numel() * it
-            ops = 4 * g * c * c * n + 4 * g * c * n
-        else:  # q, k read, the fp32 scores written
-            nbytes = 2 * x.numel() * it + 4 * g * c * c
-            ops = 2 * g * c * c * n
+    elif key == "P1":  # q, k, v read, out written
+        nbytes = 4 * x.numel() * it
+    else:  # q, k read, the fp32 scores written
+        g = x.shape[0]
+        nbytes = 2 * x.numel() * it + 4 * g * c * c
+    ops = kernel_ops(key, x, c=c, cout=cout)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -2333,6 +2351,8 @@ def _profile_step(dev, step, kernel_modules, step_ms: float) -> None:
     are taken without it)."""
     import re
 
+    from hvi_cidnet_torch.utils.profiling import is_range  # the forward's ranges
+
     n_steps = 3
     spans = {k: [] for k in KERNEL_NAMES}
     originals = {m: m.twin_backward for m in kernel_modules}
@@ -2366,7 +2386,7 @@ def _profile_step(dev, step, kernel_modules, step_ms: float) -> None:
     twin = {k: sum(s.elapsed_time(e) for s, e in v) / n_steps for k, v in spans.items()}
     by_kernel, busy = {}, 0.0
     for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or is_range(ev):
             continue
         t = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
         busy += t
@@ -3365,6 +3385,7 @@ def _spatial_times(dev, model, mesh, gates, gamma, x, smi: str, where) -> None:
     (the halo bands) beside one device's."""
     from hvi_cidnet_torch.parallel.inference import pad_to_mesh, spatial_enhance_fn
     from hvi_cidnet_torch.serve import Enhancer
+    from hvi_cidnet_torch.utils.profiling import is_range  # the forward's ranges
 
     bf = torch.bfloat16
     one = Enhancer(copy.deepcopy(model), gates, gamma=gamma, compute_dtype=bf, device=dev)
@@ -3423,7 +3444,7 @@ def _spatial_times(dev, model, mesh, gates, gamma, x, smi: str, where) -> None:
             torch.cuda.synchronize()
         total = cat = 0.0
         for ev in prof.key_averages():
-            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA or is_range(ev):
                 continue
             t = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
             total += t
@@ -3435,6 +3456,362 @@ def _spatial_times(dev, model, mesh, gates, gamma, x, smi: str, where) -> None:
     log("13g device time of one frame (profiler, kernels summed): " + "; ".join(
         f"{k} {t:.3f} ms, of it concatenation {c:.3f} ms ({100 * c / t:.1f}%)"
         for k, (c, t) in cat_ms.items()) + f"; card {smi}")
+
+
+# step 15: the utilities on the card. The app's fallback server answers two
+# PNGs (600 x 400 and 601 x 397, the latter reflect-padded to 608 x 400);
+# the profiler traces PROFILE_FORWARDS base bf16 forwards at batch 8
+APP_SIZES = [(400, 600), (397, 601)]
+APP_GATES = dict(gamma=0.9, alpha_s=1.1, alpha_i=0.95)
+PROFILE_FORWARDS = 3
+SCOPE_REPS = 20000     # scope enters and exits timed for the host cost
+
+
+def utilities_path(dev, kernels, smi: str) -> dict:
+    """Step 15, with PIL, cv2 and jax unimportable and the plain versions
+    forbidden on CUDA tensors, in a temporary directory. Returns the
+    launches of (a)'s requests (``launches_app``)."""
+    t0 = time.perf_counter()
+    with without_modules("PIL", "cv2", "jax"), plain_versions_forbidden(), \
+            tempfile.TemporaryDirectory() as tmp, cwd(tmp):
+        out = _utilities_path(dev, kernels, smi, tmp)
+    log(f"step 15 (utilities) took {time.perf_counter() - t0:.1f} s; card {smi}")
+    return out
+
+
+def _post(url: str, body: bytes) -> tuple:
+    """(HTTP status, the JSON reply) of a POST to the app's server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def _utilities_path(dev, kernels, smi: str, tmp: str) -> dict:
+    launches = _app_requests(dev, kernels, tmp)
+    _profiled_forwards(dev, kernels, tmp)
+    _route_kernel_names(dev, tmp)
+    _model_cards(dev)
+    _kernel_flags(dev, kernels)
+    _net_test_flops()
+    return launches
+
+
+def _app_requests(dev, kernels, tmp: str) -> dict:
+    """15a: ``cli/app.py``'s fallback server on the card against
+    ``Evaluator.enhance`` on this thread."""
+    import base64
+    import urllib.parse
+
+    from hvi_cidnet_torch.cli import app
+    from hvi_cidnet_torch.compat.checkpoint import export_pth
+    from hvi_cidnet_torch.data import png
+    from hvi_cidnet_torch.eval.evaluator import Evaluator
+    from hvi_cidnet_torch.metrics.niqe import calculate_niqe
+    from hvi_cidnet_torch.models.cidnet import CIDNet, CIDNetConfig, HVIGates
+
+    os.makedirs(os.path.join(tmp, "weights"))
+    weights = os.path.join("weights", "base.pth")
+    export_pth(weights, CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+               .state_dict())
+    if app.find_weights() != [weights, app.RANDOM_INIT] or app.DEVICE != "cuda":
+        raise AssertionError(f"app: weights {app.find_weights()}, device {app.DEVICE}")
+    g = APP_GATES
+    ref = Evaluator(weights, CIDNetConfig(), HVIGates(gated=True, gated2=True, alpha=g["alpha_i"],
+                                                      alpha_s=g["alpha_s"]),
+                    gamma=g["gamma"], device=dev)
+    server = app.make_fallback_server("127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}/enhance?"
+    query = dict(weights=weights, **{k: str(v) for k, v in g.items()})
+    total = {k: 0 for k in kernels}
+    rng = np.random.default_rng(16)
+    try:
+        for i, (h, w) in enumerate(APP_SIZES):
+            img = synthetic_png(rng, h, w)
+            url = base + urllib.parse.urlencode(dict(query, score=str(int(i == 0))))
+            reset(kernels)
+            t0 = time.perf_counter()
+            status, reply = _post(url, png.encode(img))
+            ms = 1e3 * (time.perf_counter() - t0)
+            got = counts(kernels)
+            if status != 200:
+                raise AssertionError(f"app: {h} x {w} PNG -> {status} {reply}")
+            if got != PER_FORWARD["base"]:
+                raise AssertionError(f"app: {h} x {w} request launched {got}, "
+                                     f"not one base forward {PER_FORWARD['base']}")
+            total = {k: total[k] + got[k] for k in kernels}
+            out = png.decode(base64.b64decode(reply["image"]))
+            want = (np.clip(ref.enhance(img.astype(np.float32) / 255.0), 0, 1) * 255).astype(
+                np.uint8)
+            diff = np.abs(out.astype(np.int32) - want.astype(np.int32))
+            equal = float((diff == 0).mean())
+            if out.shape != img.shape or diff.max() > 1 or equal < 0.999:
+                raise AssertionError(f"app: {h} x {w} reply {out.shape} max {diff.max()} levels "
+                                     f"from Evaluator.enhance, {equal:.5f} equal (bar: 1, 99.9%)")
+            if i == 0:
+                niqe = f"NIQE: {calculate_niqe(out):.4f}"
+                if not reply["info"].startswith(niqe):
+                    raise AssertionError(f"app: info {reply['info']!r}, {niqe} by hand")
+            log(f"15a app {h} x {w} PNG: {ms:.1f} ms a request (host clock, PNG codec and "
+                f"score={int(i == 0)} included), {diff.max()} uint8 levels from Evaluator.enhance "
+                f"on the main thread, {equal:.6f} equal; info {reply['info']!r}; launches {got}")
+        status, reply = _post(base + urllib.parse.urlencode(dict(query, weights="/tmp/x.pth")),
+                              b"x")
+        if status != 400 or "unknown weights" not in reply.get("error", ""):
+            raise AssertionError(f"app: an unknown weights entry gave {status} {reply}")
+        status, reply = _post(base + urllib.parse.urlencode(query), b"not an image")
+        if status != 500 or "error" not in reply:
+            raise AssertionError(f"app: a bad body gave {status} {reply}")
+        log(f"15a app: unknown weights 400, bad body 500 ({reply['error']!r})")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return total
+
+
+def _trace_annotations(path: str) -> tuple:
+    """(the device events, the user_annotation ranges sorted by thread and
+    start) of a Chrome trace."""
+    from hvi_cidnet_torch.utils import profiling
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in profiling.DEVICE_CATEGORIES and e.get("dur")]
+    ranges = sorted((e for e in events if e.get("cat") == "user_annotation"),
+                    key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    return device, ranges
+
+
+def _range_parents(ranges: list) -> list:
+    """(innermost enclosing range, range) of every range, in start order."""
+    pairs, stack = [], []
+    for e in ranges:
+        while stack and (stack[-1]["tid"] != e["tid"]
+                         or stack[-1]["ts"] + stack[-1]["dur"] < e["ts"] + e["dur"]):
+            stack.pop()
+        pairs.append((stack[-1]["name"] if stack else None, e["name"]))
+        stack.append(e)
+    return pairs
+
+
+def _profiled_forwards(dev, kernels, tmp: str) -> None:
+    """15b: ``trace`` around base bf16 forwards and ``op_breakdown``."""
+    from hvi_cidnet_torch.models.cidnet import (
+        CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward,
+    )
+    from hvi_cidnet_torch.utils import profiling
+
+    model = CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+    bf = cast_conv_weights(model.to(dev), torch.bfloat16).eval()
+    x = torch.rand((BATCH, H, W, 3), generator=torch.Generator().manual_seed(17)).to(
+        dev, torch.bfloat16)
+    with torch.no_grad():
+        cidnet_forward(bf, x, compute_dtype=torch.bfloat16)  # warm-up
+        torch.cuda.synchronize()
+        reset(kernels)
+        log_dir = os.path.join(tmp, "trace")
+        with profiling.trace(log_dir):
+            for _ in range(PROFILE_FORWARDS):
+                cidnet_forward(bf, x, compute_dtype=torch.bfloat16)
+    got = counts(kernels)
+    want = {k: PROFILE_FORWARDS * v for k, v in PER_FORWARD["base"].items()}
+    if got != want:
+        raise AssertionError(f"15b: launches under trace() {got} != {want}")
+    breakdown = profiling.op_breakdown(log_dir, top=10**6)
+    device, ranges = _trace_annotations(profiling.newest_trace(log_dir))
+    if not device:
+        raise AssertionError("15b: the trace holds no device event")
+    # the sums by hand: every device event's duration by its raw name's kernel
+    by_hand: dict = {}
+    for e in device:
+        key = profiling.kernel_name(e["name"])
+        by_hand[key] = by_hand.get(key, 0.0) + float(e["dur"])
+    if breakdown != dict(sorted(by_hand.items(), key=lambda kv: -kv[1])):
+        raise AssertionError(f"15b: op_breakdown {breakdown} != the events summed by hand")
+    names = {}
+    for key, pattern in KERNEL_NAMES.items():
+        hits = [n for n in breakdown if re.search(pattern, n)]
+        raw = sum(float(e["dur"]) for e in device if re.search(pattern, e["name"]))
+        if not hits or abs(sum(breakdown[n] for n in hits) - raw) > 1e-6 * raw:
+            raise AssertionError(f"15b: {key} ({pattern}) not in op_breakdown: {list(breakdown)}")
+        names[key] = hits
+    total = sum(breakdown.values())
+    log(f"15b op_breakdown of {PROFILE_FORWARDS} base bf16 forwards at {BATCH} x {H} x {W}: "
+        f"{len(breakdown)} names, {total:.1f} us of device time; by kernel: " + "; ".join(
+            f"{k} {' + '.join(hits)} {sum(breakdown[n] for n in hits):.1f} us"
+            for k, hits in names.items()))
+    log("15b top 10: " + "; ".join(f"{n} {us:.1f} us" for n, us in list(breakdown.items())[:10]))
+    # the ranges: the CPU trace of one fp32 forward gives each name's count
+    # and nesting; the card's three forwards hold each three times
+    cpu_dir = os.path.join(tmp, "trace_cpu")
+    with torch.no_grad(), profiling.trace(cpu_dir, cuda=False):
+        cidnet_forward(CIDNet(CIDNetConfig()).eval(), torch.rand(1, 32, 32, 3))
+    _, cpu_ranges = _trace_annotations(profiling.newest_trace(cpu_dir))
+    cpu_pairs = _range_parents(cpu_ranges)
+    pairs = _range_parents(ranges)
+    if pairs != cpu_pairs * PROFILE_FORWARDS:
+        raise AssertionError(f"15b: the card's ranges {len(pairs)} are not the CPU forward's "
+                             f"{len(cpu_pairs)} x {PROFILE_FORWARDS}, nested and ordered alike")
+    jax_top = ("HVIT", "IE_block0", "HVE_block0", "ID_block0", "HVD_block0", "hvi_residual",
+               "PHVIT")
+    tops = [n for parent, n in cpu_pairs if parent is None]
+    if [n for n in tops if n in jax_top] != list(jax_top):
+        raise AssertionError(f"15b: top-level ranges {tops}")
+    # the host cost of a range with no profiler active
+    scope = profiling.scope
+    t0 = time.perf_counter()
+    for _ in range(SCOPE_REPS):
+        with scope("HV_LCA1"):
+            pass
+    us = 1e6 * (time.perf_counter() - t0) / SCOPE_REPS
+    x1 = x[:1].contiguous()
+    with torch.no_grad():
+        ms1 = time_ms(lambda: cidnet_forward(bf, x1, compute_dtype=torch.bfloat16), iters=10)
+    per_forward = len(cpu_ranges)
+    log(f"15b scope(): {us:.3f} us an enter/exit with no profiler active (NVTX "
+        f"{'on' if profiling._nvtx is not None else 'absent'}), x {per_forward} ranges a "
+        f"forward = {us * per_forward:.1f} us, {us * per_forward / 10 / ms1:.3f}% of a batch-1 "
+        f"base bf16 forward ({ms1:.3f} ms, CUDA events)")
+
+
+# the route kernels' and the relayout's CUDA function names (15b)
+ROUTE_KERNEL_NAMES = {"P2/P3": r"\bln_iel_kernel\b", "P4": r"\bconv3x3_kernel\b",
+                      "P5": r"\bconv3x3_half_prelu_kernel\b",
+                      "P1": r"\bhead_attention_kernel\b", "P6": r"\bim2col_(mma|f32)_kernel\b",
+                      "P10/P15": r"\bbatched_qk_kernel\b",
+                      "P14, P8/P9/P11": r"\b(relayout|copy)_kernel\b"}
+
+
+def _route_kernel_names(dev, tmp: str) -> None:
+    """15b: ``op_breakdown``'s names of the route kernels and the relayout,
+    from one traced forward on each path that launches them."""
+    from hvi_cidnet_torch.models.cidnet import (
+        CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward,
+    )
+    from hvi_cidnet_torch.ops.routes import FUSED, PROBE
+    from hvi_cidnet_torch.utils import profiling
+
+    x = torch.rand((1, H, W, 3), generator=torch.Generator().manual_seed(20)).to(
+        dev, torch.bfloat16)
+    paths = [("fused base", "base", dict(routes=FUSED), x),
+             ("probe TNSM", "tnsm", dict(routes=PROBE), x),
+             ("HWCB base", "base", dict(input_layout="hwcb"), x.permute(1, 2, 3, 0).contiguous())]
+    found = {}
+    for i, (name, variant, kw, xin) in enumerate(paths):
+        model = cast_conv_weights(CIDNet(CIDNetConfig(variant=variant)).to(dev),
+                                  torch.bfloat16).eval()
+        log_dir = os.path.join(tmp, f"trace_route_{i}")
+        with torch.no_grad(), profiling.trace(log_dir):
+            cidnet_forward(model, xin, compute_dtype=torch.bfloat16, **kw)
+        for n in profiling.op_breakdown(log_dir, top=10**6):
+            for key, pattern in ROUTE_KERNEL_NAMES.items():
+                if re.search(pattern, n):
+                    found.setdefault(key, set()).add(n)
+    missing = [k for k in ROUTE_KERNEL_NAMES if k not in found]
+    if missing:
+        raise AssertionError(f"15b: no {missing} in the route forwards' traces")
+    log("15b op_breakdown names, the route kernels and the relayout: " + "; ".join(
+        f"{k} {' + '.join(sorted(found[k]))}" for k in ROUTE_KERNEL_NAMES))
+
+
+def _model_cards(dev) -> None:
+    """15c: ``model_card``'s flops of bf16 forwards on the card against the
+    same forwards' count in fp32 on the CPU; seconds a call at batch 8."""
+    from hvi_cidnet_torch.models.cidnet import (
+        CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward,
+    )
+    from hvi_cidnet_torch.utils import flops, profiling
+
+    gen = torch.Generator().manual_seed(18)
+    x = torch.rand((1, H, W, 3), generator=gen)
+    x8 = torch.rand((BATCH, H, W, 3), generator=gen).to(dev, torch.bfloat16)
+    for variant in VARIANTS:
+        cpu = CIDNet(CIDNetConfig(variant=variant), generator=torch.Generator().manual_seed(0))
+        bf = cast_conv_weights(copy.deepcopy(cpu).to(dev), torch.bfloat16).eval()
+        cpu.eval()
+        fwd = lambda t: cidnet_forward(bf, t, compute_dtype=torch.bfloat16)
+        with torch.no_grad():
+            with flops.count() as c:
+                cidnet_forward(cpu, x)
+            card = profiling.model_card(fwd, x.to(dev, torch.bfloat16), iters=3)
+            card8 = profiling.model_card(fwd, x8, iters=10)
+        if card["flops"] != c.total:
+            raise AssertionError(f"15c {variant}: model_card flops {card['flops']} on the card, "
+                                 f"{c.total} on the CPU")
+        log(f"15c {variant} model_card: flops {card['flops']:.0f} at 1 x {H} x {W} (the CPU's fp32 "
+            f"count {c.total}: equal; kernels {dict(c.kernels)}, aten {c.aten}), "
+            f"{card8['flops']:.0f} at batch {BATCH}; seconds_per_call bf16 batch {BATCH} "
+            f"{card8['seconds_per_call']:.6f} (host clock behind torch.cuda.synchronize), "
+            f"bytes_accessed {card['bytes_accessed']}")
+
+
+def _kernel_flags(dev, kernels) -> None:
+    """15d: ``kernel_flags`` flips the next forward's route; an override
+    wins over the environment."""
+    from hvi_cidnet_torch.models.cidnet import (
+        CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward,
+    )
+    from hvi_cidnet_torch.ops.routes import ENV, kernel_flags
+
+    bf = cast_conv_weights(CIDNet(CIDNetConfig(), generator=torch.Generator().manual_seed(0))
+                           .to(dev), torch.bfloat16).eval()
+    x = torch.rand((1, H, W, 3), generator=torch.Generator().manual_seed(19)).to(
+        dev, torch.bfloat16)
+    fused = dict(PER_FORWARD["base"], **{"P2/P3": 11, "K6": 22, "K7": 0})
+
+    def launched() -> dict:
+        reset(kernels)
+        with torch.no_grad():
+            cidnet_forward(bf, x, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return counts(kernels)
+
+    seen = {}
+    with kernel_flags(ln_iel=True):
+        seen["ln_iel=True"] = launched()
+    seen["after"] = launched()
+    saved = os.environ.get(ENV["ln_iel"])
+    os.environ[ENV["ln_iel"]] = "1"
+    try:
+        seen["env 1"] = launched()
+        with kernel_flags(ln_iel=False):
+            seen["env 1, ln_iel=False"] = launched()
+    finally:
+        if saved is None:
+            del os.environ[ENV["ln_iel"]]
+        else:
+            os.environ[ENV["ln_iel"]] = saved
+    want = {"ln_iel=True": fused, "after": PER_FORWARD["base"], "env 1": fused,
+            "env 1, ln_iel=False": PER_FORWARD["base"]}
+    for name, got in seen.items():
+        if got != want[name]:
+            raise AssertionError(f"15d {name}: launches {got} != {want[name]}")
+    log("15d kernel_flags: " + "; ".join(
+        f"{name}: P2/P3 {got['P2/P3']}, K6 {got['K6']}, K7 {got['K7']}"
+        for name, got in seen.items()))
+
+
+def _net_test_flops() -> None:
+    """15e: ``cli/net_test.py``'s FLOPs line on the card and with --cpu."""
+    from hvi_cidnet_torch.cli import net_test
+
+    for variant in VARIANTS:
+        argv = ["--size", "128", "--iters", "1", "--variant", variant]
+        lines = {}
+        for where, extra in (("card", []), ("cpu", ["--cpu"])):
+            out = call_cli(net_test.main, argv + extra)[1]
+            lines[where] = next(ln for ln in out.splitlines() if ln.startswith("FLOPs:"))
+        if lines["card"] != lines["cpu"]:
+            raise AssertionError(f"15e net_test {variant}: {lines}")
+        log(f"15e net_test {variant} --size 128: the card's FLOPs line is the CPU's")
 
 
 def in_new_thread(fn):
@@ -3456,6 +3833,7 @@ def _host_split(fn, x) -> dict:
     calls, the threads they ran on, the three costliest ops."""
     from hvi_cidnet_torch.parallel import rows
     from hvi_cidnet_torch.serve import Enhancer
+    from hvi_cidnet_torch.utils.profiling import is_range  # the forward's ranges
 
     run = (lambda: fn(x)) if x is not None else fn
     spent = {"forward": 0.0, "cpu": 0.0, "exchange": 0.0, "exchanges": 0, "extend": 0.0}
@@ -3503,7 +3881,7 @@ def _host_split(fn, x) -> dict:
         run()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CPU]
+              == torch.autograd.DeviceType.CPU and not is_range(e)]
     own = {}
     for e in events:
         own[e.name] = own.get(e.name, 0.0) + e.self_cpu_time_total / 1000
@@ -3805,6 +4183,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     spatial = spatial_path(dev, kernels, smi)
 
+    # the utilities: the app, profiling, model_card, kernel flags, the FLOP
+    # count (launches_app: 15a's two requests)
+    torch.cuda.empty_cache()
+    app_launches = utilities_path(dev, kernels, smi)
+
     path_of = lambda key: ("fused" if key in FUSED else "probe" if key in PROBE else
                            "hwcb" if key in RELAYOUTS else "eval")
     summary = [(summarise_relayout if key in RELAYOUTS else summarise)(
@@ -3817,6 +4200,7 @@ def main() -> int:
         line["launches_dp_serving"] = scaled["serving"][key]
         line["launches_dp_train_step"] = scaled["train_step"][key]
         line["launches_spatial"] = spatial[key]
+        line["launches_app"] = app_launches[key]
     log(smi)  # as nvidia-smi prints it: name, power limit
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ counterpart of ``cli/net_test.py`` (reference net_test.py:1-21).
 Runs on the card unless ``--cpu`` is given; ``--fused`` takes the fused
 block route, ``--probe`` the probe route (``ops/routes.py``), else the
 defaults with the environment's overrides. The time is host wall clock
-around forwards that end in a device synchronise.
+around forwards that end in a device synchronise. FLOPs: the dense convs
+and plain products by torch's flop counter, and each kernel (K1-K7, the
+route kernels) by the operation count of its bound (``utils/flops.py``),
+so the card and the CPU print one number for the same forward.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ import time
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from hvi_cidnet_torch.models.cidnet import (
     VARIANTS,
@@ -28,6 +30,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cidnet_forward,
 )
 from hvi_cidnet_torch.ops import routes
+from hvi_cidnet_torch.utils import flops
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -60,7 +63,7 @@ def main(argv=None) -> dict:
         return out[0] if args.variant == "tnsm" else out  # TNSM: (rgb, None)
 
     with torch.no_grad():
-        with FlopCounterMode(display=False) as counter:
+        with flops.count() as counter:
             out = forward()  # also the warm-up
         sync()
         t0 = time.perf_counter()
@@ -70,14 +73,16 @@ def main(argv=None) -> dict:
         seconds = (time.perf_counter() - t0) / args.iters
 
     n_param = model.count_params()
-    flops = counter.get_total_flops()
+    n_flops = counter.total
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"Time: {seconds:.6f} s/forward ({args.batch}x3x{args.size}x{args.size}, "
           f"{args.dtype}, {name})")
     print(f"n_paras: {n_param / 2**20:.3f}M ({n_param:,})")
-    print(f"FLOPs: {flops / 2**30:.4f}G (conv + matmul, torch flop counter, per forward)")
+    print(f"FLOPs: {n_flops / 2**30:.4f}G ({n_flops:,}; convs and products by torch's flop "
+          "counter, kernels K1-K7 and the route kernels by their bound's operation count, "
+          "per forward)")
     print(f"throughput: {args.batch / seconds:.1f} img/s")
-    return {"seconds": seconds, "n_params": n_param, "flops": flops,
+    return {"seconds": seconds, "n_params": n_param, "flops": n_flops,
             "out_shape": tuple(out.shape), "device": name}
 
 

@@ -36,6 +36,7 @@ from hvi_cidnet_torch.models.cidnet import (
     cidnet_forward,
 )
 from hvi_cidnet_torch.ops import routes
+from hvi_cidnet_torch.utils import profiling
 
 H, W = 400, 600
 ITERS = 3
@@ -79,7 +80,8 @@ def profile_batch(model, x, routes=None, input_layout="nhwc") -> dict:
                 fwd()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not profiling.is_range(e)]
     total = sum(_device_us(e) for e in kernels)
     rows = sorted(kernels, key=_device_us, reverse=True)
     return {

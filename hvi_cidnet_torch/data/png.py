@@ -107,7 +107,11 @@ def _unfilter(rows: np.ndarray, filters: np.ndarray, bpp: int, path: str) -> np.
 def read(path: str) -> np.ndarray:
     """Decode ``path`` to RGB uint8 (H, W, 3)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode(f.read(), path)
+
+
+def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """``read`` of a PNG held in memory; ``path`` names it in errors."""
     w, h, depth, ctype, interlace = _ihdr(data, path)
     if ctype not in CHANNELS:
         raise ValueError(f"{path}: PNG colour type {ctype} is not one of {sorted(CHANNELS)}")
@@ -151,6 +155,13 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 def write(path: str, img: np.ndarray) -> None:
     """Write RGB uint8 (H, W, 3) ``img`` as an 8-bit RGB PNG (every row
     filter None, zlib level 6)."""
+    data = encode(img, path)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode(img: np.ndarray, path: str = "<bytes>") -> bytes:
+    """``write``'s file as bytes; ``path`` names the image in errors."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"{path}: expected RGB uint8 (H, W, 3), got {img.dtype} {img.shape}")
@@ -158,6 +169,5 @@ def write(path: str, img: np.ndarray) -> None:
     rows = np.zeros((h, 1 + 3 * w), np.uint8)  # filter byte 0 (None) first in each row
     rows[:, 1:] = img.reshape(h, 3 * w)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))

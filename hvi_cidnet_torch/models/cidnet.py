@@ -33,6 +33,12 @@ in TNSM) and the dense 3x3 convs as im2col products (P6). Only the 4-D conv
 weights take the compute dtype (``cast_conv_weights``): LayerNorm, PReLU,
 temperature and density_k stay fp32 (``.to(bfloat16)`` on the whole module
 would round density_k 0.2 to 0.2002).
+
+The forward opens a ``utils.profiling.scope`` (an NVTX range; a
+``record_function`` while a profiler records) wherever the JAX forward
+opens a ``jax.named_scope``: ``HVIT``, ``IE_block0``, ``HVE_block0``,
+``ID_block0``, ``HVD_block0``, ``hvi_residual`` and ``PHVIT`` here, and one
+a block under its parameter prefix (``models/layers.py:Scoped``).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from hvi_cidnet_torch.models.layers import (
     NormUpsample,
     SpatialAttention,
     dense3x3,
+    name_scopes,
 )
 from hvi_cidnet_torch.models.tnsm import TNSM
 from hvi_cidnet_torch.ops.conv import conv2d
@@ -60,6 +67,7 @@ from hvi_cidnet_torch.ops.relayout_cuda import pack_blocked, relayout_t2_rev
 from hvi_cidnet_torch.ops.resize import resize_bilinear
 from hvi_cidnet_torch.ops.routes import Routes, require_default, resolve
 from hvi_cidnet_torch.parallel import rows
+from hvi_cidnet_torch.utils.profiling import scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +161,7 @@ class CIDNet(nn.Module):
                 self.add_module(f"I_TNSM{idx}", TNSM(dim, heads))
             # the twelve noise maps (two a level) -> 3 (CIDNet_TNSM.py:262)
             self.noise_fusion = nn.Sequential(Conv(12, 3, 3))
+        name_scopes(self)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -249,12 +258,15 @@ def _hvi_and_noise(
         noise_maps.extend([i_n, hv_n])
         return i_t, hv_t
 
-    hvi = rgb_to_hvi(x, m.trans.density_k, compute_dtype)  # K1; CIDNet.py:73
-    i_img = hvi[:, 2:3]                                    # :74
+    with scope("HVIT"):
+        hvi = rgb_to_hvi(x, m.trans.density_k, compute_dtype)  # K1; CIDNet.py:73
+    i_img = hvi[:, 2:3]                                        # :74
 
-    i_enc0 = dense3x3(i_img, m.IE_block0[1].weight, r, "edge")  # :76
+    with scope("IE_block0"):
+        i_enc0 = dense3x3(i_img, m.IE_block0[1].weight, r, "edge")  # :76
     i_enc1 = m.IE_block1(i_enc0, r)
-    hv_0 = dense3x3(hvi, m.HVE_block0[1].weight, r, "edge")
+    with scope("HVE_block0"):
+        hv_0 = dense3x3(hvi, m.HVE_block0[1].weight, r, "edge")
     hv_1 = m.HVE_block1(hv_0, r)
     i_jump0, hv_jump0 = i_enc0, hv_0
 
@@ -306,11 +318,14 @@ def _hvi_and_noise(
     i_dec1, hv_1 = suppress(6, i_dec1, hv_1)
 
     i_dec1 = gate("sa_i1", m.ID_block1(i_dec1, i_jump0, r))  # :114
-    i_dec0 = dense3x3(i_dec1, m.ID_block0[1].weight, r, "edge")
+    with scope("ID_block0"):
+        i_dec0 = dense3x3(i_dec1, m.ID_block0[1].weight, r, "edge")
     hv_1 = gate("sa_hv1", m.HVD_block1(hv_1, hv_jump0, r))
-    hv_0 = dense3x3(hv_1, m.HVD_block0[1].weight, r, "edge")
+    with scope("HVD_block0"):
+        hv_0 = dense3x3(hv_1, m.HVD_block0[1].weight, r, "edge")
 
-    return torch.cat([hv_0, i_dec0], dim=1) + hvi, noise_maps  # :119
+    with scope("hvi_residual"):
+        return torch.cat([hv_0, i_dec0], dim=1) + hvi, noise_maps  # :119
 
 
 def cidnet_forward(
@@ -357,10 +372,11 @@ def cidnet_forward(
     out_hvi, noise_maps = _hvi_and_noise(model, x, compute_dtype, training=training,
                                          routes=resolve(routes))
     # PHVIT read the detached Python float this_k (HVI_transform.py:38, 59)
-    rgb = hvi_to_rgb(  # K2
-        out_hvi, model.trans.density_k.detach(),
-        gated=gates.gated, gated2=gates.gated2, alpha=gates.alpha, alpha_s=gates.alpha_s,
-    )
+    with scope("PHVIT"):
+        rgb = hvi_to_rgb(  # K2
+            out_hvi, model.trans.density_k.detach(),
+            gated=gates.gated, gated2=gates.gated2, alpha=gates.alpha, alpha_s=gates.alpha_s,
+        )
     b, h, w, _ = rgb.shape
     if hwcb:  # K2's NHWC as (B, 1, H W 3) -> (H W 3, 1, B)
         rgb = relayout_t2_rev(rgb.view(b, 1, h * w * 3)).view(h, w, 3, b)  # P11

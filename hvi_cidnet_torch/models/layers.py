@@ -25,6 +25,14 @@ dense 3x3 convs as P4. The LCA's shared ``norm`` still serves the CAB. The
 probe route takes the CAB's attention per head as P1, with ``project_out``
 as a 1x1 conv after it, and the dense 3x3 convs as an im2col operand and
 P6's products.
+
+Each block the JAX forward traces under ``jax.named_scope(prefix)``
+(``hvi_cidnet_tpu/models/layers.py:_scoped``: ``layer_norm``,
+``norm_downsample``, ``norm_upsample``, ``cab``, ``iel``, ``hv_lca``,
+``i_lca``, ``spatial_attention``) is a ``Scoped`` module here: each call
+runs inside ``utils.profiling.scope`` named by the block's parameter prefix
+(``HV_LCA1``, ``HV_LCA1.norm``, ``HVE_block2``, ...), which ``CIDNet``
+sets (``name_scopes``).
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from hvi_cidnet_torch.ops.norm_cuda import layer_norm
 from hvi_cidnet_torch.ops.resize_cuda import double_bilinear, half_prelu
 from hvi_cidnet_torch.ops.routes import UNFUSED, Routes
 from hvi_cidnet_torch.parallel import rows
+from hvi_cidnet_torch.utils.profiling import scope
 
 
 def dense3x3(x: torch.Tensor, w: torch.Tensor, routes: Routes, pad_mode: str = "zero") -> torch.Tensor:
@@ -74,7 +83,25 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin_per_group, kernel, kernel))
 
 
-class LayerNorm(nn.Module):
+class Scoped(nn.Module):
+    """A module whose every call runs inside ``scope(self.prefix)``: its
+    parameter prefix in the model (``name_scopes``), else its class name."""
+
+    prefix = None
+
+    def __call__(self, *args, **kwargs):
+        with scope(self.prefix or type(self).__name__):
+            return super().__call__(*args, **kwargs)
+
+
+def name_scopes(model: nn.Module) -> None:
+    """Name every ``Scoped`` block of ``model`` by its parameter prefix."""
+    for name, module in model.named_modules():
+        if isinstance(module, Scoped):
+            module.prefix = name
+
+
+class LayerNorm(Scoped):
     """Channel LayerNorm (net/transformer_utils.py:5-29). K6."""
 
     def __init__(self, dim: int):
@@ -86,7 +113,7 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
-class NormDownsample(nn.Module):
+class NormDownsample(Scoped):
     """3x3 conv -> bilinear x0.5 -> PReLU -> optional LN
     (net/transformer_utils.py:31-48). The x0.5 + PReLU tail is K3; on the
     ``down`` route the conv, x0.5 and PReLU are P5."""
@@ -108,7 +135,7 @@ class NormDownsample(nn.Module):
         return x
 
 
-class NormUpsample(nn.Module):
+class NormUpsample(Scoped):
     """3x3 conv -> bilinear x2 -> concat skip -> 1x1 conv -> PReLU -> opt LN
     (net/transformer_utils.py:50-70). The x2 is K4."""
 
@@ -142,7 +169,7 @@ def heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.contiguous().view(b * heads, c // heads, h * w)
 
 
-class CAB(nn.Module):
+class CAB(Scoped):
     """Cross-attention block: q from x, k/v from y (net/LCA.py:7-41). The
     attention with the folded ``project_out`` is K5; on the ``head_attn``
     route the attention per head is P1 and ``project_out`` a 1x1 conv
@@ -174,7 +201,7 @@ class CAB(nn.Module):
         )
 
 
-class IEL(nn.Module):
+class IEL(Scoped):
     """Intensity Enhancement Layer, the gated tanh FFN (net/LCA.py:45-67).
     Each of its two branches is K7."""
 
@@ -196,11 +223,13 @@ class IEL(nn.Module):
 
     def fused(self, x: torch.Tensor, norm: LayerNorm, residual: bool) -> torch.Tensor:
         """``IEL(norm(x))`` [+ x] as one pass: P2/P3 on the card."""
-        return ln_iel(x, norm.weight, norm.bias, self.project_in.weight, self.dwconv.weight,
-                      self.dwconv1.weight, self.dwconv2.weight, self.project_out.weight, residual)
+        with scope(self.prefix or type(self).__name__):
+            return ln_iel(x, norm.weight, norm.bias, self.project_in.weight, self.dwconv.weight,
+                          self.dwconv1.weight, self.dwconv2.weight, self.project_out.weight,
+                          residual)
 
 
-class HV_LCA(nn.Module):
+class HV_LCA(Scoped):
     """``x + CAB(LN(x), LN(y))`` then IEL(LN(x)), with NO residual on the IEL
     (net/LCA.py:71-81). On the ``ln_iel`` route the IEL with its LayerNorm
     is P2/P3."""
@@ -227,7 +256,7 @@ class I_LCA(HV_LCA):
     residual = True
 
 
-class SpatialAttention(nn.Module):
+class SpatialAttention(Scoped):
     """Channel mean and max -> 7x7 conv (2 -> 1, zero SAME padding) ->
     sigmoid gate on ``x`` (net/CIDNet_MSSA.py:10-25). Plain PyTorch: the JAX
     package has no kernel for it. In a row group the conv reads three halo

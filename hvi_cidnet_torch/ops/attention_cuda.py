@@ -45,6 +45,7 @@ import torch
 from hvi_cidnet_torch.ops import attention
 from hvi_cidnet_torch.ops._build import DTYPE_CODES, CudaKernel, check_input, twin_backward
 from hvi_cidnet_torch.parallel import rows
+from hvi_cidnet_torch.utils import flops
 
 MAX_CHANNELS = 192      # the apply's A (C16 x C16) and v tiles fit shared memory
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -416,12 +417,13 @@ def channel_attention(
 ) -> torch.Tensor:
     """Channel attention of the CAB (and TNSM) blocks. CPU: twin; CUDA: K5.
     In a row group, split at its reduction (``channel_attention_rows``)."""
-    shard = rows.current()
-    if shard is not None:
-        return channel_attention_rows(shard, q, k, v, temperature, heads,
-                                      normalize_qk=normalize_qk, w_proj=w_proj)
-    if q.device.type == "cpu":
-        return channel_attention_plain(
-            q, k, v, temperature, heads, normalize_qk=normalize_qk, w_proj=w_proj
-        )
-    return _Attention.apply(q, k, v, temperature, w_proj, heads, normalize_qk)
+    with flops.kernel("K5", q, heads=heads, fold=w_proj is not None):
+        shard = rows.current()
+        if shard is not None:
+            return channel_attention_rows(shard, q, k, v, temperature, heads,
+                                          normalize_qk=normalize_qk, w_proj=w_proj)
+        if q.device.type == "cpu":
+            return channel_attention_plain(
+                q, k, v, temperature, heads, normalize_qk=normalize_qk, w_proj=w_proj
+            )
+        return _Attention.apply(q, k, v, temperature, w_proj, heads, normalize_qk)

@@ -29,6 +29,7 @@ import torch
 
 from hvi_cidnet_torch.ops._build import DTYPE_CODES, CudaKernel, check_input, twin_backward
 from hvi_cidnet_torch.ops.conv import exact_fp32
+from hvi_cidnet_torch.utils import flops
 
 # csrc/qk_scores.cuh
 THREADS = 256
@@ -171,6 +172,7 @@ class _BatchedQk(torch.autograd.Function):
 def batched_qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(G, c, c) fp32 scores ``q k^T`` of (G, c, N) q and k. CPU: plain;
     CUDA: P10/P15."""
-    if q.device.type == "cpu":
-        return batched_qk_plain(q, k)
-    return _BatchedQk.apply(q, k)
+    with flops.kernel("P10/P15", q, c=q.shape[1]):
+        if q.device.type == "cpu":
+            return batched_qk_plain(q, k)
+        return _BatchedQk.apply(q, k)

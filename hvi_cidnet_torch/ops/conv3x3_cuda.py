@@ -36,6 +36,7 @@ from hvi_cidnet_torch.ops._build import (
 from hvi_cidnet_torch.ops.conv import conv3x3_replpad, conv3x3_same, exact_fp32
 from hvi_cidnet_torch.ops.resize import axis_weights
 from hvi_cidnet_torch.ops.resize_cuda import half_prelu_plain
+from hvi_cidnet_torch.utils import flops
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 CONV3X3 = CudaKernel("conv3x3", [_p] * 3 + [_i] * 11)
@@ -167,10 +168,11 @@ class _Conv3x3(torch.autograd.Function):
 def conv3x3(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "zero") -> torch.Tensor:
     """Dense 3x3 stride-1 conv, zero SAME padding or the replication pad.
     CPU: plain; CUDA: P4."""
-    _check_pad(pad_mode)
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w, pad_mode)
-    return _Conv3x3.apply(x, w, pad_mode)
+    with flops.kernel("P4", x, cout=w.shape[0]):
+        _check_pad(pad_mode)
+        if x.device.type == "cpu":
+            return conv3x3_plain(x, w, pad_mode)
+        return _Conv3x3.apply(x, w, pad_mode)
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +225,7 @@ class _Conv3x3HalfPrelu(torch.autograd.Function):
 def conv3x3_half_prelu(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """NormDownsample's conv, x0.5 and PReLU in one pass. CPU: plain; CUDA:
     P5."""
-    if x.device.type == "cpu":
-        return conv3x3_half_prelu_plain(x, w, alpha)
-    return _Conv3x3HalfPrelu.apply(x, w, alpha)
+    with flops.kernel("P5", x, cout=w.shape[0]):
+        if x.device.type == "cpu":
+            return conv3x3_half_prelu_plain(x, w, alpha)
+        return _Conv3x3HalfPrelu.apply(x, w, alpha)

@@ -34,6 +34,7 @@ import torch
 from hvi_cidnet_torch.ops import batched_qk_cuda as qk
 from hvi_cidnet_torch.ops._build import DTYPE_CODES, CudaKernel, twin_backward
 from hvi_cidnet_torch.ops.conv import exact_fp32
+from hvi_cidnet_torch.utils import flops
 
 
 def at_offset(c: int, itemsize: int) -> int:
@@ -144,6 +145,7 @@ def head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Per-(image, head) channel attention of (G, c, N) q, k, v, q and k
     normalised; ``temps``: one fp32 temperature a head, row g taking
     ``temps[g % heads]``. CPU: plain; CUDA: P1."""
-    if q.device.type == "cpu":
-        return head_attention_plain(q, k, v, temps)
-    return _HeadAttention.apply(q, k, v, temps)
+    with flops.kernel("P1", q, c=q.shape[1]):
+        if q.device.type == "cpu":
+            return head_attention_plain(q, k, v, temps)
+        return _HeadAttention.apply(q, k, v, temps)

@@ -36,6 +36,7 @@ from hvi_cidnet_torch.ops._build import (
     twin_backward,
     widest_vector,
 )
+from hvi_cidnet_torch.utils import flops
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 RGB_TO_HVI = CudaKernel("hvi_rgb_to_hvi", [_p, _i, _p, _i, _p, _i64, _i64, _i, _i, _i])
@@ -148,9 +149,10 @@ class _RgbToHvi(torch.autograd.Function):
 
 def rgb_to_hvi(img: torch.Tensor, k: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """HVIT: NHWC RGB -> NCHW HVI. CPU: the twin; CUDA: K1."""
-    if img.device.type == "cpu":
-        return rgb_to_hvi_plain(img, k, out_dtype)
-    return _RgbToHvi.apply(img, k, out_dtype)
+    with flops.kernel("K1", img):
+        if img.device.type == "cpu":
+            return rgb_to_hvi_plain(img, k, out_dtype)
+        return _RgbToHvi.apply(img, k, out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -225,6 +227,7 @@ def hvi_to_rgb(
     """PHVIT: NCHW HVI -> NHWC RGB. ``k`` detached by the caller, as the
     reference's PHVIT read a Python float. CPU: the twin; CUDA: K2."""
     gates = dict(gated=gated, gated2=gated2, alpha=alpha, alpha_s=alpha_s)
-    if hvi.device.type == "cpu":
-        return hvi_to_rgb_plain(hvi, k, **gates)
-    return _HviToRgb.apply(hvi, k, gates)
+    with flops.kernel("K2", hvi):
+        if hvi.device.type == "cpu":
+            return hvi_to_rgb_plain(hvi, k, **gates)
+        return _HviToRgb.apply(hvi, k, gates)

@@ -39,6 +39,7 @@ from hvi_cidnet_torch.ops._build import (
     widest_vector,
 )
 from hvi_cidnet_torch.ops.conv import exact_fp32
+from hvi_cidnet_torch.utils import flops
 
 # csrc/im2col_gemm.cu
 THREADS = 256
@@ -138,9 +139,10 @@ class _Im2colDots(torch.autograd.Function):
 def im2col_dots(a: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
     """``wmat a[b]`` for each image b of a (B, K, N) operand. CPU: plain;
     CUDA: P6."""
-    if a.device.type == "cpu":
-        return im2col_dots_plain(a, wmat)
-    return _Im2colDots.apply(a, wmat)
+    with flops.kernel("P6", a, cout=wmat.shape[0]):
+        if a.device.type == "cpu":
+            return im2col_dots_plain(a, wmat)
+        return _Im2colDots.apply(a, wmat)
 
 
 def stage_3x3(x: torch.Tensor, pad_mode: str = "zero") -> torch.Tensor:

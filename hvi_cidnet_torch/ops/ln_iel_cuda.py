@@ -26,6 +26,7 @@ import torch
 from hvi_cidnet_torch.ops import ln_iel as plain
 from hvi_cidnet_torch.ops._build import DTYPE_CODES, CudaKernel, check_input, twin_backward
 from hvi_cidnet_torch.ops.norm_cuda import _check_affine
+from hvi_cidnet_torch.utils import flops
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 LN_IEL = CudaKernel("ln_iel", [_p] * 2 + [_i] + [_p] * 7 + [_i] * 9 + [ctypes.c_float, _i])
@@ -132,6 +133,7 @@ class _LnIel(torch.autograd.Function):
 
 def ln_iel(x, ln_w, ln_b, w_pi, w_dw, w_dw1, w_dw2, w_po, residual: bool):
     """LayerNorm + IEL (+ residual) of an LCA block. CPU: plain; CUDA: P2/P3."""
-    if x.device.type == "cpu":
-        return ln_iel_plain(x, ln_w, ln_b, w_pi, w_dw, w_dw1, w_dw2, w_po, residual)
-    return _LnIel.apply(x, ln_w, ln_b, w_pi, w_dw, w_dw1, w_dw2, w_po, residual)
+    with flops.kernel("P2/P3", x):
+        if x.device.type == "cpu":
+            return ln_iel_plain(x, ln_w, ln_b, w_pi, w_dw, w_dw1, w_dw2, w_po, residual)
+        return _LnIel.apply(x, ln_w, ln_b, w_pi, w_dw, w_dw1, w_dw2, w_po, residual)

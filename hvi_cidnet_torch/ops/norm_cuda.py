@@ -25,6 +25,7 @@ import torch
 
 from hvi_cidnet_torch.ops._build import DTYPE_CODES, CudaKernel, check_input, twin_backward
 from hvi_cidnet_torch.ops.conv import layer_norm_channels
+from hvi_cidnet_torch.utils import flops
 
 EPS = 1e-6
 MAX_CHANNELS = 256   # 16 groups of 32 lanes x 18 channels a thread
@@ -139,6 +140,7 @@ class _LayerNorm(torch.autograd.Function):
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Channel LayerNorm of the LCA blocks. CPU: twin; CUDA: K6."""
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias)
-    return _LayerNorm.apply(x, weight, bias)
+    with flops.kernel("K6", x):
+        if x.device.type == "cpu":
+            return layer_norm_plain(x, weight, bias)
+        return _LayerNorm.apply(x, weight, bias)

@@ -41,6 +41,7 @@ from hvi_cidnet_torch.ops._build import (
 from hvi_cidnet_torch.ops.conv import prelu
 from hvi_cidnet_torch.ops.resize import axis_weights, band_taps, scale_double_f32, scale_half_f32
 from hvi_cidnet_torch.parallel import rows
+from hvi_cidnet_torch.utils import flops
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 HALF_PRELU = CudaKernel("resize_half_prelu",
@@ -176,17 +177,18 @@ class _HalfPrelu(torch.autograd.Function):
 def half_prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """NormDownsample's tail: bilinear x0.5 then PReLU. CPU: twin; CUDA: K3.
     In a row group, on the shard's band (forward only)."""
-    shard = rows.current()
-    if shard is not None:
-        m = x.shape[-2]
-        band, _ = shard.extend(x, 0, 1)
-        taps = band_taps("half", m * shard.size, shard.rank * m // 2, m // 2, x.device)
+    with flops.kernel("K3", x):
+        shard = rows.current()
+        if shard is not None:
+            m = x.shape[-2]
+            band, _ = shard.extend(x, 0, 1)
+            taps = band_taps("half", m * shard.size, shard.rank * m // 2, m // 2, x.device)
+            if x.device.type == "cpu":
+                return half_prelu_plain(band, alpha, taps)
+            return half_prelu_kernel(band, alpha, taps)
         if x.device.type == "cpu":
-            return half_prelu_plain(band, alpha, taps)
-        return half_prelu_kernel(band, alpha, taps)
-    if x.device.type == "cpu":
-        return half_prelu_plain(x, alpha)
-    return _HalfPrelu.apply(x, alpha)
+            return half_prelu_plain(x, alpha)
+        return _HalfPrelu.apply(x, alpha)
 
 
 # --------------------------------------------------------------------------
@@ -275,14 +277,16 @@ class _Double(torch.autograd.Function):
 def double_bilinear(x: torch.Tensor) -> torch.Tensor:
     """NormUpsample's bilinear x2. CPU: twin; CUDA: K4. In a row group, on
     the shard's band (forward only)."""
-    shard = rows.current()
-    if shard is not None:
-        m = x.shape[-2]
-        band, top = shard.extend(x, 1, 1)
-        taps = band_taps("double", m * shard.size, shard.rank * m - top, band.shape[-2], x.device)
-        out = (double_bilinear_plain(band, taps) if x.device.type == "cpu"
-               else double_bilinear_kernel(band, taps))
-        return out[..., 2 * top:2 * (top + m), :]
-    if x.device.type == "cpu":
-        return double_bilinear_plain(x)
-    return _Double.apply(x)
+    with flops.kernel("K4", x):
+        shard = rows.current()
+        if shard is not None:
+            m = x.shape[-2]
+            band, top = shard.extend(x, 1, 1)
+            taps = band_taps("double", m * shard.size, shard.rank * m - top, band.shape[-2],
+                             x.device)
+            out = (double_bilinear_plain(band, taps) if x.device.type == "cpu"
+                   else double_bilinear_kernel(band, taps))
+            return out[..., 2 * top:2 * (top + m), :]
+        if x.device.type == "cpu":
+            return double_bilinear_plain(x)
+        return _Double.apply(x)

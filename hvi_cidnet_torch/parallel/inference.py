@@ -74,7 +74,8 @@ def over_replicas(
     """``dp_enhance_fn``'s ``fn`` over given replicas, one a device of the
     mesh in its order (``Evaluator(mesh=)`` passes itself as the first)."""
 
-    def local(replica: Enhancer, x: torch.Tensor) -> torch.Tensor:
+    def local(replica: Enhancer, x: torch.Tensor, threads_per_op: int) -> torch.Tensor:
+        torch.set_num_threads(threads_per_op)  # a new thread's MKL: see parallel/rows.py
         on_card = replica.device.type == "cuda"
         with torch.cuda.device(replica.device) if on_card else contextlib.nullcontext():
             return replica._forward(x)
@@ -88,9 +89,12 @@ def over_replicas(
                 f"{mesh.size}-device mesh for dp_enhance_fn — pad the tail "
                 "batch (eval/evaluator.py buckets do this) or drop it"
             )
-        rows = batch_slices(mesh, x.shape[0])
+        slices = batch_slices(mesh, x.shape[0])
+        if any(r.device.type == "cpu" for r in replicas):
+            rows.cpu_libraries_ready()  # see parallel/rows.py
         with ThreadPoolExecutor(max_workers=mesh.size) as pool:
-            futures = [pool.submit(local, r, x[s]) for r, s in zip(replicas, rows)]
+            futures = [pool.submit(local, r, x[s], torch.get_num_threads())
+                       for r, s in zip(replicas, slices)]
             outs = [f.result() for f in futures]
         return torch.cat([o.to(mesh.devices[0]) for o in outs])
 

@@ -29,16 +29,37 @@ times its row count there.
 ``run_groups`` drives the shards: if one fails, every barrier is aborted,
 the others raise at their next wait, and the first failure is raised on the
 caller's thread. No wait is unbounded.
+
+Two first-use effects made a CPU group's first call in a process differ
+from its later ones, and both are settled before the shards start:
+
+* each shard's thread takes the caller's intra-op thread count. A new
+  thread does not: ``torch.set_num_threads`` sets MKL's count for the
+  calling thread only (``mkl_set_num_threads_local``), and torch applies
+  its count to another thread lazily, at that thread's first
+  ``at::parallel_for`` over a large tensor, after a small shard's first
+  MKL product (a dense conv's GEMM, K5's partial sums), which MKL then ran
+  on every core;
+* the CPU's math libraries take their first calls on the caller's thread
+  (``cpu_libraries_ready``). When several threads made the process's first
+  call of one of MKL's vector-math (VML) functions at once, one of them,
+  now and then, got other bits than every later call: ``torch.sin`` on
+  four new threads at once, in a fresh process, differed from the same
+  call made after in 17 of 300 processes, and in none of 300 after one
+  ``torch.sin`` on the starting thread. K1's plain version (the hue's sin
+  and cos) met it on one shard and moved the first frame 2.2e-5.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import queue
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 TIMEOUT = 300.0  # seconds a shard waits at a barrier, and the caller for a shard
 
@@ -156,6 +177,30 @@ def suspended():
     return shard_context(None)
 
 
+# the unary ops torch computes with MKL's VML on the CPU (ATen/cpu/vml.h)
+VML_OPS = (torch.acos, torch.asin, torch.atan, torch.cos, torch.erf, torch.erfc, torch.erfinv,
+           torch.exp, torch.log, torch.log10, torch.log2, torch.sin, torch.sqrt, torch.tan,
+           torch.tanh, torch.trunc)
+
+
+@functools.lru_cache(maxsize=None)
+def cpu_libraries_ready() -> None:
+    """Give MKL and oneDNN their first calls in this process on this
+    thread, once a process: each VML function, and one of each product the
+    shards' ops reach on the CPU (a GEMM, a batched GEMM, a dense and a
+    depthwise conv)."""
+    with torch.no_grad():
+        v = torch.full((64,), 0.5)
+        for op in VML_OPS:
+            op(v)
+        a = torch.ones(16, 16)
+        torch.mm(a, a)
+        torch.bmm(a[None], a[None])
+        x = torch.ones(1, 4, 8, 8)
+        F.conv2d(x, torch.ones(4, 4, 3, 3), padding=1)
+        F.conv2d(x, torch.ones(4, 1, 3, 3), padding=1, groups=4)
+
+
 def run_groups(groups: Sequence[RowGroup], fn: Callable[[Shard], object]) -> List[list]:
     """``fn(shard)`` for every rank of every group, one thread a rank, under
     ``torch.cuda.device`` for a card's shard. Returns each group's results
@@ -164,6 +209,9 @@ def run_groups(groups: Sequence[RowGroup], fn: Callable[[Shard], object]) -> Lis
     broken barriers it caused) is raised here; a rank that does not finish
     within the timeout after the last one did raises ``TimeoutError``."""
     shards = [Shard(g, r) for g in groups for r in range(g.size)]
+    threads_per_op = torch.get_num_threads()
+    if any(s.device.type == "cpu" for s in shards):
+        cpu_libraries_ready()
     results: list = [None] * len(shards)
     errors: list = [None] * len(shards)
     finished: queue.Queue = queue.Queue()
@@ -175,6 +223,7 @@ def run_groups(groups: Sequence[RowGroup], fn: Callable[[Shard], object]) -> Lis
     def body(i: int) -> None:
         shard = shards[i]
         try:
+            torch.set_num_threads(threads_per_op)  # the caller's, for MKL too (module note)
             card = shard.device.type == "cuda"
             with torch.cuda.device(shard.device) if card else contextlib.nullcontext(), \
                     shard_context(shard):
