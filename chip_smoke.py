@@ -31,8 +31,11 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    at the three NormDownsamples; fp32 within 1e-5 relative, bf16 within one
    bf16 ulp of the plain version's rounding (or the fp32 bar); with each
    kernel's time, its plain version's, its bound and what the unfused route
-   runs in its place (P4: ``F.conv2d``, cuDNN; P5: cuDNN + K3; P2/P3: K6,
-   the 1x1 convs, 2 x K7 and the product);
+   runs in its place (P4: ``F.conv2d``, cuDNN, timed against the kernel in
+   alternating rounds, medians and spread; P5: cuDNN + K3; P2/P3: K6, the
+   1x1 convs, 2 x K7 and the product); P4's bar must reject two planted
+   faults: weights whose taps are shifted by one column, and at the
+   replication-padded sites the zero-padded result;
 4c. holds the probe route's kernels against their plain versions at every
    site shape of the 600 x 400 batch-8 forward and at batch 1 (N tails),
    fp32 and bf16: P1 at the three LCA levels (q and k of shared structure,
@@ -43,8 +46,10 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    bits (P1, P10/P15) and against a planted fault (k rows permuted) that
    the bar must reject; with each kernel's time, its plain version's, its
    bound and the comparators: K5 at the same sites (P1, P10/P15), and for
-   P6 ``torch.matmul`` on the same staged operand and ``F.conv2d``
-   (cuDNN) for the whole conv;
+   P6 ``torch.matmul`` on the same staged operand (in alternating rounds
+   with the kernel, medians and spread) and ``F.conv2d`` (cuDNN) for the
+   whole conv; P6's bar must also reject weights whose taps are shifted
+   by one column;
 4d. holds the relayout against its plain versions, bitwise (``torch.equal``),
    fp32 and bf16: P7 (steps 1, 2, 3), P8, P9, P11, P12, P13 and P14 at the
    three LCA levels ((N, C, B), batch 8 and 1), the HWCB entry (P14) and
@@ -284,6 +289,10 @@ TOL_TNSM = {"max": 1e-4, "mean": 1e-5, "bf16_mean": 5e-2, "noise_max": 1e-5}
 # the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+# P4 and P6 against their library call: alternating rounds (kernel,
+# library, library, kernel, ...), each round time_ms over TURN_ITERS calls
+TURN_ROUNDS = 6
+TURN_ITERS = 10
 # instruction issue of the math-bound K1 and K2: SASS instructions a pixel on
 # the fast path under the batch-8 plan (cuobjdump -sass of the bf16 kernels,
 # PERF.md), one a clock on each of the 528 schedulers (132 SMs x 4) at
@@ -364,6 +373,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(kernel, library, rounds: int = TURN_ROUNDS) -> dict:
+    """``kernel`` and ``library`` timed in alternating rounds (kernel,
+    library, library, kernel, ...; CUDA events, ``time_ms``): the median of
+    each, its spread (max - min) and the rounds."""
+    times = {"kernel": [], "library": []}
+    for r in range(rounds):
+        for name in (("kernel", "library") if r % 2 == 0 else ("library", "kernel")):
+            fn = kernel if name == "kernel" else library
+            times[name].append(time_ms(fn, iters=TURN_ITERS, warmup=2))
+    med = lambda v: sorted(v)[len(v) // 2]
+    return {"ms": med(times["kernel"]), "library_ms": med(times["library"]),
+            "ms_spread": max(times["kernel"]) - min(times["kernel"]),
+            "library_spread": max(times["library"]) - min(times["library"]),
+            "ms_rounds": times["kernel"], "library_rounds": times["library"]}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -850,12 +875,15 @@ def fused_conv_sites(ch=(36, 36, 72, 144)):
     return p4, p5
 
 
-def fused_bound_ms(key: str, x: torch.Tensor, cout: int = 0) -> tuple:
+def fused_bound_ms(key: str, x: torch.Tensor, cout: int = 0, peak: str = "") -> tuple:
     """(least time in ms, "bytes" or "operations") of P2/P3, P4 or P5 on
     input ``x``: x read once, the output and the weights once, over 3.35
-    TB/s, against the operations over the fp32 CUDA-core peak (the kernels'
-    arithmetic, ``utils/flops.py:kernel_ops``; at these widths their
-    operations bound them)."""
+    TB/s, against the operations (the kernels' arithmetic,
+    ``utils/flops.py:kernel_ops``) over the peak of the unit that runs them:
+    P4 in bf16 the tensor cores (a bf16 product is exact in fp32, so its
+    bf16 arm runs there), everything else the fp32 CUDA cores (P2/P3 and P5
+    compute in fp32 inside); ``peak`` names another ("fp32": P4's figure on
+    the CUDA cores)."""
     from hvi_cidnet_torch.utils.flops import kernel_ops
 
     it = x.element_size()
@@ -867,7 +895,9 @@ def fused_bound_ms(key: str, x: torch.Tensor, cout: int = 0) -> tuple:
         oh, ow = (h, w) if key == "P4" else (h // 2, w // 2)
         nbytes = (x.numel() + b * cout * oh * ow + 9 * c * cout) * it
     ops = kernel_ops(key, x, cout=cout)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["fp32"]
+    if not peak:
+        peak = "bf16_tensor" if key == "P4" and x.dtype == torch.bfloat16 else "fp32"
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[peak]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -907,18 +937,27 @@ def compare_fused(results: dict, dev) -> None:
 
     def record(key, dt, site, err, kern, plain, x, per_forward, unfused=None, library=None,
                cout=0, info=""):
-        t_k, t_p = time_ms(kern), time_ms(plain)
+        # with a library call: the kernel and it in alternating rounds (P4)
+        turns = in_turns(kern, library) if library is not None else None
+        t_k = turns["ms"] if turns else time_ms(kern)
+        t_p = time_ms(plain)
         t_u = time_ms(unfused) if unfused is not None else None
-        t_l = time_ms(library) if library is not None else None
+        t_l = turns["library_ms"] if turns else None
         bound = fused_bound_ms(key, x, cout)
-        results[key].append({"dtype": str(dt), "err": err, "ms": t_k, "plain_ms": t_p,
-                             "unfused_ms": t_u, "library_ms": t_l, "bound_ms": bound[0],
-                             "bound_by": bound[1], "site": site, "per_forward": per_forward})
+        row = {"dtype": str(dt), "err": err, "ms": t_k, "plain_ms": t_p, "unfused_ms": t_u,
+               "library_ms": t_l, "bound_ms": bound[0], "bound_by": bound[1], "site": site,
+               "per_forward": per_forward}
+        if key == "P4":
+            row["bound_cuda_core_ms"] = fused_bound_ms(key, x, cout, "fp32")[0]
+            row["turns"] = turns
+        results[key].append(row)
         log(f"{key} {site}{info} {tuple(x.shape)} {dt}: max_abs_err {err:.3e}  kernel "
             f"{t_k:.4f} ms  plain {t_p:.4f} ms  "
             + (f"unfused {t_u:.4f} ms  " if t_u is not None else "")
-            + (f"F.conv2d {t_l:.4f} ms  " if t_l is not None else "")
-            + f"bound {bound[0]:.4f} ms ({bound[1]})")
+            + (f"F.conv2d {t_l:.4f} ms (medians of {TURN_ROUNDS} rounds in turns, spread "
+               f"{turns['ms_spread']:.4f} / {turns['library_spread']:.4f})  " if turns else "")
+            + f"bound {bound[0]:.4f} ms ({bound[1]})"
+            + (f" [CUDA cores {row['bound_cuda_core_ms']:.4f}]" if key == "P4" else ""))
 
     p4_sites, p5_sites = fused_conv_sites()
     for dt in (torch.float32, torch.bfloat16):
@@ -952,7 +991,18 @@ def compare_fused(results: dict, dev) -> None:
             wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5, dt)
             run = lambda: cc.conv3x3_kernel(x, wt, pad)
             plain = lambda: cc.conv3x3_plain(x, wt, pad)
-            err = judge(f"P4 {site} {dt}", run(), plain(), dt)
+            ref = plain()
+            err = judge(f"P4 {site} {dt}", run(), ref, dt)
+            # planted faults the bar must reject: taps shifted by one column;
+            # at the replication-padded sites, the zero-padded result
+            faults = {"taps shifted by one column": cc.conv3x3_kernel(x, wt.roll(1, 3), pad)}
+            if pad == "edge":
+                faults["zero pad for edge"] = cc.conv3x3_kernel(x, wt, "zero")
+            for fault, got in faults.items():
+                if fused_excess(got, ref, dt) <= 0:
+                    raise AssertionError(f"P4 {site} {dt}: the bar passes a planted fault "
+                                         f"({fault})")
+            del ref, faults
             # the library yardstick: cuDNN's zero-padded conv, the same work
             # (the replication pad of the edge sites would be a second call)
             record("P4", dt, site, err, run, plain, x, {v: uses for v in VARIANTS},
@@ -1037,10 +1087,16 @@ def compare_probe(results: dict, dev) -> None:
 
     def record(key, dt, site, err, kern, plain, x, per_forward, bound, comparators=None,
                library=None, info=""):
-        row = {"dtype": str(dt), "err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "library_ms": time_ms(library) if library is not None else None,
+        # P6 and its library call in alternating rounds
+        turns = in_turns(kern, library) if key == "P6" else None
+        row = {"dtype": str(dt), "err": err,
+               "ms": turns["ms"] if turns else time_ms(kern), "plain_ms": time_ms(plain),
+               "library_ms": turns["library_ms"] if turns else (
+                   time_ms(library) if library is not None else None),
                "bound_ms": bound[0], "bound_by": bound[1], "site": site,
                "per_forward": per_forward}
+        if turns:
+            row["turns"] = turns
         for name, fn in (comparators or {}).items():
             row[f"{name}_ms"] = time_ms(fn)
         results[key].append(row)
@@ -1048,6 +1104,8 @@ def compare_probe(results: dict, dev) -> None:
         log(f"{key} {site}{info} {tuple(x.shape)} {dt}: max_abs_err {err:.3e}  kernel "
             f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
             + (f"  library {row['library_ms']:.4f} ms" if library is not None else "")
+            + (f" (medians of {TURN_ROUNDS} rounds in turns, spread {turns['ms_spread']:.4f} / "
+               f"{turns['library_spread']:.4f})" if turns else "")
             + f"{extra}  bound {bound[0]:.4f} ms ({bound[1]})")
 
     for dt in (torch.float32, torch.bfloat16):
@@ -1141,6 +1199,10 @@ def compare_probe(results: dict, dev) -> None:
             if not excess <= 0:
                 raise AssertionError(f"P6 {site} {dt}: max abs err {max_err(got, plain()):.3e}, "
                                      f"over the bar by {excess:.3e}")
+            shifted = wt.roll(1, 3).reshape(cout, cin * 9)  # a planted fault: taps one column off
+            if fused_excess(icol.im2col_dots_kernel(a, shifted), plain(), dt) <= 0:
+                raise AssertionError(f"P6 {site} {dt}: the bar passes weights whose taps are "
+                                     f"shifted by one column")
             # the whole conv: the route's (F.unfold and P6), the default
             # route's (cuDNN, after the replication pad at the stems and heads)
             record("P6", dt, site, max_err(got, plain()), run, plain, a, per_forward,
@@ -3683,7 +3745,7 @@ def _profiled_forwards(dev, kernels, tmp: str) -> None:
 
 
 # the route kernels' and the relayout's CUDA function names (15b)
-ROUTE_KERNEL_NAMES = {"P2/P3": r"\bln_iel_kernel\b", "P4": r"\bconv3x3_kernel\b",
+ROUTE_KERNEL_NAMES = {"P2/P3": r"\bln_iel_kernel\b", "P4": r"\bconv3x3_(mma|small)_kernel\b",
                       "P5": r"\bconv3x3_half_prelu_kernel\b",
                       "P1": r"\bhead_attention_kernel\b", "P6": r"\bim2col_(mma|f32)_kernel\b",
                       "P10/P15": r"\bbatched_qk_kernel\b",
@@ -3900,6 +3962,12 @@ def reset(kernels) -> None:
         v.launches = 0
 
 
+def per_forward_spread(rows: list, field: str) -> float:
+    """The spread of a base forward's sum: each site's spread in turns times
+    its uses."""
+    return sum(r["turns"][field] * r["per_forward"]["base"] for r in rows if r.get("turns"))
+
+
 def summarise(key: str, rows: list, launches: dict) -> dict:
     """One kernel's line: errors over both dtypes; times and bounds summed
     over the kernel's sites in one forward, 600 x 400, batch 8, bf16: base
@@ -3958,8 +4026,15 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
         "plain_ms_by_path": {v: per_forward("plain_ms", v) for v in VARIANTS},
         "bound_ms_by_path": {v: per_forward("bound_ms", v) for v in VARIANTS},
     }
-    if key == "K5":
+    if key in ("K5", "P4"):
         line["bound_cuda_core_ms"] = per_forward("bound_cuda_core_ms")
+    if key in ("P4", "P6"):  # per site, bf16 batch 8: kernel and library in turns
+        line["sites"] = [{"site": r["site"], "per_forward": r["per_forward"]["base"],
+                          **{f: r["turns"][f] for f in ("ms", "library_ms", "ms_spread",
+                                                          "library_spread")},
+                          "bound_ms": r["bound_ms"]} for r in bf if r.get("turns")]
+        line["ms_spread"] = per_forward_spread(bf, "ms_spread")
+        line["library_spread"] = per_forward_spread(bf, "library_spread")
     if key in FUSED:
         line["unfused_ms"] = per_forward("unfused_ms")
     for field in ("k5_ms", "route_ms", "cudnn_ms"):

@@ -1,0 +1,175 @@
+"""What bounds P4's and P6's bf16 kernels on the card: each timed with one
+phase taken out.
+
+    python -m hvi_cidnet_torch.cli.conv_phases [--out build/conv_phases]
+
+Runs on the card. Builds variants of ``csrc/conv3x3.cu`` and
+``csrc/im2col_gemm.cu`` in which one phase does no work, each into its own
+library under ``--out`` with the kernels' flags, and times each variant
+against the kernel as built from the unchanged source, at the sites of the
+600 x 400 batch-8 forward, bf16, as device time per call from CUDA graphs
+(``kernel_times.graph_ms``). A variant's output is wrong by design: only its
+time is read. A phase whose removal saves little does not bound the kernel;
+phases whose savings add up to the whole time run one after the other.
+
+* P4 (the tensor-core arm at the stems and NormUpsamples, the CUDA-core arm
+  at the heads): ``no_products`` (no mma.sync; the CUDA-core arm's fmaf
+  products, and with them its window reads, gone), ``no_transpose`` (the
+  staged rows not turned into the channel-minor tile), ``no_copies`` (no
+  cp.async of x's rows), ``no_stores`` (no tile written out).
+* P6: ``no_products`` (no wgmma), ``no_copies`` (no TMA, bulk or cp.async
+  copy of the operand or W; the barriers still complete), ``no_stores``.
+
+Beside them, half of a ``Tensor.clone`` of the site's input: one read of
+its bytes. Prints a line a site and writes them as JSON under ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+from hvi_cidnet_torch.cli.kernel_times import H, W, graph_ms
+from hvi_cidnet_torch.ops import _build
+from hvi_cidnet_torch.ops import conv3x3_cuda as cc
+from hvi_cidnet_torch.ops import im2col_cuda as icol
+
+BATCH = 8
+# (source, variant) -> the substitutions that take the phase out; each must
+# apply, so a change to the sources that moves a phase fails here loudly
+VARIANTS = {
+    ("conv3x3.cu", "base"): [],
+    ("conv3x3.cu", "no_products"): [
+        ("    for (int tap = 0; tap < 9; ++tap) {\n      const int dy = tap / 3, dx = tap % 3, d",
+         "    for (int tap = 0; tap < 0; ++tap) {\n      const int dy = tap / 3, dx = tap % 3, d"),
+        ("            acc[p][o] = fmaf(wv[o], v[dy + (p >> 1)][dx + (p & 1)], acc[p][o]);",
+         "            acc[p][o] += 0.0f * wv[o];")],
+    ("conv3x3.cu", "no_transpose"): [("    transpose(cur);\n", "")],
+    ("conv3x3.cu", "no_copies"): [
+        ("    if (g0 < a1) cp_async16(rs + cr * kRawPitch + 8 * gi,",
+         "    if (false) cp_async16(rs + cr * kRawPitch + 8 * gi,")],
+    ("conv3x3.cu", "no_stores"): [
+        ("      if (gy >= h || gx >= w) continue;\n      bf16* dst",
+         "      if (true) continue;\n      bf16* dst"),
+        ("          if (gy >= h || gx >= w) continue;\n          bf16* ob",
+         "          if (true) continue;\n          bf16* ob")],
+    ("im2col_gemm.cu", "base"): [],
+    ("im2col_gemm.cu", "no_products"): [
+        ("    for (int j = 0; j < kKsB / 16; ++j) {\n      // B: columns",
+         "    for (int j = 0; j < 0; ++j) {\n      // B: columns")],
+    ("im2col_gemm.cu", "no_copies"): [
+        ("        mbar_arrive_expect(bars + st, kStageBytes);",
+         "        mbar_arrive_expect(bars + st, 0u);"),
+        ("          tma_load_3d(sb + at", "          if (false) tma_load_3d(sb + at"),
+        ("        bulk_copy(sb + kOpBytesB, wsrc, kWBytes, bars + st);",
+         "        if (false) bulk_copy(sb + kOpBytesB, wsrc, kWBytes, bars + st);"),
+        ("          cp_async_zfill<2 * VEC>(", "          if (false) cp_async_zfill<2 * VEC>("),
+        ("          cp_async16(sb + kOpBytesB + 16 * i, wsrc + 16 * i);",
+         "          if (false) cp_async16(sb + kOpBytesB + 16 * i, wsrc + 16 * i);")],
+    ("im2col_gemm.cu", "no_stores"): [
+        ("          bulk_store(ob + ", "          if (false) bulk_store(ob + "),
+        ("          store_m64(acc[mr],", "          if (false) store_m64(acc[mr],")],
+}
+# (site, C_in, C_out, h, w, pad) at 600 x 400: P4's, and P6's (P4's and the
+# NormDownsamples', zero pad)
+P4_SITES = [("stem_hv", 3, 36, H, W, "edge"), ("stem_i", 1, 36, H, W, "edge"),
+            ("head_hv", 36, 2, H, W, "edge"), ("head_i", 36, 1, H, W, "edge"),
+            ("up3", 144, 72, H // 8, W // 8, "zero"), ("up2", 72, 36, H // 4, W // 4, "zero"),
+            ("up1", 36, 36, H // 2, W // 2, "zero")]
+P6_SITES = P4_SITES + [("down1", 36, 36, H, W, "zero"), ("down2", 36, 72, H // 2, W // 2, "zero"),
+                       ("down3", 72, 144, H // 4, W // 4, "zero")]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="P4's and P6's phases timed one at a time")
+    p.add_argument("--out", type=str, default="build/conv_phases")
+    return p.parse_args(argv)
+
+
+def build_variants(out: str) -> dict:
+    """Every variant's library, built in parallel: (source, variant) -> CDLL."""
+    procs = {}
+    for (src, name), subs in VARIANTS.items():
+        d = os.path.join(out, f"{src.split('.')[0]}_{name}")
+        os.makedirs(d, exist_ok=True)
+        for header in _build.CSRC_DIR.glob("*.cuh"):
+            shutil.copy(header, d)
+        text = (_build.CSRC_DIR / src).read_text()
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"{src} {name}: the phase moved ({old[:60]!r})")
+            text = text.replace(old, new)
+        with open(os.path.join(d, src), "w") as f:
+            f.write(text)
+        lib = os.path.join(d, "lib.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, os.path.join(d, src)]
+        procs[src, name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), lib)
+    libs = {}
+    for key, (proc, lib) in procs.items():
+        log = proc.communicate()[1]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        libs[key] = ctypes.CDLL(lib)
+    return libs
+
+
+def bind(kernel: _build.CudaKernel, lib: ctypes.CDLL) -> None:
+    """Launch ``kernel``'s C entry from ``lib`` (its count still counts)."""
+    fn = getattr(lib, kernel.name)
+    fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+    kernel._fn = fn
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        print("conv_phases: needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi)
+    libs = build_variants(args.out)
+    gen = torch.Generator().manual_seed(0)
+    rnd = lambda shape, lo, hi: (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(
+        dev, torch.bfloat16)
+    rows = []
+    for key, kernel, sites in (("P4", cc.CONV3X3, P4_SITES), ("P6", icol.IM2COL_DOTS, P6_SITES)):
+        src = "conv3x3.cu" if key == "P4" else "im2col_gemm.cu"
+        names = [name for s, name in VARIANTS if s == src]
+        for site, cin, cout, h, w, pad in sites:
+            x = rnd((BATCH, cin, h, w), -1.0, 1.0)
+            wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5)
+            if key == "P4":
+                run, data = (lambda: cc.conv3x3_kernel(x, wt, pad)), x
+            else:
+                a, wmat = icol.stage_3x3(x, pad), wt.reshape(cout, cin * 9)
+                run, data = (lambda: icol.im2col_dots_kernel(a, wmat)), a
+            row = {"kernel": key, "site": site, "shape": list(data.shape), "device": smi}
+            for name in names:
+                bind(kernel, libs[src, name])
+                row[name] = graph_ms(run)
+            row["one_read"] = graph_ms(lambda: data.clone()) / 2
+            rows.append(row)
+            print(f"{key} {site} {tuple(data.shape)}: " + "  ".join(
+                f"{n} {row[n]:.4f}" for n in names + ["one_read"]) + " ms", flush=True)
+            del x, data, run
+            if key == "P6":
+                del a
+            torch.cuda.empty_cache()
+    kernel._fn = None  # the next call binds the kernels' own library again
+    cc.CONV3X3._fn = None
+    with open(os.path.join(args.out, "conv_phases.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

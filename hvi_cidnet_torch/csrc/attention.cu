@@ -73,9 +73,6 @@
 // The launch plan (splits, tiles, stages, threads, shared memory, the
 // scratch layout) comes from the host: ops/attention_cuda.py:attention_plan.
 #include <algorithm>
-#include <mutex>
-#include <set>
-#include <utility>
 
 #include <cooperative_groups.h>
 
@@ -778,25 +775,9 @@ __global__ void __launch_bounds__(kRowsThreads)
   }
 }
 
-// Lift a kernel's dynamic shared-memory cap to what one block may use, once
-// per kernel and device: the host work of a call stays small at level 3.
-int set_smem(const void* fn, int64_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  static std::mutex mu;
-  static std::set<std::pair<const void*, int>> done;
-  int device = 0;
-  cudaGetDevice(&device);
-  std::lock_guard<std::mutex> lock(mu);
-  if (done.count({fn, device})) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) done.insert({fn, device});
-  return static_cast<int>(err);
-}
-
 template <typename K, typename... Args>
 int launch(K kernel, dim3 grid, int threads, int64_t smem, cudaStream_t stream, Args... args) {
-  int err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  int err = raise_smem_cap(reinterpret_cast<const void*>(kernel), smem);
   if (err) return err;
   kernel<<<grid, threads, static_cast<size_t>(smem), stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
@@ -807,7 +788,7 @@ template <typename... KArgs, typename... Args>
 int launch_cluster(void (*kernel)(KArgs...), int cluster, dim3 grid, int threads, int64_t smem,
                    cudaStream_t stream, Args... args) {
   if (cluster <= 1) return launch(kernel, grid, threads, smem, stream, args...);
-  int err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  int err = raise_smem_cap(reinterpret_cast<const void*>(kernel), smem);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;

@@ -336,9 +336,9 @@ int launch_iel_branch(const void* y, void* out, const void* w1, const void* w2, 
                   stage_elems % kVec == 0 && stage_elems >= bh * w + 2 * kVec &&
                   smem_bytes >= need && static_cast<int64_t>(h) * w <= 0x7fffffffLL;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(iel_branch_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err =
+      raise_smem_cap(reinterpret_cast<const void*>(iel_branch_kernel<T>), smem_bytes);
+  if (err) return err;
   iel_branch_kernel<T><<<static_cast<unsigned int>(blocks), threads, smem_bytes, stream>>>(
       static_cast<const T*>(y), static_cast<T*>(out), static_cast<const T*>(w1),
       static_cast<const T*>(w2), planes * h * w, c, h, w, bh, groups, group_size,

@@ -260,9 +260,8 @@ int launch_ln_iel(const void* x, void* out, const void* ln_w, const void* ln_b, 
                   const void* w_dw, const void* w_dw1, const void* w_dw2, const void* w_po, int b,
                   int c, int hid, int h, int w, int th, int tiles_x, int tiles_y, int residual,
                   float eps, int smem, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      ln_iel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = raise_smem_cap(reinterpret_cast<const void*>(ln_iel_kernel<T>), smem);
+  if (err) return err;
   const int64_t blocks = static_cast<int64_t>(b) * tiles_y * tiles_x;
   ln_iel_kernel<T><<<static_cast<unsigned int>(blocks), kLnIelThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<const float*>(ln_w),

@@ -1,7 +1,8 @@
-// The tensor-core primitives of the bf16 kernels (K5 in attention.cu, P6 in
-// im2col_gemm.cu): ldmatrix loads of 8 x 8 bf16 matrices from shared memory
-// (each lane gives one 16-byte-aligned row address) and the mma.sync
-// m16n8k16 bf16 product with fp32 accumulators.
+// The tensor-core primitives of the bf16 kernels (K5 in attention.cu, P4 in
+// conv3x3.cu, P6 in im2col_gemm.cu): ldmatrix loads of 8 x 8 bf16 matrices
+// from shared memory (each lane gives one 16-byte-aligned row address), the
+// mma.sync m16n8k16 bf16 product with fp32 accumulators, and the warpgroup's
+// wgmma m64n128k16 with its shared-memory descriptors.
 #pragma once
 
 #include <cstdint>
@@ -38,6 +39,58 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wgmma: the warpgroup's asynchronous products (sm_90a). A and B come from
+// shared memory through 64-bit descriptors: start address, leading and
+// stride byte offsets (16-byte units), layout 1 = the 128-byte swizzle.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, unsigned int lbo,
+                                               unsigned int sbo) {
+  const uint64_t a = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
+  return ((a >> 4) & 0x3FFF) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// ties the accumulators to this point of the program: reads after it wait
+// for the wgmma_wait_all before it (the compiler does not know that the
+// asynchronous products write them)
+__device__ __forceinline__ void wgmma_fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// d (64 x 128 fp32, this thread's 64: d[4 i + 2 h + v] is row 16 warp + lane / 4
+// + 8 h, column 8 i + 2 (lane % 4) + v of the warpgroup's tile) = A B
+// (+ d where accumulate): A 64 x 16 K-major, B 16 x 128 MN-major (transposed)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace hvi_cidnet

@@ -182,11 +182,8 @@ int launch_v(const T* x, T* out, const float* weight, const float* bias, int64_t
   const int threads = lanes * groups;
   const int log_lanes = __builtin_ctz(static_cast<unsigned>(lanes));
   auto go = [&](auto kernel) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    const int err = raise_smem_cap(reinterpret_cast<const void*>(kernel), smem);
+    if (err) return err;
     kernel<<<static_cast<unsigned int>(b * tiles), threads, smem, stream>>>(
         x, out, weight, bias, c, hw, tiles, log_lanes, groups, eps);
     return static_cast<int>(cudaGetLastError());

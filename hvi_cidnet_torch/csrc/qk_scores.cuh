@@ -211,12 +211,8 @@ __device__ __forceinline__ void cluster_sum(float* red, int lo, int hi, Put&& pu
 template <typename... KArgs, typename... Args>
 int launch_cluster(void (*kernel)(KArgs...), int splits, unsigned int g, int64_t smem,
                    cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int capped = raise_smem_cap(reinterpret_cast<const void*>(kernel), smem);
+  if (capped) return capped;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(splits), g);
   cfg.blockDim = dim3(kThreads);

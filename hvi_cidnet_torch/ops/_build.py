@@ -155,6 +155,12 @@ class CudaKernel:
             self.launches += 1
 
 
+@functools.lru_cache(maxsize=16)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors: the persistent kernels' grids."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def widest_vector(size: int, offset: int, itemsize: int) -> int:
     """The widest vector, in elements (a power of two, at most 16 bytes),
     that divides a row of ``size`` elements and a base ``offset`` bytes past

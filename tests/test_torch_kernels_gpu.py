@@ -18,6 +18,8 @@ flip the bf16 rounding of one intermediate, and a flip moves the output by
 an ulp). K5's fp32 reference is its twin run on the CPU (``_k5_twin``).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -615,6 +617,49 @@ def test_p4_matches_plain(cuda, dt, case, pad_mode):
     _fused_close(got, cc.conv3x3_plain(x, w, pad_mode), dt)
 
 
+# P4's bf16 arms (the tensor cores; the CUDA cores at C_out 1 and 2) at the
+# odd cases: widths that are not a multiple of the 32-column tile (75, 150,
+# 37), batch 1, C_out 1, 2, 73 and 144 (two channel groups), C_in past a
+# 16-channel chunk, and x a view that starts 2, 6 or 10 bytes past a 16-byte
+# boundary (the staged rows' granules)
+P4_BF16_CASES = [((1, 36, 50, 75), 72, 0), ((2, 72, 20, 150), 36, 0), ((1, 3, 19, 37), 36, 1),
+                 ((1, 36, 13, 75), 1, 3), ((2, 36, 9, 64), 2, 5), ((1, 20, 11, 40), 144, 0),
+                 ((1, 17, 8, 33), 73, 1), ((1, 144, 7, 9), 72, 0), ((1, 144, 9, 40), 2, 0)]
+
+
+def _offset_view(shape, dev, dt, elements, seed):
+    """A contiguous tensor of ``shape`` that starts ``elements`` past the
+    start of its storage."""
+    base = _rand((math.prod(shape) + elements,), dev, dt, -1.0, 1.0, seed=seed)
+    return base[elements:].view(shape)
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("case", P4_BF16_CASES, ids=str)
+def test_p4_bf16_arm_matches_plain_at_the_odd_cases(cuda, case, pad_mode):
+    shape, cout, elements = case
+    x = _offset_view(shape, cuda, torch.bfloat16, elements, seed=cout)
+    w = _rand((cout, shape[1], 3, 3), cuda, torch.bfloat16, -0.2, 0.2, seed=cout + 1)
+    n = cc.CONV3X3.launches
+    got = cc.conv3x3(x, w, pad_mode)
+    assert cc.CONV3X3.launches == n + 1
+    assert got.shape == (shape[0], cout, *shape[2:]) and got.dtype == torch.bfloat16
+    _fused_close(got, cc.conv3x3_plain(x, w, pad_mode), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p4_checks_reject_planted_faults(cuda, dt):
+    """The bar of the P4 checks fails weights whose taps are shifted by one
+    column, and the zero-padded result held against the edge-padded one."""
+    x = _rand((2, 36, 17, 75), cuda, dt, -1.0, 1.0, seed=80)
+    w = _rand((36, 36, 3, 3), cuda, dt, -0.2, 0.2, seed=81)
+    ref = cc.conv3x3_plain(x, w, "edge")
+    _fused_close(cc.conv3x3_kernel(x, w, "edge"), ref, dt)
+    for got in (cc.conv3x3_kernel(x, w.roll(1, 3), "edge"), cc.conv3x3_kernel(x, w, "zero")):
+        with pytest.raises(AssertionError, match="excess"):
+            _fused_close(got, ref, dt)
+
+
 P5_SHAPES = [((2, 36, 20, 38), 36), ((1, 72, 10, 16), 144), ((1, 3, 7, 9), 5), ((1, 8, 2, 2), 16),
              ((1, 36, 80, 120), 72)]
 
@@ -840,6 +885,41 @@ def test_p6_takes_an_operand_off_16_byte_alignment(cuda, dt):
     assert a.data_ptr() % 16 != 0
     wmat = _rand((cout, k), cuda, dt, -0.2, 0.2, seed=61)
     _fused_close(icol.im2col_dots(a, wmat), icol.im2col_dots_plain(a, wmat), dt)
+
+
+# P6's bf16 arm (wgmma) at the odd cases: K not a multiple of its 64-deep
+# step (27, 45, 100, 1296), N not a multiple of its 256-column tile nor of 8
+# (the cp.async path), batch 1, C_out 1, 2, 72 and 144 (two groups), and the
+# operand 2, 4 or 8 bytes past a 16-byte boundary (N = 264: 2-, 4- and
+# 8-byte copies)
+P6_MMA_CASES = [(1, 1296, 3750, 72, 0), (2, 27, 300, 36, 0), (1, 45, 1000, 2, 0),
+                (3, 100, 256, 1, 0), (1, 648, 520, 144, 0), (2, 27, 264, 36, 1),
+                (1, 324, 264, 13, 2), (1, 64, 264, 72, 4), (1, 9, 7, 5, 0)]
+
+
+@pytest.mark.parametrize("case", P6_MMA_CASES, ids=str)
+def test_p6_bf16_arm_matches_plain_at_the_odd_cases(cuda, case):
+    b, k, n, cout, elements = case
+    a = _offset_view((b, k, n), cuda, torch.bfloat16, elements, seed=k + n)
+    wmat = _rand((cout, k), cuda, torch.bfloat16, -k**-0.5, k**-0.5, seed=cout)
+    launched = icol.IM2COL_DOTS.launches
+    got = icol.im2col_dots(a, wmat)
+    assert icol.IM2COL_DOTS.launches == launched + 1
+    assert got.shape == (b, cout, n) and got.dtype == torch.bfloat16
+    _fused_close(got, icol.im2col_dots_plain(a, wmat), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_p6_checks_reject_planted_faults(cuda, dt):
+    """The bar of the P6 checks fails weights whose taps are shifted by one
+    column."""
+    x = _rand((2, 36, 17, 40), cuda, dt, -1.0, 1.0, seed=82)
+    wt = _rand((36, 36, 3, 3), cuda, dt, -36**-0.5, 36**-0.5, seed=83)
+    a = icol.stage_3x3(x)
+    ref = icol.im2col_dots_plain(a, wt.reshape(36, 324))
+    _fused_close(icol.im2col_dots_kernel(a, wt.reshape(36, 324)), ref, dt)
+    with pytest.raises(AssertionError, match="excess"):
+        _fused_close(icol.im2col_dots_kernel(a, wt.roll(1, 3).reshape(36, 324)), ref, dt)
 
 
 def test_probe_kernels_backward_runs_the_plain_autograd(cuda):
@@ -1207,3 +1287,59 @@ def test_k5_split_entries(cuda, dt, level, arm):
     got, _ = ac.attention_rows_apply_kernel(bad, v, temp, heads, plan, struct, wptr, wcode,
                                             normalize)
     assert _over_tolerance(got, ref, dt, 2e-5)
+
+
+def _k7_call(shape, dev, dt, seed):
+    y = _rand(shape, dev, dt, -1.5, 1.5, seed=seed)
+    w1, w2 = (_rand((shape[1], 1, 3, 3), dev, dt, -0.5, 0.5, seed=seed + s) for s in (1, 2))
+    return (lambda: ic.iel_branch(y, w1, w2)), (lambda: ic.iel_branch_plain(y, w1, w2))
+
+
+def _p23_call(shape, dev, dt, seed):
+    args = _ln_iel_args(shape, dev, dt, seed)
+    return (lambda: lc.ln_iel(*args, True)), (lambda: lc.ln_iel_plain(*args, True))
+
+
+# Two sizes per kernel, each thread's shared memory other than its
+# neighbour's, at least one past the 48 KB default cap: K7 at 600 and 40
+# columns (59 and 16 KB in bf16), P2/P3 at C = 144 and 8 (189 and 68 KB).
+THREADED_CASES = {"k7": (_k7_call, [(1, 2, 16, 600), (1, 2, 16, 40)]),
+                  "p23": (_p23_call, [(1, 144, 8, 16), (1, 8, 8, 16)])}
+
+
+@pytest.mark.parametrize("kernel", sorted(THREADED_CASES))
+@pytest.mark.parametrize("dt", DTYPES)
+def test_kernels_launch_from_threads_at_several_sizes(cuda, dt, kernel):
+    """A kernel's shared-memory cap is one attribute for every host thread.
+    Data-parallel replicas and the server launch from several threads at
+    once, at several sizes: every launch must go through and match."""
+    import threading
+
+    make, shapes = THREADED_CASES[kernel]
+    calls = [make(shape, cuda, dt, 40 + i) for i, shape in enumerate(shapes * 2)]
+    refs = [plain() for _, plain in calls]
+    torch.cuda.synchronize()
+    start, errors, outs = threading.Barrier(len(calls)), [], [None] * len(calls)
+
+    def run(i):
+        stream = torch.cuda.Stream(cuda)
+        start.wait()
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(400):
+                    outs[i] = calls[i][0]()
+            stream.synchronize()
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, f"{len(errors)} threads failed, first: {errors[0]}"
+    for got, ref in zip(outs, refs):
+        if kernel == "k7":
+            assert torch.equal(got, ref)
+        else:
+            _fused_close(got, ref, dt)

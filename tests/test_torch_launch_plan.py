@@ -13,12 +13,18 @@ batch-1 sites fill the card, and that no grid dimension overflows; for K1,
 K2 and K3 also that loads and stores take the widest vector the row
 pitches and the base allow. The fused block route's kernels too: P2/P3
 (``ops/ln_iel_cuda.py:ln_iel_plan``), P4 (``ops/conv3x3_cuda.py:
-conv3x3_plan``) and P5 (``ops/conv3x3_cuda.py:half_plan``); and the probe
-route's: P10/P15 and P1 (``ops/batched_qk_cuda.py:qk_plan``,
-``ops/head_attention_cuda.py:head_attention_plan``: the cluster size, the
-split of N, the entries' threads, shared memory, the load width) and P6
-(``ops/im2col_cuda.py:im2col_plan``: the N tail, the C_out and K padding,
-the load width) at every site shape and at batch 1, 8 and 32.
+conv3x3_plan`` in fp32; ``conv3x3_mma_plan`` in bf16, the tensor-core arm:
+its persistent blocks, channel groups, ring and shared memory, the
+alignment of every ldmatrix row, and ``mma_replay``, its addressing
+replayed on the CPU against the plain conv) and P5 (``ops/conv3x3_cuda.py:
+half_plan``); and the probe route's: P10/P15 and P1
+(``ops/batched_qk_cuda.py:qk_plan``, ``ops/head_attention_cuda.py:
+head_attention_plan``: the cluster size, the split of N, the entries'
+threads, shared memory, the load width) and P6 (``ops/im2col_cuda.py:
+im2col_plan``: the N tail, the C_out and K padding, the load width, the
+bf16 arm's persistent blocks, groups and ring, and its stages' layouts
+read back as wgmma's canonical ones) at every site shape and at batch 1, 8
+and 32.
 """
 
 import itertools
@@ -745,6 +751,188 @@ def test_conv_plans_pick_the_narrow_tile_for_the_heads():
         cc.conv3x3_plan(2**20, 144, 2**10, 2**10)
 
 
+# P4 in bf16: the tensor-core arm (ops/conv3x3_cuda.py:conv3x3_mma_plan). The
+# forward's sites, ragged widths (75, 150: tiles past the edge), batch 1,
+# C_out 1, 2, 13, 73 and 144 (two groups), C_in past a chunk
+P4_MMA_SITES = P4_SITES + [(36, 144, 9, 150), (20, 73, 17, 75), (1, 2, 8, 32), (17, 13, 33, 31)]
+
+
+def _walks(plan, tiles):
+    """The tiles each group's blocks visit, block i walking i // groups,
+    i // groups + blocks // groups, ...: a count per (group, tile)."""
+    seen = np.zeros((plan.groups, tiles), np.int64)
+    walkers = plan.blocks // plan.groups
+    for i in range(plan.blocks):
+        seen[i % plan.groups, range(i // plan.groups, tiles, walkers)] += 1
+    return seen
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", P4_MMA_SITES, ids=str)
+def test_p4_mma_plan_covers_each_output_once(site, b):
+    """Tiles cover rows and columns once; channel groups cover C_out once;
+    every group's blocks visit every tile once."""
+    cin, cout, h, w = site
+    p = cc.conv3x3_mma_plan(b, cin, cout, h, w)
+    _tiles_cover(h, p.tile_h, p.tiles_y)
+    _tiles_cover(w, p.tile_w, p.tiles_x)
+    _tiles_cover(cout, p.co_group, p.groups)
+    assert (p.tile_h, p.tile_w) == cc.MMA_TILE
+    assert p.co_group <= 8 * p.n_tiles < p.co_group + 8 and p.co_group <= cc.MAX_GROUP
+    assert (p.chunks - 1) * cc.CHUNK < cin <= p.chunks * cc.CHUNK
+    assert p.blocks % p.groups == 0 and p.groups <= p.blocks
+    assert (_walks(p, b * p.tiles_y * p.tiles_x) == 1).all()
+    assert p.pack_elements == p.groups * p.chunks * 9 * 8 * p.n_tiles * cc.ROW
+    # the output's stores: whole vectors of a plane's rows (the width's)
+    assert w % p.vec == 0 and p.tile_w % p.vec == 0 and p.vec in (1, 2, 4, 8)
+
+
+def test_p4_mma_plan_splits_wide_outputs_into_groups():
+    """C_out <= 72 in one block; more in groups of equal size."""
+    got = {c: (cc.conv3x3_mma_plan(8, 36, c, 50, 75).groups,
+               cc.conv3x3_mma_plan(8, 36, c, 50, 75).co_group) for c in (1, 2, 36, 72, 73, 144)}
+    assert got == {1: (1, 1), 2: (1, 2), 36: (1, 36), 72: (1, 72), 73: (2, 37), 144: (2, 72)}
+    with pytest.raises(ValueError, match="grid"):
+        cc.conv3x3_mma_plan(2**20, 36, 36, 2**10, 2**10)
+
+
+@pytest.mark.parametrize("site", P4_MMA_SITES, ids=str)
+def test_p4_mma_plan_shared_memory_and_ring(site):
+    """Dynamic shared memory within a block's 227 KB, and blocks_per_sm
+    blocks within an SM's 228 KB (1 KB reserved a block); at least three
+    stages; every chunk's weights resident when they fit beside three
+    stages on the plan's blocks per SM, else one chunk a stage."""
+    cin, cout, h, w = site
+    p = cc.conv3x3_mma_plan(8, cin, cout, h, w)
+    assert cc.MIN_STAGES <= p.stages <= cc.MAX_STAGES
+    assert p.smem_bytes == cc.mma_smem_bytes(p.n_tiles, p.stages,
+                                             p.chunks if p.resident else p.stages)
+    assert p.smem_bytes <= cc.SMEM_LIMIT
+    assert p.blocks_per_sm * (p.smem_bytes + 1024) <= cc.SM_SMEM
+    assert p.blocks_per_sm in (1, 2)
+    budget = min(cc.SMEM_LIMIT, cc.SM_SMEM // p.blocks_per_sm - 1024)
+    if not p.resident:  # all chunks beside three stages would not fit
+        assert cc.mma_smem_bytes(p.n_tiles, cc.MIN_STAGES, p.chunks) > budget
+    # a deeper ring would not fit
+    if p.stages < cc.MAX_STAGES:
+        slots = p.chunks if p.resident else p.stages + 1
+        assert cc.mma_smem_bytes(p.n_tiles, p.stages + 1, slots) > budget
+
+
+def test_p4_mma_plan_of_the_forward():
+    """Stems and heads two blocks an SM with the weights resident; up1 and
+    up2 likewise; up3 (72 channels, 9 chunks) one block with a chunk a
+    stage."""
+    got = [(p.blocks_per_sm, p.resident, p.n_tiles) for p in
+           (cc.conv3x3_mma_plan(8, ci, co, h, w) for ci, co, h, w in P4_SITES[:7])]
+    assert got == [(2, True, 5), (2, True, 5), (2, True, 1), (2, True, 1), (1, False, 9),
+                   (2, False, 5), (2, True, 5)]
+
+
+def test_p4_mma_rows_start_16_byte_aligned_and_conflict_free():
+    """Every ldmatrix row (A's halo pixels, a tap's weights) and every
+    16-byte store of the staging pass starts on a 16-byte boundary, and the
+    8 rows one ldmatrix phase reads, at any start, fall on 8 distinct
+    16-byte bank groups of a 128-byte line."""
+    th, tw = cc.MMA_TILE
+    halo = (th + 2) * (tw + 2)
+    for rows in (halo, 8 * cc.MAX_GROUP):
+        offsets = {2 * cc.swz(r, h) for r in range(rows) for h in (0, 1)}
+        assert all(o % 16 == 0 for o in offsets)
+        assert len(offsets) == 2 * rows  # a bijection: no two halves share a slot
+        for start in range(rows - 7):
+            for h in (0, 1):
+                assert len({(2 * cc.swz(start + i, h)) % 128 // 16 for i in range(8)}) == 8
+    # the staged rows: whole 16-byte granules
+    assert 8 * cc.RAW_GRANULES * 2 % 16 == 0 and (tw + 2) * 2 + 14 <= 16 * cc.RAW_GRANULES
+
+
+def test_p4_bf16_arm_of_each_site():
+    """The heads (C_out <= 2) on the CUDA cores, every other site on the
+    tensor cores."""
+    assert [cc.uses_small_arm(ci, co) for ci, co, _, _ in P4_SITES[:7]] == \
+        [False, False, True, True, False, False, False]
+    with pytest.raises(ValueError, match="C_out 1 or 2"):
+        cc.conv3x3_small_plan(8, 36, 3, 40, 40)
+
+
+# the CUDA-core arm's sites: the heads at 600 x 400 and 1280 x 720, ragged
+# widths, C_in below, at and past a chunk
+P4_SMALL_SITES = [(36, 2, 400, 600), (36, 1, 400, 600), (36, 2, 720, 1280), (36, 1, 13, 75),
+                  (144, 2, 9, 150), (3, 1, 17, 37), (16, 2, 8, 32), (5, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", P4_SMALL_SITES, ids=str)
+def test_p4_small_plan_covers_each_output_once(site, b):
+    """Tiles cover rows and columns once, the blocks visit every tile once,
+    the threads' 2 x 2 pixel blocks cover a tile once (each in the four
+    parts of the input channels); shared memory within its limits."""
+    cin, cout, h, w = site
+    p = cc.conv3x3_small_plan(b, cin, cout, h, w)
+    _tiles_cover(h, p.tile_h, p.tiles_y)
+    _tiles_cover(w, p.tile_w, p.tiles_x)
+    assert (p.tile_h, p.tile_w) == cc.MMA_TILE
+    assert (p.chunks - 1) * cc.CHUNK < cin <= p.chunks * cc.CHUNK
+    seen = np.zeros(b * p.tiles_y * p.tiles_x, np.int64)
+    for i in range(p.blocks):
+        seen[i::p.blocks] += 1
+    assert (seen == 1).all()
+    pixels = np.zeros((cc.SMALL_PARTS,) + cc.MMA_TILE, np.int64)
+    for t in range(cc.SMALL_THREADS):
+        part, q = divmod(t, 64)
+        r, c = 2 * (q // 16), 2 * (q % 16)
+        pixels[part, r:r + 2, c:c + 2] += 1
+    assert (pixels == 1).all() and cc.SMALL_THREADS == 64 * cc.SMALL_PARTS
+    assert cc.MIN_STAGES <= p.stages <= cc.MAX_STAGES
+    assert p.smem_bytes == cc.small_smem_bytes(cout, p.chunks, p.stages) <= cc.SMEM_LIMIT
+    assert p.blocks_per_sm * (p.smem_bytes + 1024) <= cc.SM_SMEM
+    if p.stages < cc.MAX_STAGES:  # a deeper ring would not fit on as many blocks an SM
+        assert p.blocks_per_sm * (cc.small_smem_bytes(cout, p.chunks, p.stages + 1) + 1024) > \
+            cc.SM_SMEM
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("pad", ["zero", "edge"])
+@pytest.mark.parametrize("case", [((1, 18, 9, 37), 2), ((1, 20, 9, 75), 1), ((1, 3, 8, 40), 2),
+                                  ((1, 5, 1, 1), 1)], ids=str)
+def test_p4_small_replay_equals_the_plain_conv(case, pad, offset):
+    """The CUDA-core arm's addressing replayed on the CPU (the staged rows'
+    granules at the tensor's own offset, each 2 x 2 block's 4 x 4 window,
+    clamped or zeroed) equals ``conv3x3_plain`` within 1e-6, in float64;
+    every output written once."""
+    import torch
+
+    shape, cout = case
+    g = torch.Generator().manual_seed(sum(shape) + cout)
+    x = torch.rand(shape, generator=g, dtype=torch.float64) * 2 - 1
+    w = (torch.rand((cout, shape[1], 3, 3), generator=g, dtype=torch.float64) - 0.5) * 0.4
+    got, writes = cc.small_replay(x, w, pad, offset)
+    assert (writes == 1).all()
+    assert (got - cc.conv3x3_plain(x, w, pad)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("pad", ["zero", "edge"])
+@pytest.mark.parametrize("case", [((2, 3, 19, 37), 36), ((1, 20, 9, 75), 2), ((1, 17, 8, 33), 73),
+                                  ((1, 5, 1, 1), 1), ((1, 36, 10, 40), 13)], ids=str)
+def test_p4_mma_replay_equals_the_plain_conv(case, pad, offset):
+    """The tensor-core arm's addressing replayed on the CPU (granules of
+    the staged rows at the tensor's own offset, the clamped or zeroed halo,
+    taps as pixel shifts of the swizzled channel-minor tile, the packed
+    weights) equals ``conv3x3_plain`` within 1e-6, in float64; every output
+    written once."""
+    import torch
+
+    shape, cout = case
+    g = torch.Generator().manual_seed(sum(shape) + cout)
+    x = (torch.rand(shape, generator=g, dtype=torch.float64) * 2 - 1)
+    w = (torch.rand((cout, shape[1], 3, 3), generator=g, dtype=torch.float64) - 0.5) * 0.4
+    got, writes = cc.mma_replay(x, w, pad, offset)
+    assert (writes == 1).all()
+    assert (got - cc.conv3x3_plain(x, w, pad)).abs().max().item() <= 1e-6
+
+
 # ---------------------------------------------------------------------------
 # the probe route: the score core of P1 and P10/P15, and P6
 # ---------------------------------------------------------------------------
@@ -856,17 +1044,27 @@ P6_SITES = [(3, 36, 400, 600), (1, 36, 400, 600), (36, 2, 400, 600), (36, 1, 400
 @pytest.mark.parametrize("b", BATCHES)
 @pytest.mark.parametrize("site", P6_SITES, ids=str)
 def test_p6_plan_covers_each_output_once(site, b, itemsize):
+    """fp32: a block a (column tile, image); bf16: every group's persistent
+    blocks visit every (image, column tile) once, and the groups cover
+    C_out once. C_out padded to 16-row tiles, K to whole steps."""
     cin, cout, h, w = site
     k, n = 9 * cin, h * w
     p = icol.im2col_plan(b, cout, k, n, itemsize)
-    _tiles_cover(n, icol.N_TILE, p.n_tiles)
-    assert p.blocks == p.n_tiles * b and b <= icol.MAX_GRID_Y and p.n_tiles <= icol.MAX_GRID_X
-    # C_out padded to 16-row tiles, K to whole steps, with zero weights
-    assert (p.m_tiles - 1) * 16 < cout <= p.m_tiles * 16 <= icol.MAX_COUT
+    _tiles_cover(n, icol.N_TILE[itemsize], p.n_tiles)
+    assert b <= icol.MAX_GRID_Y and p.blocks <= icol.MAX_GRID_X
     assert p.k_step == icol.K_STEP[itemsize] and (p.k_steps - 1) * p.k_step < k <= p.k_steps * p.k_step
-    # each thread loads whole vectors of each step's tile
-    assert (p.k_step * icol.N_TILE // p.vec) % icol.THREADS == 0
-    assert p.smem_bytes == icol.smem_bytes(itemsize, p.m_tiles) <= 48 * 1024
+    # each thread copies whole vectors of each step's tile
+    assert (p.k_step * icol.N_TILE[itemsize] // p.vec) % icol.THREADS == 0
+    if itemsize == 4:
+        assert p.blocks == p.n_tiles * b and p.groups == 1
+        assert (p.m_tiles - 1) * 16 < cout <= p.m_tiles * 16 <= icol.MAX_COUT
+        assert p.smem_bytes == icol.smem_bytes(itemsize, p.m_tiles) <= 48 * 1024
+        return
+    rows = -(-cout // p.groups)
+    _tiles_cover(cout, rows, p.groups)
+    assert rows <= 16 * p.m_tiles < rows + 64 and p.m_tiles in (4, 8)  # one or two m64 tiles
+    assert (_walks(p, b * p.n_tiles) == 1).all()
+    assert p.pack_elements == p.groups * p.k_steps * 16 * p.m_tiles * p.k_step
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -882,18 +1080,83 @@ def test_p6_plan_takes_the_widest_load_n_and_the_start_allow(itemsize, n, elemen
 
 
 def test_p6_plan_of_the_forward():
-    """bf16: 16-byte loads at N = 240,000, 60,000, 15,000, 4-byte at 3,750;
-    C_out 1, 2, 36, 72, 144 in 1, 1, 3, 5, 9 tiles; K 9 and 27 in one step."""
+    """bf16: 16-byte loads (the TMA unit) at N = 240,000, 60,000, 15,000,
+    4-byte cp.async at 3,750; C_out 1, 2, 36 in one m64 tile of W, 72 in
+    two, 144 in two groups of two; K 9 and 27 in one 64-deep step."""
     assert [icol.im2col_plan(8, 36, 27, n, 2).vec for n in (240000, 60000, 15000, 3750)] == \
         [8, 8, 8, 2]
-    assert [icol.im2col_plan(8, c, 324, 3750, 2).m_tiles for c in (1, 2, 36, 72, 144)] == \
-        [1, 1, 3, 5, 9]
+    assert [(icol.im2col_plan(8, c, 324, 3750, 2).m_tiles, icol.im2col_plan(8, c, 324, 3750, 2)
+             .groups) for c in (1, 2, 36, 72, 144)] == [(4, 1), (4, 1), (4, 1), (8, 1), (8, 2)]
     assert [icol.im2col_plan(8, 36, k, 3750, 2).k_steps for k in (9, 27, 324, 1296)] == \
         [1, 1, 6, 21]
     with pytest.raises(ValueError, match="C_out <= 144"):
         icol.im2col_plan(1, 145, 27, 100, 2)
     with pytest.raises(ValueError, match="grid"):
         icol.im2col_plan(65536, 36, 27, 100, 2)
+
+
+@pytest.mark.parametrize("site", P6_SITES, ids=str)
+def test_p6_mma_plan_shared_memory_and_ring(site):
+    """bf16: one block an SM within 227 KB; as many stages as fit (3 to 6),
+    with the staged output tile and a barrier a stage where the TMA unit
+    loads (vec 8); the persistent grid at most the card's SMs."""
+    cin, cout, h, w = site
+    for b in (1, 8):
+        p = icol.im2col_plan(b, cout, 9 * cin, h * w, 2)
+        tma = p.vec == 8
+        assert icol.MIN_STAGES <= p.stages <= icol.MAX_STAGES
+        assert p.smem_bytes == icol.smem_bytes(2, p.m_tiles, p.stages, tma) <= icol.SMEM_LIMIT
+        assert p.stages == icol.MAX_STAGES or \
+            icol.smem_bytes(2, p.m_tiles, p.stages + 1, tma) > icol.SMEM_LIMIT
+        assert p.blocks <= icol.SMS and p.blocks == p.groups * min(b * p.n_tiles,
+                                                                   icol.SMS // p.groups)
+
+
+def _swizzled_offset(r: int, c: int) -> int:
+    """Element offset of the 8-element chunk c of 128-byte row r under the
+    128-byte swizzle: chunk c ^ (r % 8)."""
+    return r * 64 + 8 * (c ^ (r % 8))
+
+
+def test_p6_mma_layouts_are_wgmma_canonical():
+    """The operand's stage (MN-major) and W's packed slice (K-major), as the
+    kernel writes them, read back through the descriptors' canonical
+    128-byte-swizzled layouts (CUTLASS cute/atom/mma_traits_sm90_gmma.hpp:
+    MN-major ((8,n),(8,k)):((1,LBO),(8,SBO)), K-major ((8,n),2):((8,SBO),1)
+    in 16-byte units, LBO = an atom of 64 columns, SBO = 8 rows) give back
+    the operand and W, and their product equals W a."""
+    import torch
+
+    g = torch.Generator().manual_seed(5)
+    kstep, ncols, rows = icol.K_STEP[2], icol.N_TILE[2], 128
+    a = torch.randn((kstep, ncols), generator=g, dtype=torch.float64)
+    wmat = torch.randn((rows, kstep), generator=g, dtype=torch.float64)
+    # the stage: atom = 64 columns of 64 rows x 128 bytes
+    stage = torch.zeros(kstep * ncols, dtype=torch.float64)
+    for k in range(kstep):
+        for col in range(0, ncols, 8):
+            at = (col // 64) * kstep * 64 + _swizzled_offset(k, (col % 64) // 8)
+            stage[at:at + 8] = a[k, col:col + 8]
+    # W's slice: im2col_pack_kernel's layout, rows of 64 K-elements
+    wslice = torch.zeros(rows * kstep, dtype=torch.float64)
+    for r in range(rows):
+        for c in range(8):
+            at = _swizzled_offset(r, c)
+            wslice[at:at + 8] = wmat[r, 8 * c:8 * c + 8]
+    lbo, sbo = kstep * 64, 8 * 64  # in elements: an atom of columns; 8 rows
+    swz = lambda off: off - off % 64 + ((off % 64 // 8) ^ (off // 64 % 8)) * 8 + off % 8
+    b_read = torch.zeros_like(a)
+    for k in range(kstep):   # MN-major B: column = 8 (atom offset) + chunk
+        for col in range(ncols):
+            off = (col // 64) * lbo + (k // 8) * sbo + (k % 8) * 64 + col % 64
+            b_read[k, col] = stage[swz(off)]
+    a_read = torch.zeros_like(wmat)
+    for r in range(rows):    # K-major A: rows 128 bytes apart, 8-row groups SBO apart
+        for k in range(kstep):
+            off = (r // 8) * sbo + (r % 8) * 64 + k
+            a_read[r, k] = wslice[swz(off)]
+    assert torch.equal(b_read, a) and torch.equal(a_read, wmat)
+    assert torch.allclose(a_read @ b_read, wmat @ a)
 
 
 # ---------------------------------------------------------------------------
