@@ -28,14 +28,20 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    every site shape of the 600 x 400 batch-8 forward, fp32 and bf16: P2/P3
    (LayerNorm + IEL, residual on and off) at the three LCA levels, P4 at
    the stems, heads and NormUpsample convs (replication and zero pad), P5
-   at the three NormDownsamples; fp32 within 1e-5 relative, bf16 within one
-   bf16 ulp of the plain version's rounding (or the fp32 bar); with each
-   kernel's time, its plain version's, its bound and what the unfused route
-   runs in its place (P4: ``F.conv2d``, cuDNN, timed against the kernel in
-   alternating rounds, medians and spread; P5: cuDNN + K3; P2/P3: K6, the
-   1x1 convs, 2 x K7 and the product); P4's bar must reject two planted
-   faults: weights whose taps are shifted by one column, and at the
-   replication-padded sites the zero-padded result;
+   at the three NormDownsamples; fp32 within 1e-5 relative; bf16 P4 within
+   one bf16 ulp of the plain version's rounding (or the fp32 bar), P2/P3
+   and P5, which also round intermediates where the TPU kernels do, within
+   K5-K7's bar (2**-6 max(1, |ref|)), with the share of outputs equal in
+   every bit; with each kernel's time, its plain version's, its bound (the
+   tensor cores' products, the CUDA cores' rest or the bytes, the largest)
+   and what the unfused route runs in its place, timed against the kernel
+   in alternating rounds, medians and spread (P4: ``F.conv2d``, cuDNN; P5:
+   cuDNN + K3; P2/P3: K6, the 1x1 convs, 2 x K7 and the product); each bar
+   must reject planted faults: P4 weights whose taps are shifted by one
+   column, and at the replication-padded sites the zero-padded result;
+   P2/P3 the residual dropped, the expansion's taps one hidden channel
+   off, the halo one pixel off; P5 the taps one column off, the H band's
+   rows one row off;
 4c. holds the probe route's kernels against their plain versions at every
    site shape of the 600 x 400 batch-8 forward and at batch 1 (N tails),
    fp32 and bf16: P1 at the three LCA levels (q and k of shared structure,
@@ -256,11 +262,16 @@ BITWISE = ("K1", "K3", "K4", "K7")
 TOL_FP32 = {"K2": 1e-5, "K5": 2e-5, "K6": 1e-5}
 TOL_BF16 = 2.0**-7       # one bf16 ulp at magnitudes in [1, 2): both round once from fp32
 # the fused route's kernels P2/P3, P4 and P5 compute in fp32 inside as their
-# plain versions do and round once: fp32 within TOL_FUSED of max(1, |ref|)
-# (sums over C, the hidden width or the taps in another order), bf16 within
-# one bf16 ulp at max(|got|, |ref|), or the fp32 bar where that is larger
-# (a last-bit fp32 difference may flip the one rounding)
+# plain versions do: fp32 within TOL_FUSED of max(1, |ref|) (sums over C,
+# the hidden width or the taps in another order). bf16: P4 rounds once,
+# within one bf16 ulp at max(|got|, |ref|), or the fp32 bar where that is
+# larger (a last-bit fp32 difference may flip the one rounding); P2/P3 and
+# P5 also round intermediates where the TPU kernels P3 and P5 do (the
+# LayerNorm's output and the gates' product; the H pass's rows), where a
+# last-bit fp32 difference can flip one intermediate's rounding: K5-K7's
+# bar, TOL_BF16_REL * max(1, |ref|) (ROUNDS_INSIDE)
 FUSED = ("P2/P3", "P4", "P5")
+ROUNDS_INSIDE = ("P2/P3", "P5")
 TOL_FUSED = 1e-5
 # K5-K7 in bf16: a last-bit fp32 difference can flip the bf16 rounding of
 # one intermediate (A, the LN scale/shift, t1), which moves the output by an
@@ -876,46 +887,67 @@ def fused_conv_sites(ch=(36, 36, 72, 144)):
 
 
 def fused_bound_ms(key: str, x: torch.Tensor, cout: int = 0, peak: str = "") -> tuple:
-    """(least time in ms, "bytes" or "operations") of P2/P3, P4 or P5 on
-    input ``x``: x read once, the output and the weights once, over 3.35
-    TB/s, against the operations (the kernels' arithmetic,
-    ``utils/flops.py:kernel_ops``) over the peak of the unit that runs them:
-    P4 in bf16 the tensor cores (a bf16 product is exact in fp32, so its
-    bf16 arm runs there), everything else the fp32 CUDA cores (P2/P3 and P5
-    compute in fp32 inside); ``peak`` names another ("fp32": P4's figure on
-    the CUDA cores)."""
+    """(least time in ms, "bytes", "operations" or "CUDA-core operations")
+    of P2/P3, P4 or P5 on input ``x``: the largest of x read once, the
+    output and the weights once, over 3.35 TB/s; the products over the peak
+    of the unit that runs them; the rest of the arithmetic over the fp32
+    CUDA cores (the operations: ``utils/flops.py:kernel_ops``). In bf16 the
+    products run on the tensor cores (bf16 operands, fp32 sums: P4's
+    operands, and P2/P3's and P5's once they take the TPU kernels' rounding
+    points); what stays on the CUDA cores is P2/P3's LayerNorm, depthwise
+    convs, tanh and gates and P5's bands and PReLU. In fp32 all of it runs
+    on the CUDA cores; ``peak`` "fp32" asks for that figure in bf16 too
+    (the design before the tensor cores)."""
     from hvi_cidnet_torch.utils.flops import kernel_ops
 
     it = x.element_size()
     b, c, h, w = x.shape
+    ops = kernel_ops(key, x, cout=cout)
     if key == "P2/P3":
         hid = int(c * 2.66)
         nbytes = 2 * x.numel() * it + (3 * hid * c + 36 * hid) * it + 8 * c
+        products = b * h * w * 6 * hid * c
     else:
         oh, ow = (h, w) if key == "P4" else (h // 2, w // 2)
         nbytes = (x.numel() + b * cout * oh * ow + 9 * c * cout) * it
-    ops = kernel_ops(key, x, cout=cout)
+        products = 2 * 9 * c * cout * b * h * w
     if not peak:
-        peak = "bf16_tensor" if key == "P4" and x.dtype == torch.bfloat16 else "fp32"
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[peak]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        peak = "bf16_tensor" if x.dtype == torch.bfloat16 else "fp32"
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if peak == "fp32":
+        t = {"bytes": t_bytes, "operations": ops / PEAK_FLOPS["fp32"]}
+    else:
+        t = {"bytes": t_bytes, "operations": products / PEAK_FLOPS[peak],
+             "CUDA-core operations": (ops - products) / PEAK_FLOPS["fp32"]}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by
 
 
-def fused_excess(got: torch.Tensor, ref: torch.Tensor, dt) -> float:
+def fused_excess(got: torch.Tensor, ref: torch.Tensor, dt, key: str = "P4") -> float:
     """max(|got - ref| - allowed): TOL_FUSED * max(1, |ref|), and for bf16 at
-    least one bf16 ulp at max(|got|, |ref|). The check passes at <= 0."""
+    least one bf16 ulp at max(|got|, |ref|), or for P2/P3 and P5 in bf16
+    TOL_BF16_REL * max(1, |ref|) (ROUNDS_INSIDE). The check passes at <= 0."""
     got, ref = got.float(), ref.float()
     allowed = TOL_FUSED * ref.abs().clamp_min(1.0)
-    if dt == torch.bfloat16:
+    if dt == torch.bfloat16 and key in ROUNDS_INSIDE:
+        allowed = TOL_BF16_REL * ref.abs().clamp_min(1.0)
+    elif dt == torch.bfloat16:
         _, e = torch.frexp(torch.maximum(got.abs(), ref.abs()))
         allowed = torch.maximum(allowed, torch.ldexp(torch.ones_like(got), e - 8))
     return ((got - ref).abs() - allowed).max().item()
 
 
+def bitwise_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of elements equal in every bit."""
+    return (got.view(-1) == ref.view(-1)).float().mean().item()
+
+
 def compare_fused(results: dict, dev) -> None:
     """P2/P3, P4 and P5 against their plain versions at every site shape of
     the 600 x 400 batch-8 forward, fp32 and bf16, each with its time, its
-    plain version's, its bound and the unfused route's ops in its place."""
+    plain version's, its bound and the unfused route's ops in its place
+    (P2/P3 and P5: timed against the kernel in turns); planted faults that
+    each bar must reject."""
     from hvi_cidnet_torch.models.layers import IEL, LayerNorm
     from hvi_cidnet_torch.ops import conv3x3_cuda as cc
     from hvi_cidnet_torch.ops import ln_iel_cuda as lc
@@ -928,36 +960,45 @@ def compare_fused(results: dict, dev) -> None:
     def rnd(shape, lo, hi, dt):
         return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
 
-    def judge(name, got, ref, dt):
-        excess = fused_excess(got, ref, dt)
+    def judge(key, name, got, ref, dt):
+        excess = fused_excess(got, ref, dt, key)
         err = max_err(got, ref)
         if not excess <= 0:
             raise AssertionError(f"{name}: max abs err {err:.3e}, over the bar by {excess:.3e}")
         return err
 
+    def reject(key, name, ref, dt, faults):
+        for fault, got in faults.items():
+            if fused_excess(got, ref, dt, key) <= 0:
+                raise AssertionError(f"{name}: the bar passes a planted fault ({fault})")
+
     def record(key, dt, site, err, kern, plain, x, per_forward, unfused=None, library=None,
-               cout=0, info=""):
-        # with a library call: the kernel and it in alternating rounds (P4)
-        turns = in_turns(kern, library) if library is not None else None
+               cout=0, info="", share=None):
+        # with a library call (P4), or the unfused route's ops (P2/P3, P5):
+        # the kernel and it in alternating rounds
+        other = library if library is not None else unfused
+        turns = in_turns(kern, other) if other is not None else None
         t_k = turns["ms"] if turns else time_ms(kern)
         t_p = time_ms(plain)
-        t_u = time_ms(unfused) if unfused is not None else None
-        t_l = turns["library_ms"] if turns else None
+        t_u = turns["library_ms"] if turns and library is None else None
+        t_l = turns["library_ms"] if turns and library is not None else None
         bound = fused_bound_ms(key, x, cout)
         row = {"dtype": str(dt), "err": err, "ms": t_k, "plain_ms": t_p, "unfused_ms": t_u,
                "library_ms": t_l, "bound_ms": bound[0], "bound_by": bound[1], "site": site,
-               "per_forward": per_forward}
-        if key == "P4":
+               "per_forward": per_forward, "turns": turns, "bitwise_share": share}
+        if dt == torch.bfloat16:
             row["bound_cuda_core_ms"] = fused_bound_ms(key, x, cout, "fp32")[0]
-            row["turns"] = turns
         results[key].append(row)
-        log(f"{key} {site}{info} {tuple(x.shape)} {dt}: max_abs_err {err:.3e}  kernel "
-            f"{t_k:.4f} ms  plain {t_p:.4f} ms  "
-            + (f"unfused {t_u:.4f} ms  " if t_u is not None else "")
-            + (f"F.conv2d {t_l:.4f} ms (medians of {TURN_ROUNDS} rounds in turns, spread "
-               f"{turns['ms_spread']:.4f} / {turns['library_spread']:.4f})  " if turns else "")
+        name = "F.conv2d" if library is not None else "unfused"
+        log(f"{key} {site}{info} {tuple(x.shape)} {dt}: max_abs_err {err:.3e}"
+            + (f" (bitwise {100 * share:.3f}%)" if share is not None else "")
+            + f"  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+            + (f"{name} {turns['library_ms']:.4f} ms (medians of {TURN_ROUNDS} rounds in turns, "
+               f"spread {turns['ms_spread']:.4f} / {turns['library_spread']:.4f})  " if turns
+               else "")
             + f"bound {bound[0]:.4f} ms ({bound[1]})"
-            + (f" [CUDA cores {row['bound_cuda_core_ms']:.4f}]" if key == "P4" else ""))
+            + (f" [fp32 CUDA cores {row['bound_cuda_core_ms']:.4f}]" if "bound_cuda_core_ms" in row
+               else ""))
 
     p4_sites, p5_sites = fused_conv_sites()
     for dt in (torch.float32, torch.bfloat16):
@@ -977,14 +1018,27 @@ def compare_fused(results: dict, dev) -> None:
                 for residual in (True, False):
                     run = lambda: lc.ln_iel_kernel(x, *wts, residual)
                     plain = lambda: lc.ln_iel_plain(x, *wts, residual)
-                    err = judge(f"P2/P3 level {level} residual {residual} {dt}", run(), plain(),
-                                dt)
+                    name = f"P2/P3 level {level} residual {residual} {dt}"
+                    got, ref = run(), plain()
+                    err = judge("P2/P3", name, got, ref, dt)
+                    share = bitwise_share(got, ref)
+                    del got
                     if residual:  # I_LCA's arm; HV_LCA's runs the same work
+                        # planted faults: the residual dropped, the expansion's
+                        # taps one hidden channel off, the halo one pixel off
+                        reject("P2/P3", name, ref, dt, {
+                            "residual dropped": lc.ln_iel_kernel(x, *wts, False),
+                            "expansion taps shifted": lc.ln_iel_kernel(
+                                x, wts[0], wts[1], wts[2].roll(1, 0), *wts[3:], True),
+                            "halo one pixel off": lc.ln_iel_kernel(
+                                x.roll(1, 3).contiguous(), *wts, True)})
+                        del ref
                         record("P2/P3", dt, {"level": level}, err, run, plain, x, lcas,
-                               unfused=lambda: x + iel(norm(x)))
+                               unfused=lambda: x + iel(norm(x)), share=share)
                     else:
+                        del ref
                         log(f"P2/P3 level {level} no residual {tuple(x.shape)} {dt}: max_abs_err "
-                            f"{err:.3e}")
+                            f"{err:.3e} (bitwise {100 * share:.3f}%)")
             del x
         for site, cin, cout, h, w, pad, uses in p4_sites:
             x = rnd((BATCH, cin, h, w), -1.0, 1.0, dt)
@@ -992,16 +1046,13 @@ def compare_fused(results: dict, dev) -> None:
             run = lambda: cc.conv3x3_kernel(x, wt, pad)
             plain = lambda: cc.conv3x3_plain(x, wt, pad)
             ref = plain()
-            err = judge(f"P4 {site} {dt}", run(), ref, dt)
+            err = judge("P4", f"P4 {site} {dt}", run(), ref, dt)
             # planted faults the bar must reject: taps shifted by one column;
             # at the replication-padded sites, the zero-padded result
             faults = {"taps shifted by one column": cc.conv3x3_kernel(x, wt.roll(1, 3), pad)}
             if pad == "edge":
                 faults["zero pad for edge"] = cc.conv3x3_kernel(x, wt, "zero")
-            for fault, got in faults.items():
-                if fused_excess(got, ref, dt) <= 0:
-                    raise AssertionError(f"P4 {site} {dt}: the bar passes a planted fault "
-                                         f"({fault})")
+            reject("P4", f"P4 {site} {dt}", ref, dt, faults)
             del ref, faults
             # the library yardstick: cuDNN's zero-padded conv, the same work
             # (the replication pad of the edge sites would be a second call)
@@ -1014,9 +1065,19 @@ def compare_fused(results: dict, dev) -> None:
             wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5, dt)
             run = lambda: cc.conv3x3_half_prelu_kernel(x, wt, alpha)
             plain = lambda: cc.conv3x3_half_prelu_plain(x, wt, alpha)
-            err = judge(f"P5 {site} {dt}", run(), plain(), dt)
+            got, ref = run(), plain()
+            err = judge("P5", f"P5 {site} {dt}", got, ref, dt)
+            share = bitwise_share(got, ref)
+            # planted faults: the conv's taps one column off, the H band's
+            # rows one row off (x shifted by a row)
+            reject("P5", f"P5 {site} {dt}", ref, dt, {
+                "taps shifted by one column": cc.conv3x3_half_prelu_kernel(x, wt.roll(1, 3), alpha),
+                "H band's rows off by one": cc.conv3x3_half_prelu_kernel(
+                    x.roll(1, 2).contiguous(), wt, alpha)})
+            del got, ref
             record("P5", dt, site, err, run, plain, x, {v: uses for v in VARIANTS},
-                   unfused=lambda: rc.half_prelu(conv3x3_same(x, wt), alpha), cout=cout)
+                   unfused=lambda: rc.half_prelu(conv3x3_same(x, wt), alpha), cout=cout,
+                   share=share)
             del x
 
 
@@ -3745,8 +3806,10 @@ def _profiled_forwards(dev, kernels, tmp: str) -> None:
 
 
 # the route kernels' and the relayout's CUDA function names (15b)
-ROUTE_KERNEL_NAMES = {"P2/P3": r"\bln_iel_kernel\b", "P4": r"\bconv3x3_(mma|small)_kernel\b",
-                      "P5": r"\bconv3x3_half_prelu_kernel\b",
+ROUTE_KERNEL_NAMES = {"P2/P3": r"\bln_iel_mma_kernel\b", "P4": r"\bconv3x3_(mma|small)_kernel\b",
+                      "P5": r"\bconv3x3_half_mma_kernel\b",
+                      "the weight packs of P2/P3, P4 and P5":
+                          r"\b(ln_iel|conv3x3)_pack_kernel\b",
                       "P1": r"\bhead_attention_kernel\b", "P6": r"\bim2col_(mma|f32)_kernel\b",
                       "P10/P15": r"\bbatched_qk_kernel\b",
                       "P14, P8/P9/P11": r"\b(relayout|copy)_kernel\b"}
@@ -4020,21 +4083,30 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
-        "bound_by": worst["bound_by"],
+        "bound_by": "bytes" if worst["bound_by"] == "bytes" else "operations",
         "library_ms": per_forward("library_ms"),
         "ms_by_path": {v: per_forward("ms", v) for v in VARIANTS},
         "plain_ms_by_path": {v: per_forward("plain_ms", v) for v in VARIANTS},
         "bound_ms_by_path": {v: per_forward("bound_ms", v) for v in VARIANTS},
     }
-    if key in ("K5", "P4"):
+    if key in ("K5",) + FUSED:
         line["bound_cuda_core_ms"] = per_forward("bound_cuda_core_ms")
-    if key in ("P4", "P6"):  # per site, bf16 batch 8: kernel and library in turns
+    if key in ("P6",) + FUSED:  # per site, bf16 batch 8: kernel and yardstick in turns
+        other = "unfused_ms" if key in ROUNDS_INSIDE else "library_ms"
         line["sites"] = [{"site": r["site"], "per_forward": r["per_forward"]["base"],
-                          **{f: r["turns"][f] for f in ("ms", "library_ms", "ms_spread",
-                                                          "library_spread")},
-                          "bound_ms": r["bound_ms"]} for r in bf if r.get("turns")]
+                          "ms": r["turns"]["ms"], other: r["turns"]["library_ms"],
+                          "ms_spread": r["turns"]["ms_spread"],
+                          other.replace("_ms", "_spread"): r["turns"]["library_spread"],
+                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                          **({"bitwise_share": r["bitwise_share"]} if r.get("bitwise_share")
+                             is not None else {})}
+                         for r in bf if r.get("turns")]
         line["ms_spread"] = per_forward_spread(bf, "ms_spread")
-        line["library_spread"] = per_forward_spread(bf, "library_spread")
+        line[other.replace("_ms", "_spread")] = per_forward_spread(bf, "library_spread")
+    if key in FUSED:  # which unit's work sets the bound: tensor cores, CUDA cores or bytes
+        line["bound_by_unit"] = worst["bound_by"]
+    if key in ROUNDS_INSIDE:
+        line["bitwise_share_bf16"] = min(r["bitwise_share"] for r in bf)
     if key in FUSED:
         line["unfused_ms"] = per_forward("unfused_ms")
     for field in ("k5_ms", "route_ms", "cudnn_ms"):

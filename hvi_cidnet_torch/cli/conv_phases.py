@@ -1,10 +1,11 @@
-"""What bounds P4's and P6's bf16 kernels on the card: each timed with one
-phase taken out.
+"""What bounds the bf16 kernels P4, P5, P6 and P2/P3 on the card: each timed
+with one phase taken out.
 
     python -m hvi_cidnet_torch.cli.conv_phases [--out build/conv_phases]
 
-Runs on the card. Builds variants of ``csrc/conv3x3.cu`` and
-``csrc/im2col_gemm.cu`` in which one phase does no work, each into its own
+Runs on the card. Builds variants of ``csrc/conv3x3.cu``,
+``csrc/im2col_gemm.cu`` and ``csrc/ln_iel.cu`` in which one phase does no
+work, each into its own
 library under ``--out`` with the kernels' flags, and times each variant
 against the kernel as built from the unchanged source, at the sites of the
 600 x 400 batch-8 forward, bf16, as device time per call from CUDA graphs
@@ -17,8 +18,19 @@ phases whose savings add up to the whole time run one after the other.
   products, and with them its window reads, gone), ``no_transpose`` (the
   staged rows not turned into the channel-minor tile), ``no_copies`` (no
   cp.async of x's rows), ``no_stores`` (no tile written out).
+* P5 (its tensor-core arm, the variants of P4's source): ``no_products``,
+  ``no_transpose``, ``no_copies`` as P4's, ``no_stores`` (no output written,
+  and with it the x0.5 and the PReLU, dead code then).
 * P6: ``no_products`` (no wgmma), ``no_copies`` (no TMA, bulk or cp.async
   copy of the operand or W; the barriers still complete), ``no_stores``.
+* P2/P3 (its tensor-core arm, residual on): ``no_stage`` (x not read into
+  A, no LayerNorm: A keeps what it held), ``no_expansion`` (no products of
+  the expansion), ``no_dw1`` (no first depthwise conv), ``no_gates`` (no
+  gate conv, tanh or product), ``no_tanh`` (the gate's conv itself in place
+  of its tanh), ``no_project`` (no products of project_out), ``no_stores``
+  (no output written). A phase taken out can change the values downstream
+  (zeros after ``no_expansion``), and tanhf's time depends on its argument:
+  read ``no_tanh`` beside ``no_gates``.
 
 Beside them, half of a ``Tensor.clone`` of the site's input: one read of
 its bytes. Prints a line a site and writes them as JSON under ``--out``.
@@ -40,8 +52,10 @@ from hvi_cidnet_torch.cli.kernel_times import H, W, graph_ms
 from hvi_cidnet_torch.ops import _build
 from hvi_cidnet_torch.ops import conv3x3_cuda as cc
 from hvi_cidnet_torch.ops import im2col_cuda as icol
+from hvi_cidnet_torch.ops import ln_iel_cuda as lc
 
 BATCH = 8
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (source, variant) -> the substitutions that take the phase out; each must
 # apply, so a change to the sources that moves a phase fails here loudly
 VARIANTS = {
@@ -50,7 +64,9 @@ VARIANTS = {
         ("    for (int tap = 0; tap < 9; ++tap) {\n      const int dy = tap / 3, dx = tap % 3, d",
          "    for (int tap = 0; tap < 0; ++tap) {\n      const int dy = tap / 3, dx = tap % 3, d"),
         ("            acc[p][o] = fmaf(wv[o], v[dy + (p >> 1)][dx + (p & 1)], acc[p][o]);",
-         "            acc[p][o] += 0.0f * wv[o];")],
+         "            acc[p][o] += 0.0f * wv[o];"),
+        ("      if (!one) break;\n      const int off = (tap / 3) * kDnHaloW",
+         "      if (true) break;\n      const int off = (tap / 3) * kDnHaloW")],
     ("conv3x3.cu", "no_transpose"): [("    transpose(cur);\n", "")],
     ("conv3x3.cu", "no_copies"): [
         ("    if (g0 < a1) cp_async16(rs + cr * kRawPitch + 8 * gi,",
@@ -59,7 +75,9 @@ VARIANTS = {
         ("      if (gy >= h || gx >= w) continue;\n      bf16* dst",
          "      if (true) continue;\n      bf16* dst"),
         ("          if (gy >= h || gx >= w) continue;\n          bf16* ob",
-         "          if (true) continue;\n          bf16* ob")],
+         "          if (true) continue;\n          bf16* ob"),
+        ("        ob[(static_cast<int64_t>(8 * j0 + n) * ho + oi) * wo + oj] =",
+         "        if (false) ob[(static_cast<int64_t>(8 * j0 + n) * ho + oi) * wo + oj] =")],
     ("im2col_gemm.cu", "base"): [],
     ("im2col_gemm.cu", "no_products"): [
         ("    for (int j = 0; j < kKsB / 16; ++j) {\n      // B: columns",
@@ -76,6 +94,29 @@ VARIANTS = {
     ("im2col_gemm.cu", "no_stores"): [
         ("          bulk_store(ob + ", "          if (false) bulk_store(ob + "),
         ("          store_m64(acc[mr],", "          if (false) store_m64(acc[mr],")],
+    ("ln_iel.cu", "base"): [],
+    ("ln_iel.cu", "no_stage"): [
+        ("    for (int i = tid; i < cp * (kMTileH + 4); i += THREADS) {",
+         "    for (int i = tid; i < 0; i += THREADS) {"),
+        ("    for (int p = tid; p < G::P2; p += THREADS) {",
+         "    for (int p = tid; p < 0; p += THREADS) {")],
+    ("ln_iel.cu", "no_expansion"): [
+        ("      for (int kk = 0; kk < cp; kk += 16) {", "      for (int kk = 0; kk < 0; kk += 16) {")],
+    ("ln_iel.cu", "no_dw1"): [
+        ("      const int c_lo = qi * G::RW1 / Q, c_hi = (qi + 1) * G::RW1 / Q;",
+         "      const int c_lo = qi * G::RW1 / Q, c_hi = c_lo;")],
+    ("ln_iel.cu", "no_gates"): [
+        ("      for (int k = 0; k < TW / Q; ++k) {  // every range TW / Q columns",
+         "      for (int k = 0; k < 0; ++k) {")],
+    ("ln_iel.cu", "no_tanh"): [
+        ("          const float g = tanhf(a) + win[r + 1][1];",
+         "          const float g = a + win[r + 1][1];")],
+    ("ln_iel.cu", "no_project"): [
+        ("      for (int j = 0; j < NTW; j += 2) {\n        const bf16* bp = wpo",
+         "      for (int j = 0; j < 0; j += 2) {\n        const bf16* bp = wpo")],
+    ("ln_iel.cu", "no_stores"): [
+        ("  for (int i = tid; i < c * kMTileH * per_row; i += THREADS) {",
+         "  for (int i = tid; i < 0; i += THREADS) {")],
 }
 # (site, C_in, C_out, h, w, pad) at 600 x 400: P4's, and P6's (P4's and the
 # NormDownsamples', zero pad)
@@ -85,11 +126,28 @@ P4_SITES = [("stem_hv", 3, 36, H, W, "edge"), ("stem_i", 1, 36, H, W, "edge"),
             ("up1", 36, 36, H // 2, W // 2, "zero")]
 P6_SITES = P4_SITES + [("down1", 36, 36, H, W, "zero"), ("down2", 36, 72, H // 2, W // 2, "zero"),
                        ("down3", 72, 144, H // 4, W // 4, "zero")]
+P5_SITES = [site[:5] + (None,) for site in P6_SITES[-3:]]
+# (site, C, h, w) of P2/P3: the LCA levels
+P23_SITES = [("level1", 36, H // 2, W // 2), ("level2", 72, H // 4, W // 4),
+             ("level3", 144, H // 8, W // 8)]
+
+
+def ln_iel_weights(c: int, dev, rnd) -> tuple:
+    """The LayerNorm's fp32 weight and bias and the IEL's bf16 weights of a
+    C-channel LCA (hidden int(2.66 C)), at the scale of a 1/sqrt(fan-in)
+    init."""
+    hid = int(c * 2.66)
+    return (torch.rand(c, device=dev) + 0.5, torch.rand(c, device=dev) * 0.6 - 0.3,
+            rnd((2 * hid, c, 1, 1), -c**-0.5, c**-0.5), rnd((2 * hid, 1, 3, 3), -1 / 3, 1 / 3),
+            rnd((hid, 1, 3, 3), -1 / 3, 1 / 3), rnd((hid, 1, 3, 3), -1 / 3, 1 / 3),
+            rnd((c, hid, 1, 1), -hid**-0.5, hid**-0.5))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="P4's and P6's phases timed one at a time")
-    p.add_argument("--out", type=str, default="build/conv_phases")
+    p = argparse.ArgumentParser(description="P4's, P5's, P6's and P2/P3's phases timed one at a "
+                                            "time")
+    p.add_argument("--out", type=str, default="build/conv_phases",
+                   help="the JSON's directory; the variants build under build/conv_phases")
     return p.parse_args(argv)
 
 
@@ -136,19 +194,28 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
-    libs = build_variants(args.out)
+    libs = build_variants(os.path.join(ROOT, "build", "conv_phases"))
     gen = torch.Generator().manual_seed(0)
     rnd = lambda shape, lo, hi: (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(
         dev, torch.bfloat16)
     rows = []
-    for key, kernel, sites in (("P4", cc.CONV3X3, P4_SITES), ("P6", icol.IM2COL_DOTS, P6_SITES)):
-        src = "conv3x3.cu" if key == "P4" else "im2col_gemm.cu"
+    alpha = torch.full((1,), 0.25, device=dev)
+    for key, kernel, src, sites in (
+            ("P4", cc.CONV3X3, "conv3x3.cu", P4_SITES),
+            ("P5", cc.CONV3X3_HALF_PRELU, "conv3x3.cu", P5_SITES),
+            ("P6", icol.IM2COL_DOTS, "im2col_gemm.cu", P6_SITES),
+            ("P2/P3", lc.LN_IEL, "ln_iel.cu", [s[:2] + (0,) + s[2:] + (None,) for s in P23_SITES])):
         names = [name for s, name in VARIANTS if s == src]
         for site, cin, cout, h, w, pad in sites:
             x = rnd((BATCH, cin, h, w), -1.0, 1.0)
             wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5)
             if key == "P4":
                 run, data = (lambda: cc.conv3x3_kernel(x, wt, pad)), x
+            elif key == "P5":
+                run, data = (lambda: cc.conv3x3_half_prelu_kernel(x, wt, alpha)), x
+            elif key == "P2/P3":
+                wts = ln_iel_weights(cin, dev, rnd)
+                run, data = (lambda: lc.ln_iel_kernel(x, *wts, True)), x
             else:
                 a, wmat = icol.stage_3x3(x, pad), wt.reshape(cout, cin * 9)
                 run, data = (lambda: icol.im2col_dots_kernel(a, wmat)), a
@@ -164,8 +231,9 @@ def main(argv=None) -> int:
             if key == "P6":
                 del a
             torch.cuda.empty_cache()
-    kernel._fn = None  # the next call binds the kernels' own library again
-    cc.CONV3X3._fn = None
+    for kernel in (cc.CONV3X3, cc.CONV3X3_HALF_PRELU, icol.IM2COL_DOTS, lc.LN_IEL):
+        kernel._fn = None  # the next call binds the kernels' own library again
+    os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "conv_phases.json"), "w") as f:
         json.dump(rows, f, indent=1)
     return 0

@@ -9,8 +9,10 @@
 // :131). Plain versions: conv3x3_plain and conv3x3_half_prelu_plain in
 // hvi_cidnet_torch/ops/conv3x3_cuda.py (dispatchers and launch plans there
 // too). Both kernels read x and the weights in the activation dtype and
-// accumulate in fp32; P5 keeps the conv rows in fp32 through the x0.5 and
-// the PReLU and rounds once at the store.
+// accumulate in fp32; P5 keeps the conv rows in fp32 through the H pass,
+// rounds its rows to the activation dtype where the TPU kernel does
+// (experiments/fused_pallas_nhcw.py:98; the W taps too, :153), and rounds
+// once more at the store (the identity in fp32 but for the store).
 //
 // P4 in bf16. Bound: x read once and the output written once over 3.35 TB/s,
 // or the products, 2 * 9 * C_in flops per output channel and pixel, over
@@ -63,9 +65,17 @@
 // their copies; the stems and heads take most of P4's time.
 // The fp32 arm of P4 stays on the CUDA cores (TF32 would keep three digits).
 //
-// P5 and the fp32 P4 (`conv3x3_kernel`): `conv_region`. A block of 256 threads computes a
-// rectangle of conv outputs for CO (4 or 12) output channels, one pixel a
-// thread, CO fp32 accumulators each. It walks the input channels 8 at a
+// P5 in bf16, `conv3x3_half_mma_kernel`: the tensor arm's implicit GEMM over
+// the 7 x 33 conv region a 3 x 16 tile of the half-size output reads (its
+// last row and column recomputed by the next tile: 4.8 conv pixels an
+// output against 4), flat in m16 tiles, each ldmatrix row its own pixel's
+// halo row; the epilogue stages the fp32 region in shared memory and runs
+// the bands and the PReLU, a thread an output column. Bound: the products
+// on the tensor cores (mma.sync), then the bytes.
+//
+// P5 in fp32 and the fp32 P4 (`conv3x3_kernel`): `conv_region`. A block of
+// 256 threads computes a rectangle of conv outputs for CO (4 or 12) output
+// channels, one pixel a thread, CO fp32 accumulators each. It walks the input channels 8 at a
 // time: it stages their input rectangle with its 1-pixel halo (zero or
 // clamped to the edge) and their CO x 9 taps in shared memory, fp32, then
 // every thread adds 9 taps x CO products (the taps read as float4
@@ -81,8 +91,8 @@
 // CUDA cores; P5 also saves writing the full-resolution conv output and
 // reading it back for the x0.5 (K3's input).
 //
-// Occupancy: P5 is held to 64 registers (four blocks an SM, a few bytes of
-// spills), which ran ~8% faster than its free 80 at every site on an
+// Occupancy: the fp32 P5 is held to 64 registers (four blocks an SM, a few
+// bytes of spills), which ran ~8% faster than its free 80 at every site on an
 // NVIDIA H100 80GB HBM3 at 700 W; the same cap on the fp32 P4 (80 of its
 // 128 registers, three blocks an SM) ran ~6% slower over its sites
 // (PERF.md section 6).
@@ -116,6 +126,21 @@ constexpr int kMaxNT = 9;        // n8 tiles a block: at most 72 output channels
 constexpr int kMinStages = 3, kMaxStages = 8;
 constexpr int kSmallThreads = 256;  // the CUDA-core arm: 2 x 2 pixels a thread, 4 parts of C_in
 
+// P5, bf16: the tensor-core arm. A tile is kDnTo x kDnTq of the half-size
+// output; it reads the (2 kDnTo + 1) x (2 kDnTq + 1) conv outputs from conv
+// row 2 o0 and column 2 q0 on (the region), whose last row and column are
+// the next tile's first: recomputed there, 231 conv pixels for 48 outputs
+// (4.8 a output, 4 without the overlap), in 15 m16 tiles of which the last
+// is 7 pixels short.
+constexpr int kDnTo = 3, kDnTq = 16;
+constexpr int kDnRegH = 2 * kDnTo + 1, kDnRegW = 2 * kDnTq + 1, kDnRegPx = kDnRegH * kDnRegW;
+constexpr int kDnMTiles = (kDnRegPx + 15) / 16;
+constexpr int kDnHaloH = kDnRegH + 2, kDnHaloW = kDnRegW + 2, kDnHaloPx = kDnHaloH * kDnHaloW;
+constexpr int kDnRawStage = kChunk * kDnHaloH * kRawPitch;  // elements (35 columns fit 6 granules)
+constexpr int kDnEpiNT = 3;        // n8 tiles of channels the epilogue stages at a time
+constexpr int kDnEpiPitch = 260;   // floats a channel's region in the epilogue: 4 mod 32 banks
+static_assert(kDnMTiles <= 16 && kDnMTiles > 8, "two m16 tiles a warp, 8 warps");
+
 // element offset of half h (8 elements) of row r of a tile of 32-byte rows:
 // the halves swap every 4 rows, so the 8 rows an ldmatrix reads, at any
 // start, fall on distinct banks
@@ -139,6 +164,19 @@ __host__ __device__ constexpr int small_smem_bytes(int co, int chunks, int stage
 __host__ __device__ constexpr int mma_smem_bytes(int nt, int stages, int wslots) {
   return 2 * wslots * 9 * 8 * nt * kRow + stages * (2 * kRawStage + 4 * kChunk * kHaloH) +
          mma_epi_bytes(nt);
+}
+
+// bytes of the region that holds P5's A[pixel][16] and, after a tile's last
+// products, kDnEpiNT n8 tiles of its fp32 conv region [channel][pixel]
+__host__ __device__ constexpr int dn_epi_bytes() {
+  return 2 * kDnHaloPx * kRow > 4 * 8 * kDnEpiNT * kDnEpiPitch ? 2 * kDnHaloPx * kRow
+                                                                : 4 * 8 * kDnEpiNT * kDnEpiPitch;
+}
+// dynamic shared memory of conv3x3_half_mma_kernel<nt>, laid out as
+// mma_smem_bytes' with P5's stages and region
+__host__ __device__ constexpr int dn_smem_bytes(int nt, int stages, int wslots) {
+  return 2 * wslots * 9 * 8 * nt * kRow + stages * (2 * kDnRawStage + 4 * kChunk * kDnHaloH) +
+         dn_epi_bytes();
 }
 
 // The conv outputs of rows [r0, r0 + rh) and columns [c0, c0 + rw) of one
@@ -360,14 +398,16 @@ struct MmaCursor {
 // it, -1 for a row of zeros (a zero-pad row or a channel past C_in). Every
 // copy is one cp.async of a whole aligned granule: a row starts at any
 // 2-byte offset (x is NCHW of any width and start).
+// HALO_H: the input rows a chunk stages (P4's 10; P5's tensor arm, 9).
+template <int HALO_H = kHaloH, typename Cursor = MmaCursor>
 __device__ __forceinline__ void stage_rows(bf16* rs, int* os, const bf16* __restrict__ xb,
-                                           const MmaCursor& A, int cin, int h, int w, int edge,
+                                           const Cursor& A, int cin, int h, int w, int edge,
                                            int64_t plane, int tid, int nthreads) {
   const int k = A.k;
   const bf16* xk = xb + static_cast<int64_t>(k) * kChunk * plane;
-  for (int i = tid; i < kChunk * kHaloH * kRawGran; i += nthreads) {
+  for (int i = tid; i < kChunk * HALO_H * kRawGran; i += nthreads) {
     const int gi = i % kRawGran, cr = i / kRawGran;
-    const int r = cr % kHaloH, ci = cr / kHaloH;
+    const int r = cr % HALO_H, ci = cr / HALO_H;
     int gy = A.r0 - 1 + r;
     bool ok = k * kChunk + ci < cin;
     if (edge) gy = min(max(gy, 0), h - 1);
@@ -728,6 +768,251 @@ __global__ void __launch_bounds__(kSmallThreads)
   cp_async_wait<0>();  // no copy outlives the block
 }
 
+// P5's place in its sequence of steps: chunk k of the half-size output tile
+// t (image b; its conv region from row r0 = 2 o0 and column c0 = 2 q0; the
+// halo's columns c0 - 1 .. c0 + 2 kDnTq + 1 that lie in the image: [lo,
+// hi)); as MmaCursor
+struct DnCursor {
+  int k, t, b, r0, c0, lo, hi;
+  __device__ __forceinline__ void place(int tiles_x, int per_img, int w) {
+    b = t / per_img;
+    const int rem = t - b * per_img, ty = rem / tiles_x;
+    r0 = 2 * kDnTo * ty;
+    c0 = 2 * kDnTq * (rem - ty * tiles_x);
+    lo = max(c0 - 1, 0);
+    hi = min(c0 - 1 + kDnHaloW, w);
+  }
+  __device__ __forceinline__ void start(int walker, int tiles_x, int per_img, int w) {
+    k = 0;
+    t = walker;
+    place(tiles_x, per_img, w);
+  }
+  __device__ __forceinline__ void advance(int chunks, int walkers, int tiles_x, int per_img,
+                                          int w) {
+    if (++k < chunks) return;
+    k = 0;
+    t += walkers;
+    place(tiles_x, per_img, w);
+  }
+};
+
+// P5 in bf16: conv3x3_mma_kernel's implicit GEMM (persistent blocks, the
+// cp.async ring of staged rows, the swizzled channel-minor tile A, the
+// weights of conv3x3_pack_kernel, mma.sync) over P5's conv region, with its
+// own epilogue. M = the region's 231 pixels, flat: with 256 threads (two
+// blocks an SM) warp w takes m16 tiles w and w + 8, with 512 (one block an
+// SM, 72-channel groups) tile w; each lane's ldmatrix row is its pixel's
+// own shifted halo row, so the region's rows need not be whole m16 tiles. After a tile's last
+// chunk, kDnEpiNT n8 tiles at a time: the fp32 conv region into shared
+// memory, then a thread an output: the H band (rows 2o, 2o + 1, 2o + 2 with
+// K3's fp32 taps, the third skipped past the edge, where its weight is 0),
+// rounded to bf16 (experiments/fused_pallas_nhcw.py:98), the W band with
+// the taps rounded to bf16 (:153), the PReLU in fp32, one rounding at the
+// store.
+template <int NT, int THREADS>
+__global__ void __launch_bounds__(THREADS, 512 / THREADS)
+    conv3x3_half_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
+                            bf16* __restrict__ out, const float* __restrict__ wh,
+                            const float* __restrict__ ww, const float* __restrict__ alpha, int nb,
+                            int cin, int cout, int h, int w, int tiles_x, int tiles_y, int groups,
+                            int cg, int chunks, int stages, int resident) {
+  constexpr int NG = 8 * NT;
+  constexpr int kWChunk = 9 * NG * kRow;
+  constexpr int kMtw = THREADS == 256 ? 2 : 1;  // m16 tiles a warp: w (and w + 8)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);
+  bf16* raw = ws + (resident ? chunks : stages) * kWChunk;  // [stages][16][kDnHaloH][kRawPitch]
+  bf16* as = raw + stages * kDnRawStage;  // A[kDnHaloPx][kRow] / fp32 [8 kDnEpiNT][kDnEpiPitch]
+  int* offs = reinterpret_cast<int*>(as + dn_epi_bytes() / 2);  // [stages][16][kDnHaloH]
+  float* ep = reinterpret_cast<float*>(as);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = blockIdx.x % groups, walker = blockIdx.x / groups, walkers = gridDim.x / groups;
+  const int per_img = tiles_x * tiles_y, tiles = nb * per_img;
+  const int my_tiles = walker < tiles ? (tiles - 1 - walker) / walkers + 1 : 0;
+  const int steps = my_tiles * chunks;
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int ho = h / 2, wo = w / 2;
+  const bf16* wg = wp + static_cast<int64_t>(g) * chunks * kWChunk;
+  DnCursor ahead, T;
+  ahead.start(walker, tiles_x, per_img, w);
+  T.start(walker, tiles_x, per_img, w);
+
+  if (resident)
+    for (int i = tid; i < chunks * kWChunk / 8; i += THREADS)
+      cp_async16(ws + 8 * i, wg + 8 * i);
+  cp_async_commit();
+
+  auto fill = [&](int s, int st) {
+    if (s < steps) {
+      const int k = ahead.k;
+      stage_rows<kDnHaloH>(raw + st * kDnRawStage, offs + st * kChunk * kDnHaloH,
+                           x + static_cast<int64_t>(ahead.b) * cin * plane, ahead, cin, h, w, 0,
+                           plane, tid, THREADS);
+      if (!resident) {
+        const bf16* wsrc = wg + static_cast<int64_t>(k) * kWChunk;
+        bf16* wdst = ws + st * kWChunk;
+        for (int i = tid; i < kWChunk / 8; i += THREADS)
+          cp_async16(wdst + 8 * i, wsrc + 8 * i);
+      }
+      ahead.advance(chunks, walkers, tiles_x, per_img, w);
+    }
+    cp_async_commit();
+  };
+
+  // stage st's rows -> A[halo pixel][16 channels], zero outside the image
+  auto transpose = [&](int st) {
+    const unsigned short* rs = reinterpret_cast<const unsigned short*>(raw) + st * kDnRawStage;
+    const int* os = offs + st * kChunk * kDnHaloH;
+    for (int j = tid; j < 2 * kDnHaloPx; j += THREADS) {
+      const int half = j / kDnHaloPx, p = j - half * kDnHaloPx;
+      const int r = p / kDnHaloW;
+      const int c = T.c0 - 1 + p - r * kDnHaloW;
+      const bool in = c >= 0 && c < w;
+      const int col = c - T.lo;
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t e[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int cr = (half * 8 + 2 * q + u) * kDnHaloH + r;
+          const int o = os[cr];
+          e[u] = in && o >= 0 ? rs[cr * kRawPitch + col + o] : 0u;
+        }
+        v[q] = e[0] | (e[1] << 16);
+      }
+      *reinterpret_cast<uint4*>(as + swz(p, half)) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  float acc[kMtw][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMtw; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  const int am = (lane & 7) + ((lane >> 3) & 1) * 8, ah = lane >> 4;
+  const int bn = (lane & 7) + (lane >> 4) * 8, bh = (lane >> 3) & 1;
+  // the warp's m16 tiles: w and, with 8 warps, w + 8; with 16 warps one, the
+  // 16th warp none
+  const bool one = warp < kDnMTiles, two = kMtw == 2 && warp + 8 < kDnMTiles;
+  int hb[kMtw];  // the halo pixel at tap (0, 0) of this lane's ldmatrix row, each m16 tile
+#pragma unroll
+  for (int mt = 0; mt < kMtw; ++mt) {
+    int i = 16 * (warp + 8 * mt) + am;
+    if (i >= kDnRegPx) i = 0;  // past the region: computed, never stored
+    hb[mt] = (i / kDnRegW) * kDnHaloW + i % kDnRegW;
+  }
+  const float a = *alpha;
+
+  for (int s = 0; s < stages - 1; ++s) fill(s, s);
+  int cur = 0;
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_dyn(stages - 2);
+    __syncthreads();
+    fill(s + stages - 1, cur == 0 ? stages - 1 : cur - 1);
+    const int k = T.k;
+    transpose(cur);
+    __syncthreads();
+    const bf16* wst = ws + (resident ? k : cur) * kWChunk;
+    cur = cur + 1 == stages ? 0 : cur + 1;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      if (!one) break;
+      const int off = (tap / 3) * kDnHaloW + tap % 3;
+      uint32_t af[2][4];
+      ldmatrix_x4(af[0], as + swz(hb[0] + off, ah));
+      if (two) ldmatrix_x4(af[1], as + swz(hb[kMtw - 1] + off, ah));
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        const bf16* bp = wst + tap * NG * kRow + swz(j * 8 + bn, bh);
+        if (j + 1 < NT) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, bp);
+          mma_bf16(acc[0][j], af[0], bf[0], bf[1]);
+          mma_bf16(acc[0][j + 1], af[0], bf[2], bf[3]);
+          if (two) {
+            mma_bf16(acc[kMtw - 1][j], af[1], bf[0], bf[1]);
+            mma_bf16(acc[kMtw - 1][j + 1], af[1], bf[2], bf[3]);
+          }
+        } else {
+          uint32_t bf[2];
+          ldmatrix_x2(bf, bp);
+          mma_bf16(acc[0][j], af[0], bf[0], bf[1]);
+          if (two) mma_bf16(acc[kMtw - 1][j], af[1], bf[0], bf[1]);
+        }
+      }
+    }
+    if (k != chunks - 1) {
+      T.advance(chunks, walkers, tiles_x, per_img, w);
+      continue;
+    }
+
+    // the tile's epilogue, kDnEpiNT n8 tiles (8 kDnEpiNT channels) a pass:
+    // d[e] of tile (mt, j) is region pixel 16 (warp + 8 mt) + lane / 4 (+ 8
+    // for e >= 2), channel 8 j + 2 (lane % 4) + e % 2
+    // A thread keeps one output column q (THREADS is a multiple of
+    // kDnTq) and walks rows and channels: its W taps, rounded to bf16, and
+    // the tile's H taps are read once a tile.
+    const int o0 = T.r0 / 2, q0 = T.c0 / 2;
+    const int cgr = min(cg, cout - g * cg);
+    bf16* ob = out + (static_cast<int64_t>(T.b) * cout + g * cg) * ho * wo;
+    const int q = tid % kDnTq, oj = q0 + q;
+    float tw[3] = {0.0f, 0.0f, 0.0f}, th[kDnTo][3];
+    if (oj < wo)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) tw[d] = round_through<bf16>(ww[d * wo + oj]);
+#pragma unroll
+    for (int oy = 0; oy < kDnTo; ++oy)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) th[oy][d] = o0 + oy < ho ? wh[d * ho + o0 + oy] : 0.0f;
+    const bool col3 = 2 * oj + 2 < w;
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += kDnEpiNT) {
+      __syncthreads();  // the products are done with A; the last pass's readers with ep
+#pragma unroll
+      for (int mt = 0; mt < kMtw; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < kDnEpiNT; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = j0 + jj, i = 16 * (warp + 8 * mt) + (lane >> 2) + 8 * (e >> 1);
+            if (j < NT && (mt == 0 ? one : two) && i < kDnRegPx)
+              ep[(jj * 8 + 2 * (lane & 3) + (e & 1)) * kDnEpiPitch + i] = acc[mt][j][e];
+          }
+      __syncthreads();
+      const int nch = min(8 * kDnEpiNT, cgr - 8 * j0);
+      if (oj >= wo) continue;
+      for (int i = tid / kDnTq; i < nch * kDnTo; i += THREADS / kDnTq) {
+        const int oy = i % kDnTo, n = i / kDnTo, oi = o0 + oy;
+        if (oi >= ho) continue;
+        const bool row3 = 2 * oi + 2 < h;
+        const float* src = ep + n * kDnEpiPitch + 2 * oy * kDnRegW + 2 * q;
+        float hh[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          float v = src[d] * th[oy][0] + src[kDnRegW + d] * th[oy][1];
+          if (row3) v = v + src[2 * kDnRegW + d] * th[oy][2];
+          hh[d] = round_through<bf16>(v);
+        }
+        float v = hh[0] * tw[0] + hh[1] * tw[1];
+        if (col3) v = v + hh[2] * tw[2];
+        v = fmaxf(v, 0.0f) + a * fminf(v, 0.0f);
+        ob[(static_cast<int64_t>(8 * j0 + n) * ho + oi) * wo + oj] = __float2bfloat16_rn(v);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMtw; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+    T.advance(chunks, walkers, tiles_x, per_img, w);
+  }
+  cp_async_wait<0>();
+}
+
 template <int CO>
 int launch_small(const void* x, const void* wgt, void* out, int b, int cin, int cout, int h,
                  int w, int edge, int tiles_x, int tiles_y, int smem, int blocks, int stages,
@@ -757,6 +1042,29 @@ int launch_mma(const void* x, const void* wgt, void* wpack, void* out, int b, in
   conv3x3_mma_kernel<NT><<<blocks, kConvThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wpack), static_cast<bf16*>(out), b,
       cin, cout, h, w, edge, tiles_x, tiles_y, groups, cg, chunks, vec_log, stages, resident);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, int THREADS>
+int launch_half_mma(const void* x, const void* wgt, void* wpack, void* out, const void* wh,
+                    const void* ww, const void* alpha, int b, int cin, int cout, int h, int w,
+                    int cg, int tiles_x, int tiles_y, int groups, int smem, int blocks, int stages,
+                    int resident, cudaStream_t stream) {
+  constexpr int NG = 8 * NT;
+  const int chunks = (cin + kChunk - 1) / kChunk;
+  const int64_t total = static_cast<int64_t>(groups) * chunks * 9 * NG * kRow;
+  const int64_t pack_need = (total + kConvThreads - 1) / kConvThreads;
+  const int pack_blocks = static_cast<int>(pack_need < 1024 ? pack_need : 1024);
+  conv3x3_pack_kernel<<<pack_blocks, kConvThreads, 0, stream>>>(
+      static_cast<const bf16*>(wgt), static_cast<bf16*>(wpack), cin, cout, cg, NG, chunks, total);
+  const int err =
+      raise_smem_cap(reinterpret_cast<const void*>(conv3x3_half_mma_kernel<NT, THREADS>), smem);
+  if (err) return err;
+  conv3x3_half_mma_kernel<NT, THREADS><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wpack), static_cast<bf16*>(out),
+      static_cast<const float*>(wh), static_cast<const float*>(ww),
+      static_cast<const float*>(alpha), b, cin, cout, h, w, tiles_x, tiles_y, groups, cg, chunks,
+      stages, resident);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -872,24 +1180,61 @@ extern "C" int conv3x3(const void* x, const void* wgt, void* wpack, void* out, i
 // P5. x: (b, cin, h, w), wgt: (cout, cin, 3, 3), out: (b, cout, h / 2,
 // w / 2), contiguous, one dtype; wh, ww: K3's (3, h / 2) and (3, w / 2) fp32
 // band weights (ops/resize.py:half_weights); alpha: one fp32 value on the
-// device. co_tile .. groups: ops/conv3x3_cuda.py:half_plan.
-extern "C" int conv3x3_half_prelu(const void* x, const void* wgt, void* out, int dtype,
-                                  const void* wh, const void* ww, const void* alpha, int b,
-                                  int cin, int cout, int h, int w, int co_tile, int tiles_x,
-                                  int tiles_y, int groups, cudaStream_t stream) {
-  if (cin < 1 || h < 2 || w < 2 || bad_grid(b, cout, co_tile, tiles_x, tiles_y, groups) ||
+// device. co_tile .. groups: the plan of ops/conv3x3_cuda.py. fp32
+// (half_plan): co_tile 4 or 12, 3 x 16 tiles; wpack unused, smem .. resident
+// 0. bf16 (half_mma_plan): co_tile <= 72 channels a group, kDnTo x kDnTq
+// tiles; wpack scratch for the packed weights (as P4's), smem the dynamic
+// shared memory, blocks the persistent grid (a multiple of groups), stages
+// the ring's (3 to 8), resident 1 to keep every chunk's weights in shared
+// memory, threads a block (256, two an SM; 512 where one block takes an
+// SM). Returns a cudaError_t code, cudaErrorInvalidValue for a plan it
+// cannot run.
+extern "C" int conv3x3_half_prelu(const void* x, const void* wgt, void* wpack, void* out,
+                                  int dtype, const void* wh, const void* ww, const void* alpha,
+                                  int b, int cin, int cout, int h, int w, int co_tile,
+                                  int tiles_x, int tiles_y, int groups, int smem, int blocks,
+                                  int stages, int resident, int threads, cudaStream_t stream) {
+  if (cin < 1 || h < 2 || w < 2 || b < 1 || cout < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBFloat16) {
+    const int nt = (co_tile + 7) / 8, chunks = (cin + kChunk - 1) / kChunk;
+    if (co_tile < 1 || nt > kMaxNT || groups != (cout + co_tile - 1) / co_tile ||
+        tiles_x != (w / 2 + kDnTq - 1) / kDnTq || tiles_y != (h / 2 + kDnTo - 1) / kDnTo ||
+        static_cast<int64_t>(b) * tiles_y * tiles_x * chunks > 2147483647LL || blocks < groups ||
+        blocks % groups || stages < kMinStages || stages > kMaxStages ||
+        (resident != 0 && resident != 1) ||
+        smem != dn_smem_bytes(nt, stages, resident ? chunks : stages) || smem > 232448 ||
+        (threads != 256 && threads != 512) || wpack == nullptr ||
+        reinterpret_cast<uintptr_t>(wpack) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+#define HVI_P5_NT(NTV)                                                                       \
+  case NTV:                                                                                  \
+    return threads == 256                                                                    \
+               ? launch_half_mma<NTV, 256>(x, wgt, wpack, out, wh, ww, alpha, b, cin, cout, h, \
+                                           w, co_tile, tiles_x, tiles_y, groups, smem, blocks, \
+                                           stages, resident, stream)                         \
+               : launch_half_mma<NTV, 512>(x, wgt, wpack, out, wh, ww, alpha, b, cin, cout, h, \
+                                           w, co_tile, tiles_x, tiles_y, groups, smem, blocks, \
+                                           stages, resident, stream);
+    switch (nt) {
+      HVI_P5_NT(1)
+      HVI_P5_NT(2)
+      HVI_P5_NT(3)
+      HVI_P5_NT(4)
+      HVI_P5_NT(5)
+      HVI_P5_NT(6)
+      HVI_P5_NT(7)
+      HVI_P5_NT(8)
+      HVI_P5_NT(9)
+    }
+#undef HVI_P5_NT
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype != kFloat32 || bad_grid(b, cout, co_tile, tiles_x, tiles_y, groups) ||
       tiles_x != (w / 2 + kHalfW - 1) / kHalfW || tiles_y != (h / 2 + kHalfH - 1) / kHalfH)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == kFloat32)
-    return co_tile == 4 ? launch_half<float, 4>(x, wgt, out, wh, ww, alpha, b, cin, cout, h, w,
-                                                tiles_x, tiles_y, groups, stream)
-                        : launch_half<float, 12>(x, wgt, out, wh, ww, alpha, b, cin, cout, h, w,
-                                                 tiles_x, tiles_y, groups, stream);
-  if (dtype == kBFloat16)
-    return co_tile == 4
-               ? launch_half<__nv_bfloat16, 4>(x, wgt, out, wh, ww, alpha, b, cin, cout, h, w,
-                                               tiles_x, tiles_y, groups, stream)
-               : launch_half<__nv_bfloat16, 12>(x, wgt, out, wh, ww, alpha, b, cin, cout, h, w,
-                                                tiles_x, tiles_y, groups, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return co_tile == 4 ? launch_half<float, 4>(x, wgt, out, wh, ww, alpha, b, cin, cout, h, w,
+                                              tiles_x, tiles_y, groups, stream)
+                      : launch_half<float, 12>(x, wgt, out, wh, ww, alpha, b, cin, cout, h, w,
+                                               tiles_x, tiles_y, groups, stream);
 }

@@ -10,13 +10,16 @@ wrapper casts it with ``.to(x.dtype)``, a no-op in the model); P5 also
 takes K3's float64-derived band weights (``ops/resize.py:axis_weights``)
 and the PReLU's fp32 slope on the card. Plain versions: P4's is the port's
 ``conv3x3_same`` / ``conv3x3_replpad`` (``ops/conv.py``); P5's is
-``conv3x3_same`` in fp32 (TF32 off), then K3's plain ``half_prelu`` in
-fp32, cast once at the end. They launch by plans computed here, which the
-CPU tests walk: P4 in bf16 by ``conv3x3_mma_plan`` (an implicit GEMM on the
-tensor cores, fed by cp.async copies of its halo rows) or, for the heads
-(C_out <= 2), ``conv3x3_small_plan`` (the CUDA cores on the same staged
-rows) - ``mma_replay`` and ``small_replay`` repeat their addressing on the
-CPU -, P4 in fp32 by ``conv3x3_plan`` and P5 by ``half_plan`` (the CUDA
+``conv3x3_same`` in fp32 (TF32 off), then K3's x0.5 with the TPU kernel's
+two bf16 rounding points and the PReLU, cast once at the end. They launch
+by plans computed here, which the CPU tests walk: P4 in bf16 by
+``conv3x3_mma_plan`` (an implicit GEMM on the tensor cores, fed by cp.async
+copies of its halo rows) or, for the heads (C_out <= 2),
+``conv3x3_small_plan`` (the CUDA cores on the same staged rows) -
+``mma_replay`` and ``small_replay`` repeat their addressing on the CPU -, P4
+in fp32 by ``conv3x3_plan``; P5 in bf16 by ``half_mma_plan`` (P4's
+tensor-core conv over the region its 3 x 16 output tile reads, with an
+epilogue of the x0.5 and the PReLU), in fp32 by ``half_plan`` (the CUDA
 cores).
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
@@ -40,14 +43,13 @@ from hvi_cidnet_torch.ops._build import (
     twin_backward,
     widest_vector,
 )
-from hvi_cidnet_torch.ops.conv import conv3x3_replpad, conv3x3_same, exact_fp32
-from hvi_cidnet_torch.ops.resize import axis_weights
-from hvi_cidnet_torch.ops.resize_cuda import half_prelu_plain
+from hvi_cidnet_torch.ops.conv import conv3x3_replpad, conv3x3_same, exact_fp32, prelu
+from hvi_cidnet_torch.ops.resize import axis_weights, scale_half_f32
 from hvi_cidnet_torch.utils import flops
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 CONV3X3 = CudaKernel("conv3x3", [_p] * 4 + [_i] * 17)
-CONV3X3_HALF_PRELU = CudaKernel("conv3x3_half_prelu", [_p] * 3 + [_i] + [_p] * 3 + [_i] * 9)
+CONV3X3_HALF_PRELU = CudaKernel("conv3x3_half_prelu", [_p] * 4 + [_i] + [_p] * 3 + [_i] * 14)
 
 PAD_MODES = ("zero", "edge")
 MAX_GRID_X = 2**31 - 1
@@ -70,6 +72,13 @@ SM_SMEM = 228 * 1024          # an SM's shared memory, 1 KB of it reserved a blo
 SMS = 132                     # H100 SXM; the wrapper passes the card's own count
 SMALL_THREADS = 256           # the CUDA-core arm (kSmallThreads): 2 x 2 pixels a thread,
 SMALL_PARTS = 4               # ... the input channels in 4 parts
+# P5 in bf16, the tensor-core arm (csrc/conv3x3.cu:conv3x3_half_mma_kernel)
+DN_TILE = (3, 16)             # half-size output rows x columns a tile (kDnTo, kDnTq)
+DN_REGION = (2 * DN_TILE[0] + 1, 2 * DN_TILE[1] + 1)   # conv rows x columns it reads
+DN_HALO = (DN_REGION[0] + 2, DN_REGION[1] + 2)         # input rows x columns it stages
+DN_RAW_STAGE_BYTES = 2 * CHUNK * DN_HALO[0] * 8 * RAW_GRANULES + 4 * CHUNK * DN_HALO[0]
+DN_EPI_NT = 3                 # n8 tiles the epilogue stages at a time (kDnEpiNT)
+DN_EPI_PITCH = 260            # floats a channel's region there (kDnEpiPitch)
 
 
 class ConvPlan(NamedTuple):
@@ -149,6 +158,7 @@ class MmaConvPlan(NamedTuple):
     pack_elements: int
     stages: int
     resident: bool
+    threads: int = 256
 
 
 def weights_bytes(n_tiles: int) -> int:
@@ -172,15 +182,19 @@ def mma_smem_bytes(n_tiles: int, stages: int, wslots: int) -> int:
     return wslots * weights_bytes(n_tiles) + stages * RAW_STAGE_BYTES + epilogue_bytes(n_tiles)
 
 
-def _mma_ring(n_tiles: int, chunks: int) -> tuple:
+def _mma_ring(n_tiles: int, chunks: int, stage_bytes: int = RAW_STAGE_BYTES,
+              region_bytes: int = 0) -> tuple:
     """(blocks an SM, stages, resident): two blocks an SM where each keeps
     MIN_STAGES stages (the weights resident if they fit beside them, else a
-    chunk a stage), else one block with as many as fit."""
+    chunk a stage), else one block with as many as fit. ``stage_bytes``:
+    a stage's staged rows and offsets; ``region_bytes``: the A / epilogue
+    region (P4's by default)."""
+    region = region_bytes or epilogue_bytes(n_tiles)
     for per_sm in (2, 1):
         budget = min(SMEM_LIMIT, SM_SMEM // per_sm - 1024)
         for resident in (True, False):
-            fixed = epilogue_bytes(n_tiles) + (chunks * weights_bytes(n_tiles) if resident else 0)
-            per_stage = RAW_STAGE_BYTES + (0 if resident else weights_bytes(n_tiles))
+            fixed = region + (chunks * weights_bytes(n_tiles) if resident else 0)
+            per_stage = stage_bytes + (0 if resident else weights_bytes(n_tiles))
             stages = min(MAX_STAGES, (budget - fixed) // per_stage)
             if stages >= MIN_STAGES:
                 return per_sm, stages, resident
@@ -430,6 +444,46 @@ def small_replay(x: torch.Tensor, w: torch.Tensor, pad_mode: str, offset: int = 
     return out.to(x.dtype), writes
 
 
+def dn_region_bytes() -> int:
+    """The region of P5's A[pixel][16] (9 x 35 halo pixels) and, over it,
+    DN_EPI_NT n8 tiles of its fp32 conv region (csrc/conv3x3.cu:
+    dn_epi_bytes)."""
+    return max(2 * DN_HALO[0] * DN_HALO[1] * ROW, 4 * 8 * DN_EPI_NT * DN_EPI_PITCH)
+
+
+def half_mma_smem_bytes(n_tiles: int, stages: int, wslots: int) -> int:
+    """Dynamic shared memory of P5's tensor-core arm (csrc/conv3x3.cu:
+    dn_smem_bytes): ``wslots`` chunks of weights, ``stages`` stages of
+    staged rows (16 channels x 9 rows x 6 granules) and their offsets, the
+    A / epilogue region."""
+    return wslots * weights_bytes(n_tiles) + stages * DN_RAW_STAGE_BYTES + dn_region_bytes()
+
+
+@functools.lru_cache(maxsize=256)
+def half_mma_plan(b: int, cin: int, cout: int, h: int, w: int, sms: int = SMS) -> MmaConvPlan:
+    """P5's launch plan in bf16 for a (b, cin, h, w) input, (b, cout, h //
+    2, w // 2) output, on a card of ``sms`` SMs: P4's channel groups, ring
+    and persistent walkers over tiles of 3 x 16 half-size outputs (``tile_h``
+    x ``tile_w``; each reads a 7 x 33 conv region). ``vec`` is 1: the
+    output is stored an element a thread. ``threads``: 256 (two m16 tiles a
+    warp) where two blocks share an SM, else 512 (one a warp)."""
+    groups = -(-cout // MAX_GROUP)
+    co_group = -(-cout // groups)
+    n_tiles = -(-co_group // 8)
+    th, tw = DN_TILE
+    tiles_y, tiles_x = -(-(h // 2) // th), -(-(w // 2) // tw)
+    tiles, chunks = b * tiles_y * tiles_x, -(-cin // CHUNK)
+    if tiles * chunks > MAX_GRID_X:
+        raise ValueError(f"P5: {tiles} tiles x {chunks} chunks, past the grid's limit")
+    per_sm, stages, resident = _mma_ring(n_tiles, chunks, DN_RAW_STAGE_BYTES, dn_region_bytes())
+    walkers = max(1, min(tiles, sms * per_sm // groups))
+    return MmaConvPlan(co_group, n_tiles, groups, chunks, th, tw, tiles_y, tiles_x,
+                       walkers * groups, 1,
+                       half_mma_smem_bytes(n_tiles, stages, chunks if resident else stages),
+                       per_sm, groups * chunks * 9 * 8 * n_tiles * ROW, stages, resident,
+                       256 if per_sm == 2 else 512)
+
+
 @functools.lru_cache(maxsize=256)
 def half_plan(b: int, cout: int, h: int, w: int) -> ConvPlan:
     """P5's launch plan for a (b, *, h, w) input, (b, cout, h // 2, w // 2)
@@ -531,15 +585,21 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, pad_mode: str = "zero") -> torch.T
 
 def conv3x3_half_prelu_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Plain version of P5: ``conv3x3_same`` in fp32 with TF32 off (the
-    weight taken in the activation dtype, then widened), K3's plain x0.5 +
-    PReLU in fp32, one cast to the activation dtype."""
+    weight taken in the activation dtype, then widened); K3's x0.5 with the
+    TPU kernel's rounding points (``experiments/fused_pallas_nhcw.py:98``,
+    ``:153``): the H pass with K3's fp32 taps, its rows cast to the
+    activation dtype and back, the W pass with the taps so cast, fp32 sums;
+    the PReLU in fp32, one cast to the activation dtype. In fp32 the casts
+    are the identity: K3's plain x0.5 + PReLU."""
+    dt = x.dtype
     with exact_fp32():
-        y = conv3x3_same(x.float(), w.to(x.dtype).float())
-    return half_prelu_plain(y, alpha).to(x.dtype)
+        y = conv3x3_same(x.float(), w.to(dt).float())
+    return prelu(scale_half_f32(y, round_to=dt), alpha).to(dt)
 
 
 def conv3x3_half_prelu_kernel(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Launch P5 on contiguous NCHW ``x`` on the card."""
+    """Launch P5 on contiguous NCHW ``x`` on the card: bf16 on the tensor
+    cores (``half_mma_plan``), fp32 on the CUDA cores (``half_plan``)."""
     check_input(x, "x", 4)
     b, cin, h, wd = x.shape
     if h < 2 or wd < 2:
@@ -548,14 +608,22 @@ def conv3x3_half_prelu_kernel(x: torch.Tensor, w: torch.Tensor, alpha: torch.Ten
     cout = w.shape[0]
     if max(cin, cout) * h * wd >= 2**31:
         raise ValueError(f"x: P5 takes images below 2**31 elements, got {tuple(x.shape)}")
-    plan = half_plan(b, cout, h, wd)
     out = torch.empty((b, cout, h // 2, wd // 2), dtype=x.dtype, device=x.device)
-    CONV3X3_HALF_PRELU(
-        x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), DTYPE_CODES[x.dtype],
-        axis_weights("half", h, x.device).data_ptr(), axis_weights("half", wd, x.device).data_ptr(),
-        scalar_pointer(alpha, x.device, "prelu slope"), b, cin, cout, h, wd, plan.co_tile,
-        plan.tiles_x, plan.tiles_y, plan.groups,
-    )
+    taps = (axis_weights("half", h, x.device).data_ptr(),
+            axis_weights("half", wd, x.device).data_ptr(),
+            scalar_pointer(alpha, x.device, "prelu slope"), b, cin, cout, h, wd)
+    if x.dtype == torch.bfloat16:
+        plan = half_mma_plan(b, cin, cout, h, wd, sm_count(x.device))
+        wpack = torch.empty(plan.pack_elements, dtype=x.dtype, device=x.device)
+        CONV3X3_HALF_PRELU(x.device, x.data_ptr(), w.data_ptr(), wpack.data_ptr(), out.data_ptr(),
+                           DTYPE_CODES[x.dtype], *taps, plan.co_group, plan.tiles_x,
+                           plan.tiles_y, plan.groups, plan.smem_bytes, plan.blocks, plan.stages,
+                           int(plan.resident), plan.threads)
+    else:
+        plan = half_plan(b, cout, h, wd)
+        CONV3X3_HALF_PRELU(x.device, x.data_ptr(), w.data_ptr(), None, out.data_ptr(),
+                           DTYPE_CODES[x.dtype], *taps, plan.co_tile, plan.tiles_x, plan.tiles_y,
+                           plan.groups, 0, 0, 0, 0, 0)
     return out
 
 

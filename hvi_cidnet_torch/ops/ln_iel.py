@@ -16,9 +16,15 @@ port's ``IEL`` slices them (``models/layers.py``): ``w_pi[:hidden]`` and
 
 The contract of the fused kernel: the input is upcast to fp32 and every
 stage runs in fp32 with TF32 off (the weights are taken in the activation
-dtype, as every conv of the port takes them, then widened); the result is
-cast back to the input dtype once. In bf16 this differs on purpose from the
-unfused chain, which rounds to bf16 between stages.
+dtype, as every conv of the port takes them, then widened), except at the
+TPU kernel P3's two rounding points, where a value is cast to the
+activation dtype and back: the LayerNorm's output before the expansion
+(``experiments/iel_pallas_nhcw.py:140``) and the gates' product before
+``project_out`` (``:163``). So in bf16 both products take bf16 operands and
+sum in fp32, as P3's do; the expansion's sums, both depthwise convs, tanh,
+the add and the residual stay fp32, and the result is cast once at the
+end. In fp32 the two casts are the identity. In bf16 this differs on
+purpose from the unfused chain, which rounds to bf16 between every stage.
 """
 
 from __future__ import annotations
@@ -54,11 +60,11 @@ def ln_iel(
 
     with exact_fp32():
         x32 = x.float()
-        t = layer_norm_channels(x32, ln_w.float(), ln_b.float(), EPS)
+        t = layer_norm_channels(x32, ln_w.float(), ln_b.float(), EPS).to(dt).float()
         w_pi32, w_dw32 = f32(w_pi), f32(w_dw)
         g1 = iel_branch(conv1x1(t, w_pi32[:hidden]), w_dw32[:hidden], f32(w_dw1))
         g2 = iel_branch(conv1x1(t, w_pi32[hidden:]), w_dw32[hidden:], f32(w_dw2))
-        out = conv1x1(g1 * g2, f32(w_po))
+        out = conv1x1((g1 * g2).to(dt).float(), f32(w_po))
         if residual:
             out = out + x32
     return out.to(dt)

@@ -141,12 +141,20 @@ def _double_axis(x: torch.Tensor, dim: int, taps: Optional[torch.Tensor] = None)
     return out.reshape(shape)
 
 
-def scale_half_f32(x: torch.Tensor, h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+def scale_half_f32(x: torch.Tensor, h_taps: Optional[torch.Tensor] = None,
+                   round_to: Optional[torch.dtype] = None) -> torch.Tensor:
     """``UpsamplingBilinear2d(0.5)`` on NCHW ``x``, computed and returned in
     fp32: the H pass, then the W pass, in the Pallas kernel's and the CUDA
     kernel's order. ``h_taps``: the H pass's (3, H // 2) weights where ``x``
-    is a row band of a taller image (``band_taps``)."""
-    return _half_axis(_half_axis(x.float(), -2, h_taps), -1)
+    is a row band of a taller image (``band_taps``). ``round_to``: the
+    fused NormDownsample's rounding points (``experiments/fused_pallas_nhcw.py``
+    :98 and :153): the H pass's rows and the W pass's taps cast to that
+    dtype and back, the sums still fp32."""
+    hh = _half_axis(x.float(), -2, h_taps)
+    if round_to is None:
+        return _half_axis(hh, -1)
+    w_taps = axis_weights("half", x.shape[-1], x.device).to(round_to).float()
+    return _half_axis(hh.to(round_to).float(), -1, w_taps)
 
 
 def scale_double_f32(x: torch.Tensor, h_taps: Optional[torch.Tensor] = None) -> torch.Tensor:

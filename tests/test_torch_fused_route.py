@@ -352,9 +352,11 @@ def test_env_overrides(monkeypatch):
 
 
 def test_fused_route_bf16_rounds_once():
-    """In bf16 the route keeps every stage in fp32 and rounds once, where
-    the unfused chain rounds between stages: both stay near the fp32
-    forward, and they differ."""
+    """In bf16 the route keeps its stages in fp32 but for the TPU kernels'
+    own rounding points (P2/P3: the LayerNorm's output and the gates'
+    product; P5: the H pass's rows and the W taps) and rounds each kernel's
+    result once, where the unfused chain rounds between every stage: both
+    stay near the fp32 forward, and they differ."""
     cfg = CIDNetConfig(**TINY)
     model = CIDNet(cfg, generator=torch.Generator().manual_seed(2)).eval()
     bf = cast_conv_weights(CIDNet(cfg, generator=torch.Generator().manual_seed(2)),

@@ -12,12 +12,17 @@ score matrix) is covered exactly once, that the shared memory fits, that the
 batch-1 sites fill the card, and that no grid dimension overflows; for K1,
 K2 and K3 also that loads and stores take the widest vector the row
 pitches and the base allow. The fused block route's kernels too: P2/P3
-(``ops/ln_iel_cuda.py:ln_iel_plan``), P4 (``ops/conv3x3_cuda.py:
+(``ops/ln_iel_cuda.py:ln_iel_plan`` in fp32; ``ln_iel_mma_plan`` in bf16,
+the tensor-core arm: its arms, tiles, the expansion's n8 tiles, the
+depthwise phases' strips and column ranges, project_out's warps, shared
+memory), P4 (``ops/conv3x3_cuda.py:
 conv3x3_plan`` in fp32; ``conv3x3_mma_plan`` in bf16, the tensor-core arm:
 its persistent blocks, channel groups, ring and shared memory, the
 alignment of every ldmatrix row, and ``mma_replay``, its addressing
 replayed on the CPU against the plain conv) and P5 (``ops/conv3x3_cuda.py:
-half_plan``); and the probe route's: P10/P15 and P1
+half_plan`` in fp32; ``half_mma_plan`` in bf16: P4's groups, walkers and
+ring over tiles whose conv regions hold their outputs' taps, the region's
+m16 tiles, the epilogue's passes); and the probe route's: P10/P15 and P1
 (``ops/batched_qk_cuda.py:qk_plan``, ``ops/head_attention_cuda.py:
 head_attention_plan``: the cluster size, the split of N, the entries'
 threads, shared memory, the load width) and P6 (``ops/im2col_cuda.py:
@@ -931,6 +936,145 @@ def test_p4_mma_replay_equals_the_plain_conv(case, pad, offset):
     got, writes = cc.mma_replay(x, w, pad, offset)
     assert (writes == 1).all()
     assert (got - cc.conv3x3_plain(x, w, pad)).abs().max().item() <= 1e-6
+
+
+# P5 in bf16: the tensor-core arm (ops/conv3x3_cuda.py:half_mma_plan). The
+# forward's sites, ragged half-size outputs (rows 100 and 37, columns 75,
+# 35 and 17: tiles past the edge), C_out 5, 16, 73 and 144 (two groups)
+P5_MMA_SITES = P5_SITES + [(36, 73, 14, 70), (17, 36, 200, 34), (36, 144, 74, 150),
+                           (20, 16, 10, 34), (3, 5, 2, 2)]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", P5_MMA_SITES, ids=str)
+def test_p5_mma_plan_covers_each_output_once(site, b):
+    """Tiles cover the half-size rows and columns once, channel groups C_out
+    once, every group's blocks visit every tile once; a tile's conv region
+    (7 x 33 from conv row 2 o0, column 2 q0) holds the three rows and
+    columns each of its outputs reads; every region pixel lies in one m16
+    tile of one warp (256 threads: tiles w and w + 8; 512: tile w); the
+    epilogue's passes take every n8 tile once; shared memory fits the
+    blocks an SM."""
+    cin, cout, h, w = site
+    p = cc.half_mma_plan(b, cin, cout, h, w)
+    ho, wo = h // 2, w // 2
+    _tiles_cover(ho, p.tile_h, p.tiles_y)
+    _tiles_cover(wo, p.tile_w, p.tiles_x)
+    _tiles_cover(cout, p.co_group, p.groups)
+    assert (p.tile_h, p.tile_w) == cc.DN_TILE
+    assert cc.DN_REGION == (2 * p.tile_h + 1, 2 * p.tile_w + 1)
+    assert (_walks(p, b * p.tiles_y * p.tiles_x) == 1).all()
+    rh, rw = cc.DN_REGION
+    for ty in range(p.tiles_y):
+        for i in range(ty * p.tile_h, min(ho, (ty + 1) * p.tile_h)):
+            assert 0 <= 2 * i - 2 * ty * p.tile_h and 2 * i + 2 - 2 * ty * p.tile_h < rh
+    for tx in range(p.tiles_x):
+        for j in range(tx * p.tile_w, min(wo, (tx + 1) * p.tile_w)):
+            assert 0 <= 2 * j - 2 * tx * p.tile_w and 2 * j + 2 - 2 * tx * p.tile_w < rw
+    m_tiles = -(-rh * rw // 16)
+    owner = np.zeros(rh * rw, np.int64)
+    assert p.threads == (256 if p.blocks_per_sm == 2 else 512)
+    for warp in range(p.threads // 32):
+        for t in ((warp, warp + 8) if p.threads == 256 else (warp,)):
+            if t < m_tiles:
+                owner[16 * t:16 * (t + 1)] += 1
+    assert (owner == 1).all()
+    passes = [range(j0, min(j0 + cc.DN_EPI_NT, p.n_tiles))
+              for j0 in range(0, p.n_tiles, cc.DN_EPI_NT)]
+    assert sorted(j for ps in passes for j in ps) == list(range(p.n_tiles))
+    # 35 halo columns at any 2-byte offset fit the staged row's granules
+    assert cc.DN_HALO[1] + 7 <= 8 * cc.RAW_GRANULES
+    assert p.n_tiles * 8 >= p.co_group and p.n_tiles <= cc.MAX_GROUP // 8
+    assert cc.MIN_STAGES <= p.stages <= cc.MAX_STAGES
+    assert p.smem_bytes == cc.half_mma_smem_bytes(p.n_tiles, p.stages,
+                                                   p.chunks if p.resident else p.stages)
+    assert p.smem_bytes <= min(cc.SMEM_LIMIT, cc.SM_SMEM // p.blocks_per_sm - 1024)
+    assert p.pack_elements == p.groups * p.chunks * 9 * 8 * p.n_tiles * cc.ROW
+    assert p.blocks % p.groups == 0 and p.blocks <= cc.MAX_GRID_X
+
+
+def test_p5_mma_plan_of_the_forward():
+    """down1 (36 -> 36) two blocks of 256 threads an SM with every chunk's
+    weights resident; down2 and down3 (72 channels a group) one block of 512
+    an SM; down3's 144 channels in two groups of 72."""
+    plans = [cc.half_mma_plan(8, *s, sms=132) for s in P5_SITES[:3]]
+    assert [(p.blocks_per_sm, p.threads, p.groups, p.n_tiles, p.resident) for p in plans] == [
+        (2, 256, 1, 5, True), (1, 512, 1, 9, True), (1, 512, 2, 9, True)]
+    assert [p.blocks for p in plans] == [264, 132, 132]
+    with pytest.raises(ValueError, match="grid"):
+        cc.half_mma_plan(2**20, 36, 36, 2**10, 2**10)
+
+
+# P2/P3 in bf16: the tensor-core arm (ops/ln_iel_cuda.py:ln_iel_mma_plan), at
+# the LCA sites, ragged widths and C from 1 to 144
+LN_IEL_MMA_SITES = [s for s in LN_IEL_SITES if s[0] <= 144] + [
+    (48, 9, 33), (49, 8, 16), (72, 13, 75), (73, 5, 17), (5, 3, 7), (1, 2, 2), (100, 17, 33)]
+
+
+def _ranges(n: int, q: int) -> list:
+    """csrc/ln_iel.cu's column ranges: range i is [i n / q, (i + 1) n / q)."""
+    return [range(i * n // q, (i + 1) * n // q) for i in range(q)]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("site", LN_IEL_MMA_SITES, ids=str)
+def test_p23_mma_plan_covers_each_pixel_once(site, b):
+    """Tiles cover rows and columns once; the expansion's n8 tile pairs
+    cover the ring's pixels once; the first depthwise conv's warps (two
+    strips of 5 rows, column ranges) cover the 1-pixel ring's region once
+    and the gates' (two strips of 4 rows) the tile once; project_out's
+    warps cover every (pixel, channel) of the tile once; shared memory fits
+    the arm's blocks an SM; the output's vector divides W."""
+    c, h, w = site
+    hid = int(c * 2.66) or 1
+    p = lc.ln_iel_mma_plan(b, c, h, w, hid)
+    th, tw = p.tile_h, p.tile_w
+    _tiles_cover(h, th, p.tiles_y)
+    _tiles_cover(w, tw, p.tiles_x)
+    assert p.blocks == b * p.tiles_y * p.tiles_x <= lc.MAX_GRID_X
+    warps = p.threads // 32
+    p2, rw1 = (th + 4) * (tw + 4), tw + 2
+    ring = np.zeros(p2 // 8, np.int64)
+    for warp in range(warps):
+        for t0 in range(2 * warp, p2 // 8, 2 * warps):
+            ring[t0:t0 + 2] += 1
+    assert (ring == 1).all() and p2 % 8 == 0
+    for rows, strips, width in ((th + 2, 2, rw1), (th, 2, tw)):
+        seen = np.zeros((rows, width), np.int64)
+        for warp in range(warps):
+            s, cols = warp % strips, _ranges(width, warps // strips)[warp // strips]
+            seen[s * rows // strips:(s + 1) * rows // strips, cols.start:cols.stop] += 1
+        assert (seen == 1).all()
+    m_tiles = th * tw // 16
+    nh = warps // m_tiles
+    assert warps % m_tiles == 0 and p.npad == 8 * p.n_tiles_warp * nh >= c
+    out = np.zeros((th * tw, p.npad), np.int64)
+    for warp in range(warps):
+        mt, nt0 = warp % m_tiles, (warp // m_tiles) * p.n_tiles_warp
+        out[16 * mt:16 * (mt + 1), 8 * nt0:8 * (nt0 + p.n_tiles_warp)] += 1
+    assert (out == 1).all()
+    assert p.cpad % 16 == 0 and c <= p.cpad < c + 16
+    assert p.chunks * lc.HALF >= hid > (p.chunks - 1) * lc.HALF
+    assert p.pack_bytes == p.chunks * lc.chunk_bytes(p.cpad, p.npad) and p.pack_bytes % 16 == 0
+    assert p.smem_bytes == lc.ln_iel_mma_smem_bytes(tw, p.cpad, p.npad)
+    assert p.smem_bytes <= min(lc.SMEM_LIMIT, lc.SM_SMEM // p.blocks_per_sm - 1024)
+    assert lc.epilogue_fits(c, tw, p.cpad, p.npad)
+    assert w % p.vec == 0 and p.vec in (1, 2, 4, 8)
+
+
+def test_p23_mma_plan_arms_of_the_forward():
+    """C = 36: two blocks of 256 threads an SM on 8 x 16 tiles (107 KB each);
+    72: one block of 512 on 8 x 32 (213 KB); 144: one block of 512 on 8 x
+    16 (its sums, 144 channels, split over two warps an m16 tile); past 144
+    there is no arm."""
+    arms = [lc.ln_iel_mma_plan(8, c, h, w, int(c * 2.66))
+            for c, h, w in ((36, 200, 300), (72, 100, 150), (144, 50, 75))]
+    assert [(p.tile_w, p.threads, p.blocks_per_sm, p.n_tiles_warp) for p in arms] == [
+        (16, 256, 2, 5), (32, 512, 1, 9), (16, 512, 1, 9)]
+    with pytest.raises(ValueError, match="C <= 144"):
+        lc.ln_iel_mma_plan(1, 145, 8, 8, 385)
+    with pytest.raises(ValueError, match="grid"):
+        lc.ln_iel_mma_plan(2**16, 8, 2**12, 2**12, 21)
 
 
 # ---------------------------------------------------------------------------
