@@ -1142,32 +1142,42 @@ def compare_probe(results: dict, dev) -> None:
 
     gen = torch.Generator(device="cpu").manual_seed(9)
     bmm_fp32_out = "dtype" in torch.ops.aten.bmm.overloads()  # bmm(..., out_dtype=)
+    # the bf16 arms' plans keep every cluster in one wave of these; the CPU
+    # tests plan with H100_CLUSTERS
+    p1_clusters, qk_clusters = bq.card_clusters(dev, True, 18), bq.card_clusters(dev, False, 18)
+    log(f"P1, P10/P15 bf16 at c = 18: clusters of 1..{bq.MMA_MAX_CLUSTER} blocks this card holds "
+        f"at once (cudaOccupancyMaxActiveClusters): P1 {p1_clusters}, P10/P15 {qk_clusters}; "
+        f"those of the CPU tests' plans (H100_CLUSTERS): "
+        f"{p1_clusters == qk_clusters == bq.H100_CLUSTERS}")
 
     def rnd(shape, lo, hi, dt):
         return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dev, dt)
 
     def record(key, dt, site, err, kern, plain, x, per_forward, bound, comparators=None,
-               library=None, info=""):
-        # P6 and its library call in alternating rounds
-        turns = in_turns(kern, library) if key == "P6" else None
-        row = {"dtype": str(dt), "err": err,
-               "ms": turns["ms"] if turns else time_ms(kern), "plain_ms": time_ms(plain),
-               "library_ms": turns["library_ms"] if turns else (
-                   time_ms(library) if library is not None else None),
-               "bound_ms": bound[0], "bound_by": bound[1], "site": site,
-               "per_forward": per_forward}
+               library=None, info="", rival=None):
+        # the kernel and its rival in alternating rounds: P6's and P10/P15's
+        # library call, K5 at P1's sites (comparators["k5"])
+        turns = in_turns(kern, rival) if rival is not None else None
+        ms = turns["ms"] if turns else time_ms(kern)
+        row = {"dtype": str(dt), "err": err, "ms": ms, "plain_ms": time_ms(plain),
+               "library_ms": None if library is None else (
+                   turns["library_ms"] if rival is library else time_ms(library)),
+               "bound_ms": bound[0], "bound_by": bound[1], "bound_fraction": bound[0] / ms,
+               "site": site, "per_forward": per_forward}
         if turns:
             row["turns"] = turns
         for name, fn in (comparators or {}).items():
-            row[f"{name}_ms"] = time_ms(fn)
+            row[f"{name}_ms"] = turns["library_ms"] if fn is rival else time_ms(fn)
         results[key].append(row)
         extra = "".join(f"  {name} {row[f'{name}_ms']:.4f} ms" for name in (comparators or {}))
         log(f"{key} {site}{info} {tuple(x.shape)} {dt}: max_abs_err {err:.3e}  kernel "
             f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
             + (f"  library {row['library_ms']:.4f} ms" if library is not None else "")
-            + (f" (medians of {TURN_ROUNDS} rounds in turns, spread {turns['ms_spread']:.4f} / "
+            + extra
+            + (f" (kernel and {'K5' if key == 'P1' else 'library'}: medians of {TURN_ROUNDS} "
+               f"rounds in turns, spread {turns['ms_spread']:.4f} / "
                f"{turns['library_spread']:.4f})" if turns else "")
-            + f"{extra}  bound {bound[0]:.4f} ms ({bound[1]})")
+            + f"  bound {bound[0]:.4f} ms ({bound[1]}, {100 * row['bound_fraction']:.1f}% of it)")
 
     for dt in (torch.float32, torch.bfloat16):
         for level, c, heads, h, w, lcas in lca_sites():
@@ -1207,10 +1217,9 @@ def compare_probe(results: dict, dev) -> None:
                 if p1_excess(ha.head_attention_kernel(qh, flipped, vh, temps), ref, qh, kh, vh,
                              temps) <= 0:
                     raise AssertionError(f"P1 level {level} {dt}: the bar passes a planted fault")
+                k5 = lambda: ac.channel_attention_kernel(q, k, v_, temp, heads, w_proj=wp)
                 record("P1", dt, site, max_err(got, ref), run, plain, qh, per_lca,
-                       probe_bound_ms("P1", qh, cp), comparators={
-                           "k5": lambda: ac.channel_attention_kernel(q, k, v_, temp, heads,
-                                                                     w_proj=wp)})
+                       probe_bound_ms("P1", qh, cp), comparators={"k5": k5}, rival=k5)
                 del q, k, qh, kh, flipped, got, ref
                 # P10/P15: TNSM's unnormalised scores
                 q, k, temp = k5_inputs(gen, shape, heads, dev, dt, False)
@@ -1236,7 +1245,8 @@ def compare_probe(results: dict, dev) -> None:
                     (lambda: torch.bmm(qh, kh.mT, out_dtype=torch.float32)) if bmm_fp32_out
                     else None)
                 record("P10/P15", dt, site, max_err(got, ref), run, plain, qh, per_tnsm,
-                       probe_bound_ms("P10/P15", qh, cp), library=library, comparators={
+                       probe_bound_ms("P10/P15", qh, cp), library=library, rival=library,
+                       comparators={
                            "k5": lambda: ac.channel_attention_kernel(
                                q, k, v_, temp, heads, normalize_qk=False, w_proj=wp)})
                 del q, k, qh, kh, flipped, got, ref, v_, vh
@@ -1266,8 +1276,9 @@ def compare_probe(results: dict, dev) -> None:
                                      f"shifted by one column")
             # the whole conv: the route's (F.unfold and P6), the default
             # route's (cuDNN, after the replication pad at the stems and heads)
+            library = lambda: torch.matmul(wmat, a)
             record("P6", dt, site, max_err(got, plain()), run, plain, a, per_forward,
-                   probe_bound_ms("P6", a, cout=cout), library=lambda: torch.matmul(wmat, a),
+                   probe_bound_ms("P6", a, cout=cout), library=library, rival=library,
                    comparators={"route": lambda: icol.conv3x3_im2col(x, wt, pad),
                                 "cudnn": lambda: cc.conv3x3_plain(x, wt, pad)},
                    info=f" ({pad} pad)")
@@ -3810,8 +3821,9 @@ ROUTE_KERNEL_NAMES = {"P2/P3": r"\bln_iel_mma_kernel\b", "P4": r"\bconv3x3_(mma|
                       "P5": r"\bconv3x3_half_mma_kernel\b",
                       "the weight packs of P2/P3, P4 and P5":
                           r"\b(ln_iel|conv3x3)_pack_kernel\b",
-                      "P1": r"\bhead_attention_kernel\b", "P6": r"\bim2col_(mma|f32)_kernel\b",
-                      "P10/P15": r"\bbatched_qk_kernel\b",
+                      "P1": r"\bhead_attention_mma_kernel\b",
+                      "P6": r"\bim2col_(mma|f32)_kernel\b",
+                      "P10/P15": r"\bbatched_qk_mma_kernel\b",
                       "P14, P8/P9/P11": r"\b(relayout|copy)_kernel\b"}
 
 
@@ -4025,10 +4037,10 @@ def reset(kernels) -> None:
         v.launches = 0
 
 
-def per_forward_spread(rows: list, field: str) -> float:
-    """The spread of a base forward's sum: each site's spread in turns times
-    its uses."""
-    return sum(r["turns"][field] * r["per_forward"]["base"] for r in rows if r.get("turns"))
+def per_forward_spread(rows: list, field: str, path: str = "base") -> float:
+    """The spread of a forward's sum: each site's spread in turns times its
+    uses."""
+    return sum(r["turns"][field] * r["per_forward"][path] for r in rows if r.get("turns"))
 
 
 def summarise(key: str, rows: list, launches: dict) -> dict:
@@ -4091,18 +4103,22 @@ def summarise(key: str, rows: list, launches: dict) -> dict:
     }
     if key in ("K5",) + FUSED:
         line["bound_cuda_core_ms"] = per_forward("bound_cuda_core_ms")
-    if key in ("P6",) + FUSED:  # per site, bf16 batch 8: kernel and yardstick in turns
-        other = "unfused_ms" if key in ROUNDS_INSIDE else "library_ms"
-        line["sites"] = [{"site": r["site"], "per_forward": r["per_forward"]["base"],
+    if key in ("P1", "P6", "P10/P15") + FUSED:  # per site, bf16: kernel and rival in turns
+        other = ("unfused_ms" if key in ROUNDS_INSIDE else "k5_ms" if key == "P1"
+                 else "library_ms")
+        line["sites"] = [{"site": r["site"], "per_forward": r["per_forward"][main_path],
                           "ms": r["turns"]["ms"], other: r["turns"]["library_ms"],
                           "ms_spread": r["turns"]["ms_spread"],
                           other.replace("_ms", "_spread"): r["turns"]["library_spread"],
                           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                          "bound_fraction": r["bound_ms"] / r["turns"]["ms"],
                           **({"bitwise_share": r["bitwise_share"]} if r.get("bitwise_share")
                              is not None else {})}
                          for r in bf if r.get("turns")]
-        line["ms_spread"] = per_forward_spread(bf, "ms_spread")
-        line[other.replace("_ms", "_spread")] = per_forward_spread(bf, "library_spread")
+        line["ms_spread"] = per_forward_spread(bf, "ms_spread", main_path)
+        line[other.replace("_ms", "_spread")] = per_forward_spread(bf, "library_spread",
+                                                                   main_path)
+        line["bound_fraction"] = line["bound_ms"] / line["ms"]
     if key in FUSED:  # which unit's work sets the bound: tensor cores, CUDA cores or bytes
         line["bound_by_unit"] = worst["bound_by"]
     if key in ROUNDS_INSIDE:

@@ -1,11 +1,12 @@
-"""What bounds the bf16 kernels P4, P5, P6 and P2/P3 on the card: each timed
-with one phase taken out.
+"""What bounds the bf16 kernels P4, P5, P6, P2/P3, P1 and P10/P15 on the card:
+each timed with one phase taken out.
 
     python -m hvi_cidnet_torch.cli.conv_phases [--out build/conv_phases]
 
 Runs on the card. Builds variants of ``csrc/conv3x3.cu``,
-``csrc/im2col_gemm.cu`` and ``csrc/ln_iel.cu`` in which one phase does no
-work, each into its own
+``csrc/im2col_gemm.cu``, ``csrc/ln_iel.cu``, ``csrc/head_attention.cu`` and
+``csrc/batched_qk.cu`` (with their score core, ``csrc/qk_scores.cuh``) in
+which one phase does no work, each into its own
 library under ``--out`` with the kernels' flags, and times each variant
 against the kernel as built from the unchanged source, at the sites of the
 600 x 400 batch-8 forward, bf16, as device time per call from CUDA graphs
@@ -31,6 +32,15 @@ phases whose savings add up to the whole time run one after the other.
   (no output written). A phase taken out can change the values downstream
   (zeros after ``no_expansion``), and tanhf's time depends on its argument:
   read ``no_tanh`` beside ``no_gates``.
+* P1 (its tensor-core arm): ``no_products`` (no mma.sync, scores, norms or
+  apply; their ldmatrix loads go too), ``no_copies`` (no cp.async of q, k
+  or v: the stages keep what they held), ``no_apply`` (no apply at all: v
+  not copied, no products, nothing written), ``no_stores`` (the output
+  tile not written out).
+* P10/P15 (its tensor-core arm): ``no_products``, ``no_copies`` as P1's
+  scores, ``no_stores`` (the cluster's sums not written out).
+At the attention sites the rows at level 3 (N = 3,750) are realigned; a
+phase taken out can change the softmax's input, not its cost.
 
 Beside them, half of a ``Tensor.clone`` of the site's input: one read of
 its bytes. Prints a line a site and writes them as JSON under ``--out``.
@@ -50,14 +60,27 @@ import torch
 
 from hvi_cidnet_torch.cli.kernel_times import H, W, graph_ms
 from hvi_cidnet_torch.ops import _build
+from hvi_cidnet_torch.ops import batched_qk_cuda as bq
 from hvi_cidnet_torch.ops import conv3x3_cuda as cc
+from hvi_cidnet_torch.ops import head_attention_cuda as ha
 from hvi_cidnet_torch.ops import im2col_cuda as icol
 from hvi_cidnet_torch.ops import ln_iel_cuda as lc
 
 BATCH = 8
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-# (source, variant) -> the substitutions that take the phase out; each must
-# apply, so a change to the sources that moves a phase fails here loudly
+# the score core's phases (csrc/qk_scores.cuh), shared by P1 and P10/P15;
+# without copies the stages' waits go too (bulk copies complete an mbarrier)
+_NO_SCORE_PRODUCTS = [("qk_scores.cuh",
+                       "    for (int kk = 16 * warp; kk < width; kk += 16 * kWarps) {",
+                       "    for (int kk = 16 * warp; kk < 0; kk += 16 * kWarps) {")]
+_NO_SCORE_COPIES = [
+    ("qk_scores.cuh", "        bulk_stage(st, q, k, c, sm.rowbase, n0, stop, sm.bars + slot);", ""),
+    ("qk_scores.cuh", "      mbar_wait(sm.bars + s % stages, (s / stages) & 1);", "      ;"),
+    ("qk_scores.cuh", "        qs.issue(st, n0, stop, false);\n        ks.issue(",
+     "        if (false) qs.issue(st, n0, stop, false);\n        if (false) ks.issue(")]
+# (source, variant) -> the substitutions that take the phase out, in the
+# source or, as (header, old, new), in a header beside it; each must apply,
+# so a change to the sources that moves a phase fails here loudly
 VARIANTS = {
     ("conv3x3.cu", "base"): [],
     ("conv3x3.cu", "no_products"): [
@@ -117,6 +140,26 @@ VARIANTS = {
     ("ln_iel.cu", "no_stores"): [
         ("  for (int i = tid; i < c * kMTileH * per_row; i += THREADS) {",
          "  for (int i = tid; i < 0; i += THREADS) {")],
+    ("head_attention.cu", "base"): [],
+    ("head_attention.cu", "no_products"): _NO_SCORE_PRODUCTS + [
+        ("      for (int ks = 0; ks < MT; ++ks) {\n        uint32_t bv[4][2];",
+         "      for (int ks = 0; ks < 0; ++ks) {\n        uint32_t bv[4][2];")],
+    ("head_attention.cu", "no_copies"): _NO_SCORE_COPIES + [
+        ("        qk::bulk_stage(st, v, nullptr, c, sm.rowbase, n0, stop, sm.bars + qk::kMaxStages "
+         "+ slot);", "        ;"),
+        ("      mbar_wait(sm.bars + qk::kMaxStages + s % as, (s / as) & 1);", "      ;"),
+        ("        vs.issue(st, n0, stop, false);", "        ;")],
+    ("head_attention.cu", "no_apply"): [
+        ("for (int s = 0; s < as - 1; ++s) issue_v(s);", "for (int s = 0; s < 0; ++s) issue_v(s);"),
+        ("  for (int s = 0; s < steps; ++s) {\n    bf16* os = sm.aux",
+         "  for (int s = 0; s < 0; ++s) {\n    bf16* os = sm.aux")],
+    ("head_attention.cu", "no_stores"): [
+        ("      if (lo >= hi) continue;", "      if (true) continue;")],
+    ("batched_qk.cu", "base"): [],
+    ("batched_qk.cu", "no_products"): _NO_SCORE_PRODUCTS,
+    ("batched_qk.cu", "no_copies"): _NO_SCORE_COPIES,
+    ("batched_qk.cu", "no_stores"): [("[&](int e, float s) { og[e] = s; });",
+                                      "[&](int e, float s) { if (false) og[e] = s; });")],
 }
 # (site, C_in, C_out, h, w, pad) at 600 x 400: P4's, and P6's (P4's and the
 # NormDownsamples', zero pad)
@@ -130,6 +173,9 @@ P5_SITES = [site[:5] + (None,) for site in P6_SITES[-3:]]
 # (site, C, h, w) of P2/P3: the LCA levels
 P23_SITES = [("level1", 36, H // 2, W // 2), ("level2", 72, H // 4, W // 4),
              ("level3", 144, H // 8, W // 8)]
+# (site, heads, h, w) of P1 and P10/P15: the LCA levels, c = 18 rows a head
+ATTN_SITES = [("level1", 2, H // 2, W // 2), ("level2", 4, H // 4, W // 4),
+              ("level3", 8, H // 8, W // 8)]
 
 
 def ln_iel_weights(c: int, dev, rnd) -> tuple:
@@ -144,8 +190,8 @@ def ln_iel_weights(c: int, dev, rnd) -> tuple:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="P4's, P5's, P6's and P2/P3's phases timed one at a "
-                                            "time")
+    p = argparse.ArgumentParser(description="P4's, P5's, P6's, P2/P3's, P1's and P10/P15's "
+                                            "phases timed one at a time")
     p.add_argument("--out", type=str, default="build/conv_phases",
                    help="the JSON's directory; the variants build under build/conv_phases")
     return p.parse_args(argv)
@@ -159,13 +205,16 @@ def build_variants(out: str) -> dict:
         os.makedirs(d, exist_ok=True)
         for header in _build.CSRC_DIR.glob("*.cuh"):
             shutil.copy(header, d)
-        text = (_build.CSRC_DIR / src).read_text()
-        for old, new in subs:
+        texts = {src: (_build.CSRC_DIR / src).read_text()}
+        for sub in subs:
+            file, old, new = sub if len(sub) == 3 else (src, *sub)
+            text = texts.setdefault(file, (_build.CSRC_DIR / file).read_text())
             if old not in text:
-                raise RuntimeError(f"{src} {name}: the phase moved ({old[:60]!r})")
-            text = text.replace(old, new)
-        with open(os.path.join(d, src), "w") as f:
-            f.write(text)
+                raise RuntimeError(f"{src} {name}: the phase moved ({file}: {old[:60]!r})")
+            texts[file] = text.replace(old, new)
+        for file, text in texts.items():
+            with open(os.path.join(d, file), "w") as f:
+                f.write(text)
         lib = os.path.join(d, "lib.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, os.path.join(d, src)]
         procs[src, name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), lib)
@@ -199,13 +248,25 @@ def main(argv=None) -> int:
     rnd = lambda shape, lo, hi: (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(
         dev, torch.bfloat16)
     rows = []
+
+    def time_variants(key, kernel, src, site, run, data):
+        """``run`` on each variant's library, beside one read of ``data``."""
+        names = [name for s, name in VARIANTS if s == src]
+        row = {"kernel": key, "site": site, "shape": list(data.shape), "device": smi}
+        for name in names:
+            bind(kernel, libs[src, name])
+            row[name] = graph_ms(run)
+        row["one_read"] = graph_ms(lambda: data.clone()) / 2
+        rows.append(row)
+        print(f"{key} {site} {tuple(data.shape)}: " + "  ".join(
+            f"{n} {row[n]:.4f}" for n in names + ["one_read"]) + " ms", flush=True)
+
     alpha = torch.full((1,), 0.25, device=dev)
     for key, kernel, src, sites in (
             ("P4", cc.CONV3X3, "conv3x3.cu", P4_SITES),
             ("P5", cc.CONV3X3_HALF_PRELU, "conv3x3.cu", P5_SITES),
             ("P6", icol.IM2COL_DOTS, "im2col_gemm.cu", P6_SITES),
             ("P2/P3", lc.LN_IEL, "ln_iel.cu", [s[:2] + (0,) + s[2:] + (None,) for s in P23_SITES])):
-        names = [name for s, name in VARIANTS if s == src]
         for site, cin, cout, h, w, pad in sites:
             x = rnd((BATCH, cin, h, w), -1.0, 1.0)
             wt = rnd((cout, cin, 3, 3), -cin**-0.5, cin**-0.5)
@@ -219,19 +280,23 @@ def main(argv=None) -> int:
             else:
                 a, wmat = icol.stage_3x3(x, pad), wt.reshape(cout, cin * 9)
                 run, data = (lambda: icol.im2col_dots_kernel(a, wmat)), a
-            row = {"kernel": key, "site": site, "shape": list(data.shape), "device": smi}
-            for name in names:
-                bind(kernel, libs[src, name])
-                row[name] = graph_ms(run)
-            row["one_read"] = graph_ms(lambda: data.clone()) / 2
-            rows.append(row)
-            print(f"{key} {site} {tuple(data.shape)}: " + "  ".join(
-                f"{n} {row[n]:.4f}" for n in names + ["one_read"]) + " ms", flush=True)
+            time_variants(key, kernel, src, site, run, data)
             del x, data, run
             if key == "P6":
                 del a
             torch.cuda.empty_cache()
-    for kernel in (cc.CONV3X3, cc.CONV3X3_HALF_PRELU, icol.IM2COL_DOTS, lc.LN_IEL):
+    for key, kernel, src in (("P1", ha.HEAD_ATTENTION, "head_attention.cu"),
+                             ("P10/P15", bq.BATCHED_QK, "batched_qk.cu")):
+        for site, heads, h, w in ATTN_SITES:
+            q, k, v = (rnd((BATCH * heads, 18, h * w), -1.0, 1.0) for _ in range(3))
+            temps = torch.full((heads,), 4.0, device=dev)
+            run = ((lambda: ha.head_attention_kernel(q, k, v, temps)) if key == "P1"
+                   else (lambda: bq.batched_qk_kernel(q, k)))
+            time_variants(key, kernel, src, site, run, q)
+            del q, k, v, run
+            torch.cuda.empty_cache()
+    for kernel in (cc.CONV3X3, cc.CONV3X3_HALF_PRELU, icol.IM2COL_DOTS, lc.LN_IEL,
+                   ha.HEAD_ATTENTION, bq.BATCHED_QK):
         kernel._fn = None  # the next call binds the kernels' own library again
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "conv_phases.json"), "w") as f:

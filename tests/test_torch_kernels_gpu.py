@@ -892,6 +892,60 @@ def test_p10_p15_matches_plain(cuda, dt, case):
     assert torch.equal(got, bq.batched_qk(q, k))
 
 
+# The bf16 arms of P1 and P10/P15 (the tensor cores) at their edges: c at
+# the m16 / n8 padding edges (1, 8, 16, 17, 18, 20, 32) at N = 3750 (rows on
+# 4-byte boundaries: realigned stages); N = 1, 255, 257 (a column past a
+# stage), 1001 (odd) and 3750 at c = 18 and G = 1; q, k, v 2 or 4 bytes past
+# a 16-byte boundary. (G, c, N, elements)
+BF16_EDGE_CASES = [(2, c, 3750, 0) for c in (1, 8, 16, 17, 18, 20, 32)] + \
+    [(1, 18, n, 0) for n in (1, 255, 257, 1001, 3750)] + \
+    [(1, 18, 600, 1), (2, 17, 257, 2), (1, 32, 4096, 1), (3, 20, 520, 2), (1, 18, 4096, 0)]
+
+
+def _bf16_edge(case, dev, normalised):
+    """q, k (shared structure, ``_qk``) and v as (G, c, N) bf16 starting
+    ``elements`` past a 16-byte boundary, and one temperature."""
+    g, c, n, elements = case
+    q, k, temp = _qk((g, c, 1, n), 1, dev, torch.bfloat16, normalised, seed=g + c + n)
+    v = _rand((g, c, n), dev, torch.bfloat16, -1.0, 1.0, seed=g + c + n + 1)
+    shifted = []
+    for x in (q.reshape(g, c, n), k.reshape(g, c, n), v):
+        base = torch.empty(x.numel() + elements, dtype=torch.bfloat16, device=dev)
+        shifted.append(base[elements:].view(x.shape).copy_(x))
+    assert elements == 0 or shifted[0].data_ptr() % 16 == 2 * elements
+    return (*shifted, temp.reshape(1))
+
+
+@pytest.mark.parametrize("case", BF16_EDGE_CASES, ids=str)
+def test_p1_bf16_arm_at_the_padding_edges(cuda, case):
+    q, k, v, temps = _bf16_edge(case, cuda, True)
+    n = ha.HEAD_ATTENTION.launches
+    got = ha.head_attention(q, k, v, temps)
+    assert ha.HEAD_ATTENTION.launches == n + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    ref = ha.head_attention_plain(q, k, v, temps)
+    _p1_close(got, ref, q, k, v, temps)
+    assert torch.equal(got, ha.head_attention(q, k, v, temps))  # the same bits again
+    if case[1] >= 8:  # the planted fault: k's rows permuted
+        with pytest.raises(AssertionError, match="over by"):
+            _p1_close(ha.head_attention(q, k.flip(1), v, temps), ref, q, k, v, temps)
+
+
+@pytest.mark.parametrize("case", BF16_EDGE_CASES, ids=str)
+def test_p10_p15_bf16_arm_at_the_padding_edges(cuda, case):
+    q, k, _, _ = _bf16_edge(case, cuda, False)
+    n = bq.BATCHED_QK.launches
+    got = bq.batched_qk(q, k)
+    assert bq.BATCHED_QK.launches == n + 1
+    assert got.shape == (q.shape[0], q.shape[1], q.shape[1]) and got.dtype == torch.float32
+    ref = bq.batched_qk_plain(q.cpu(), k.cpu()).to(cuda)
+    _qk_close(got, ref, q, k)
+    assert torch.equal(got, bq.batched_qk(q, k))
+    if case[1] >= 8:
+        with pytest.raises(AssertionError, match="over by"):
+            _qk_close(bq.batched_qk(q, k.flip(1)), ref, q, k)
+
+
 # (B, C_in, H, W, C_out, pad): K = 9 C_in
 P6_CASES = [(2, 1, 7, 9, 36, "edge"), (1, 3, 19, 37, 36, "edge"), (1, 36, 17, 33, 2, "edge"),
             (1, 36, 9, 9, 1, "zero"), (2, 144, 7, 9, 72, "zero"), (1, 72, 50, 75, 144, "zero"),

@@ -23,9 +23,13 @@ replayed on the CPU against the plain conv) and P5 (``ops/conv3x3_cuda.py:
 half_plan`` in fp32; ``half_mma_plan`` in bf16: P4's groups, walkers and
 ring over tiles whose conv regions hold their outputs' taps, the region's
 m16 tiles, the epilogue's passes); and the probe route's: P10/P15 and P1
-(``ops/batched_qk_cuda.py:qk_plan``, ``ops/head_attention_cuda.py:
-head_attention_plan``: the cluster size, the split of N, the entries'
-threads, shared memory, the load width) and P6 (``ops/im2col_cuda.py:
+(``ops/batched_qk_cuda.py:qk_plan`` and ``ops/head_attention_cuda.py:
+head_attention_plan`` in fp32, ``mma_plan`` of each in bf16: the cluster
+size, the split of N, shared memory; fp32 the entries' threads and the
+load width; bf16, the tensor-core arm, its clusters fitted to one wave of
+an H100's, ring, stages filled straight or realigned, fragments' entries,
+and ``replay_sums`` / ``mma_replay``, its addressing replayed on the CPU
+against the plain versions) and P6 (``ops/im2col_cuda.py:
 im2col_plan``: the N tail, the C_out and K padding, the load width, the
 bf16 arm's persistent blocks, groups and ring, and its stages' layouts
 read back as wgmma's canonical ones) at every site shape and at batch 1, 8
@@ -1092,17 +1096,31 @@ HEAD_SITES = [(18, 2, 60000), (18, 4, 15000), (18, 8, 3750), (18, 2, 230400), (4
 BATCHES = [1, 8, 32]
 
 
+def _mma_plans(g, c, n, offset=0):
+    """P10/P15's and P1's bf16 plans on an H100."""
+    return (bq.mma_plan(g, c, n, bq.H100_CLUSTERS, offset),
+            ha.mma_plan(g, c, n, bq.H100_CLUSTERS, offset))
+
+
 def _score_plans(b, site):
     c, heads, n = site
     g = b * heads
-    return g, c, n, (bq.qk_plan(g, c, n), ha.head_attention_plan(g, c, n))
+    return g, c, n, (bq.qk_plan(g, c, n), ha.head_attention_plan(g, c, n)), _mma_plans(g, c, n)
 
 
 @pytest.mark.parametrize("b", BATCHES)
 @pytest.mark.parametrize("site", HEAD_SITES, ids=str)
 def test_score_core_plan_covers_each_column_and_entry_once(site, b):
-    g, c, n, plans = _score_plans(b, site)
-    for p in plans:
+    """fp32 (the CUDA-core arm): one cluster of at most 8 blocks a g, each a
+    chunk of whole 256-column tiles; every entry of the c x c scores in one
+    thread's 3 x 3 tile, a tile's columns each in one slice. bf16 (the
+    tensor-core arm): one cluster a g, each block a chunk of whole stages,
+    all the clusters in one wave of the card's; a stage's columns each in
+    one warp's k16 step and (P1's apply) one warp's 32 columns; every entry
+    of the c x c scores in one lane's accumulator of one (m16, n8) tile,
+    every norm in one lane's diagonal of one half tile."""
+    g, c, n, f32_plans, plans = _score_plans(b, site)
+    for p in f32_plans:
         # one cluster of `splits` blocks per g, each a chunk of whole tiles, none empty
         assert 1 <= p.splits <= bq.MAX_CLUSTER and p.blocks == p.splits * g <= bq.MAX_GRID_Y * 8
         assert p.chunk % bq.TILE == 0
@@ -1115,20 +1133,87 @@ def test_score_core_plan_covers_each_column_and_entry_once(site, b):
         for s in range(p.slices):
             cols[s::p.slices] += 1
         assert (cols == 1).all()
-    # P10/P15: block r of the cluster writes entries [r * per, (r + 1) * per)
-    per = -(-c * c // plans[0].splits)
-    seen = np.zeros(c * c, np.int64)
-    for r in range(plans[0].splits):
-        seen[r * per:(r + 1) * per] += 1
-    assert (seen == 1).all()
+    for p in plans:
+        # one cluster of `splits` blocks per g, each a chunk of whole stages, none empty
+        assert 1 <= p.splits <= bq.MMA_MAX_CLUSTER and p.blocks == p.splits * g
+        assert p.chunk % bq.MMA_TILE == 0
+        _tiles_cover(n, p.chunk, p.splits)
+        # the G clusters in one wave, as many blocks a g as that allows (or a stage each)
+        fits = [s for s in range(1, bq.MMA_MAX_CLUSTER + 1) if g <= bq.H100_CLUSTERS[s - 1]]
+        if fits:
+            assert g <= bq.H100_CLUSTERS[p.splits - 1]
+            assert p.splits == -(-n // p.chunk) and p.chunk == -(-(-(-n // bq.MMA_TILE)) // min(
+                fits[-1], -(-n // bq.MMA_TILE))) * bq.MMA_TILE
+        # warp w takes the k16 steps 16 w, 16 (w + WARPS), ... of each stage, and
+        # the columns 32 w, 32 (w + WARPS), ... of P1's apply
+        for width in (16, 32):
+            cols = np.zeros(bq.MMA_TILE, np.int64)
+            for w in range(bq.WARPS):
+                for kk in range(width * w, bq.MMA_TILE, width * bq.WARPS):
+                    cols[kk:kk + width] += 1
+            assert (cols == 1).all()
+        # k's 8-row tiles cover c; q's 16-row tiles are half as many
+        assert (p.n_tiles - 1) * 8 < c <= p.n_tiles * 8
+        entries = np.zeros((c, c), np.int64)
+        for mi in range(-(-p.n_tiles // 2)):
+            for nt in range(p.n_tiles):
+                i, j = bq.fragment_entries(c, mi, nt)
+                np.add.at(entries, (i.numpy(), j.numpy()), 1)
+        assert (entries == 1).all()
+    # P1's norms: row 16 mi + 8 h + lane / 4 of the lanes with lane / 8 == lane % 4,
+    # for the halves 2 mi + h < n_tiles
+    rows = np.zeros(c, np.int64)
+    for mi in range(-(-plans[1].n_tiles // 2)):
+        for h in range(2):
+            if 2 * mi + h >= plans[1].n_tiles:
+                continue
+            for lane in range(32):
+                r = 16 * mi + 8 * h + lane // 4
+                if lane // 8 == lane % 4 and r < c:
+                    rows[r] += 1
+    assert (rows == 1).all()
+    # P10/P15, both arms: block r of the cluster writes entries [r * per, (r + 1) * per)
+    for p in (f32_plans[0], plans[0]):
+        per = -(-c * c // p.splits)
+        seen = np.zeros(c * c, np.int64)
+        for r in range(p.splits):
+            seen[r * per:(r + 1) * per] += 1
+        assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("site", HEAD_SITES, ids=str)
 def test_score_core_plan_shared_memory(site, itemsize):
     c, heads, n = site
-    qk = bq.qk_plan(8 * heads, c, n, itemsize)
-    p1 = ha.head_attention_plan(8 * heads, c, n, itemsize)
+    if itemsize == 2:
+        qk, p1 = _mma_plans(8 * heads, c, n)
+        # the ring (q and k, c rows of MMA_PITCH a stage), the aux area, the zero
+        # line, the row offsets, the mbarriers; as many blocks an SM as the plan says
+        for p, norms in ((qk, False), (p1, True)):
+            aux = bq.aux_bytes(c, norms)
+            assert aux % 16 == 0 and aux >= 4 * c * bq.MMA_PITCH  # the realigned q and k
+            assert aux >= 4 * bq.reduce_floats(c, norms)          # partials, sums, softmax
+            assert p.smem_bytes == (p.stages * 4 * c * bq.MMA_PITCH + aux + 16 + 8 * c
+                                    + 8 * (bq.MAX_STAGES + bq.MAX_APPLY_STAGES))
+            assert p.smem_bytes == bq.mma_bytes(c, norms, p.stages) <= bq.SMEM_LIMIT
+            assert p.blocks_per_sm * (p.smem_bytes + bq.SMEM_PER_BLOCK) <= bq.SM_SMEM
+            assert 2 <= p.stages <= bq.MAX_STAGES
+            budget = min(bq.SMEM_LIMIT, bq.SM_SMEM // p.blocks_per_sm - bq.SMEM_PER_BLOCK)
+            if p.stages < bq.MAX_STAGES:  # a deeper ring would not fit
+                assert bq.mma_bytes(c, norms, p.stages + 1) > budget
+            if p.blocks_per_sm == 1:  # two blocks an SM would take fewer than 3 stages
+                assert bq.mma_bytes(c, norms, 3) > bq.SM_SMEM // 2 - bq.SMEM_PER_BLOCK
+        # staged rows start 16-byte aligned, an ldmatrix's 8 rows on 8 bank groups
+        assert bq.MMA_PITCH * 2 % 16 == 0
+        assert len({r * bq.MMA_PITCH * 2 % 128 // 16 for r in range(8)}) == 8
+        # P1's apply: v's stages (c rows each) in the ring, the realigned v and
+        # the output tile in the aux area
+        assert qk.apply_stages == 0
+        assert p1.apply_stages == min(2 * p1.stages, bq.MAX_APPLY_STAGES)
+        assert p1.apply_stages * c * bq.MMA_PITCH <= p1.stages * 2 * c * bq.MMA_PITCH
+        assert 2 * (2 * c * bq.MMA_PITCH) <= bq.aux_bytes(c, True)
+        return
+    qk, p1 = bq.qk_plan(8 * heads, c, n), ha.head_attention_plan(8 * heads, c, n)
     rows = 3 * qk.side_tiles
     # q and k in the input's type, rows 16 bytes past TILE wide (16-byte stores)
     tiles = 2 * rows * (bq.TILE * itemsize + 16)
@@ -1145,12 +1230,17 @@ def test_score_core_plan_shared_memory(site, itemsize):
 @pytest.mark.parametrize("n, elements", [(60000, 0), (15000, 0), (3750, 0), (63, 0), (264, 1),
                                          (264, 2), (264, 4)])
 def test_score_core_plan_takes_the_widest_load_n_and_the_bases_allow(itemsize, n, elements):
-    """16 bytes' worth of elements, else 2, else 1 (the kernels'
-    instantiations); ``elements``: the bases' start past a 16-byte
-    boundary."""
+    """fp32: 16 bytes' worth of elements, else 2, else 1 (the kernels'
+    instantiations); bf16: the stages filled straight (vec 8) where N and
+    the bases put every row on a 16-byte boundary, else realigned (vec 1);
+    ``elements``: the bases' start past a 16-byte boundary."""
     offset = elements * itemsize % 16
-    for p in (bq.qk_plan(8, 18, n, itemsize, offset), ha.head_attention_plan(8, 18, n, itemsize,
-                                                                             offset)):
+    plans = (_mma_plans(8, 18, n, offset) if itemsize == 2 else
+             (bq.qk_plan(8, 18, n, offset), ha.head_attention_plan(8, 18, n, offset)))
+    for p in plans:
+        if itemsize == 2:
+            assert p.vec == (8 if n % 8 == 0 and offset == 0 else 1)
+            continue
         assert p.vec in (16 // itemsize, 2, 1)
         assert n % p.vec == 0 and offset % (p.vec * itemsize) == 0
         wider = [v for v in (16 // itemsize, 2) if v > p.vec]
@@ -1158,22 +1248,112 @@ def test_score_core_plan_takes_the_widest_load_n_and_the_bases_allow(itemsize, n
 
 
 def test_score_core_plan_of_the_forward():
-    """c = 18 at every site; the clusters fill the card as far as 8 blocks
-    a g allow: 128, 256, 320 blocks at batch 8 (levels 1-3), 16, 32, 64 at
-    batch 1."""
+    """c = 18 at every site. bf16: clusters of as many blocks a g as keep
+    all G clusters in one wave of an H100's (16 of 12, 39 of 7, 79 of 3, 14
+    of 16): 15 (level 1's 118 stages over 16), 15, 8 at batch 1 (30, 60, 64
+    blocks), 12, 6 (level 2's 30 stages over 7), 3 at batch 8 (192, 192,
+    192); a ring of 2 stages of 512 columns
+    (P1's apply 4), two blocks an SM, past the default 48 KB of shared
+    memory (``raise_smem_cap``); the stages of levels 1 and 2 filled
+    straight, level 3's (N = 3,750) realigned. fp32: as many blocks a g as
+    bring the grid to two an SM, at most 8: 128, 256, 320 blocks at batch 8;
+    16-byte loads at levels 1 and 2, 8-byte ones at level 3."""
+    got = {b: [_mma_plans(b * h, 18, n)[0].splits for _, h, n in HEAD_SITES[:3]]
+           for b in BATCHES}
+    assert got == {1: [15, 15, 8], 8: [12, 6, 3], 32: [3, 2, 1]}
+    assert [_mma_plans(8 * h, 18, n)[1].blocks for _, h, n in HEAD_SITES[:3]] == \
+        [192, 192, 192]
     got = {b: [bq.qk_plan(b * h, 18, n).splits for _, h, n in HEAD_SITES[:3]] for b in BATCHES}
     assert got == {1: [8, 8, 8], 8: [8, 8, 5], 32: [5, 3, 2]}
     assert [ha.head_attention_plan(8 * h, 18, n).blocks for _, h, n in HEAD_SITES[:3]] == \
         [128, 256, 320]
-    # the forward's sites (c = 18, bf16) need no more than the default 48 KB
-    assert ha.head_attention_plan(16, 18, 60000).smem_bytes < 48 * 1024
-    assert bq.qk_plan(16, 18, 60000).smem_bytes < 48 * 1024
-    # bf16 rows of 60,000 and 15,000 take 16-byte loads, of 3,750 4-byte ones
-    assert [bq.qk_plan(8, 18, n).vec for _, _, n in HEAD_SITES[:3]] == [8, 8, 2]
-    with pytest.raises(ValueError, match="c <= 32"):
-        bq.qk_plan(8, 33, 100)
-    with pytest.raises(ValueError, match="grid"):
-        ha.head_attention_plan(65536, 18, 100)
+    assert [bq.qk_plan(8, 18, n).vec for _, _, n in HEAD_SITES[:3]] == [4, 4, 2]
+    for p in _mma_plans(16, 18, 60000):
+        assert (p.stages, p.blocks_per_sm, p.n_tiles) == (2, 2, 3)
+        assert 48 * 1024 < p.smem_bytes <= bq.SM_SMEM // 2 - bq.SMEM_PER_BLOCK
+    assert _mma_plans(16, 18, 60000)[1].apply_stages == 4
+    assert [_mma_plans(8, 18, n)[0].vec for _, _, n in HEAD_SITES[:3]] == [8, 8, 1]
+    for plan in (bq.qk_plan, lambda g, c, n: _mma_plans(g, c, n)[0]):
+        with pytest.raises(ValueError, match="c <= 32"):
+            plan(8, 33, 100)
+    for plan in (ha.head_attention_plan, lambda g, c, n: _mma_plans(g, c, n)[1]):
+        with pytest.raises(ValueError, match="grid"):
+            plan(65536, 18, 100)
+
+
+# P1's and P10/P15's bf16 arm replayed on the CPU (ops/batched_qk_cuda.py:
+# replay_sums, mma_replay; ops/head_attention_cuda.py:mma_replay): the
+# forward's three sites (one g each; level 3's N = 3,750 ends in a ragged
+# stage and realigns), odd N, c at the m16 / n8 padding edges, and starts 1
+# to 7 elements past a 16-byte boundary. (G, c, N, heads, offset)
+MMA_REPLAY_CASES = [(1, 18, 60000, 1, 0), (1, 18, 15000, 1, 0), (2, 18, 3750, 2, 0),
+                    (2, 18, 3750, 2, 1), (1, 18, 600, 1, 2), (3, 17, 257, 3, 3), (1, 32, 255, 1, 5),
+                    (2, 8, 264, 1, 7), (1, 1, 1, 1, 0), (1, 24, 9, 1, 1)]
+
+
+def _bf16_qkv(case):
+    import torch
+
+    g, c, n, heads, _ = case
+    gen = torch.Generator().manual_seed(g * 1000 + c * 10 + n)
+    q = torch.rand((g, c, n), generator=gen) * 2 - 1
+    k = q + 0.3 * torch.rand((g, c, n), generator=gen)  # shared structure: a wrong pairing shows
+    v = torch.rand((g, c, n), generator=gen) * 2 - 1
+    temps = torch.rand(heads, generator=gen) * 20 + 1
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), temps
+
+
+@pytest.mark.parametrize("case", MMA_REPLAY_CASES, ids=str)
+def test_p10_p15_mma_replay_equals_the_plain_version(case):
+    """The bf16 score core's addressing replayed in float64 (the ring's
+    stages in the kernel's order, RowStream's covers and shifts, the zero
+    line past c, k's n8 operands as halves of its m16 loads, fresh sums a
+    stage, the warps and then the blocks in order, each block's share of
+    the entries) equals ``batched_qk_plain`` within 1e-5 |q_r| |k_c|; every
+    column feeds one product, every entry is written once."""
+    q, k, _, _ = _bf16_qkv(case)
+    got, seen, writes = bq.mma_replay(q, k, bq.H100_CLUSTERS, case[-1])
+    assert (seen == 1).all() and (writes == 1).all()
+    ref = bq.batched_qk_plain(q, k).double()
+    nq, nk = (t.double().square().sum(-1).sqrt() for t in (q, k))
+    assert ((got - ref).abs() - 1e-5 * nq[:, :, None] * nk[:, None, :]).max().item() <= 0
+
+
+@pytest.mark.parametrize("case", MMA_REPLAY_CASES, ids=str)
+def test_p1_mma_replay_equals_the_plain_version(case):
+    """P1's bf16 arm replayed (the score core and its norms as the
+    diagonals of X X^T, the softmax, A's fragments, v through the apply's
+    ring and ldmatrix.trans rows, the output tile at each row's shift and
+    its chunks written out) equals ``head_attention_plain`` within two bf16
+    ulps at the apply's scale; every column feeds one product, every output
+    element is written once."""
+    import torch
+
+    q, k, v, temps = _bf16_qkv(case)
+    got, seen, writes = ha.mma_replay(q, k, v, temps, bq.H100_CLUSTERS, case[-1])
+    assert (seen == 1).all() and (writes == 1).all()
+    assert got.dtype == torch.bfloat16
+    ref = ha.head_attention_plain(q, k, v, temps).float()
+    a = ha.attention_matrix(q, k, temps).to(v.dtype).float()
+    scale = torch.bmm(a, v.float().abs())
+    _, e = torch.frexp(torch.maximum(torch.maximum(got.float().abs(), ref.abs()), scale))
+    allowed = torch.ldexp(torch.full_like(ref, 2.0), e - 8)
+    assert ((got.float() - ref).abs() - allowed).max().item() <= 0
+
+
+def test_mma_replays_reject_a_wrong_pairing():
+    """The replays' bars see a fault: k's rows permuted fail both."""
+    import torch
+
+    q, k, v, temps = _bf16_qkv((1, 18, 600, 1, 2))
+    flipped = k.flip(1)
+    got, _, _ = bq.mma_replay(q, flipped, bq.H100_CLUSTERS, 2)
+    ref = bq.batched_qk_plain(q, k).double()
+    nq, nk = (t.double().square().sum(-1).sqrt() for t in (q, k))
+    assert ((got - ref).abs() - 1e-5 * nq[:, :, None] * nk[:, None, :]).max().item() > 0
+    got, _, _ = ha.mma_replay(q, flipped, v, temps, bq.H100_CLUSTERS, 2)
+    ref = ha.head_attention_plain(q, k, v, temps).float()
+    assert (got.float() - ref).abs().max().item() > 0.05
 
 
 # (C_in, C_out, h, w) of P6's sites at 600 x 400: the stems and heads, the
