@@ -61,7 +61,10 @@ Needs one CUDA card and ``nvcc`` (the CUDA kernels build from
    three LCA levels ((N, C, B), batch 8 and 1), the HWCB entry (P14) and
    exit (P11) at batch 1, 8 and 32; with the device time a call of the
    kernel, its plain version and one ``permute(...).contiguous()`` (CUDA
-   graphs), and the bound;
+   graphs, L2 warm), the kernel's with L2 cold (a graph over a ring of
+   distinct inputs and outputs past 100 MB), the kernel against the
+   permute in alternating rounds, each plan's arm, work items, stages and
+   blocks, and the bound;
 5. runs the full-width base, MSSA and TNSM forwards on the card in fp32
    (TF32 off) against the same weights' plain forward on the CPU at
    1 x 400 x 600, and bf16 against that fp32 result; TNSM also with
@@ -1327,14 +1330,19 @@ def compare_relayout(results: dict, dev) -> None:
     ``relayout_cases``, with the device time a call of the kernel, of its
     plain version and of the one library call (``permute(...)
     .contiguous()``), each from a CUDA graph of 20 calls (at these sizes
-    the wrapper's host work would otherwise be timed), the kernel's time
-    through its wrapper (CUDA events) and the bound: each element read once
-    and written once over 3.35 TB/s. The library call permutes the input
-    viewed as (G, X, M, Y) (``ops/relayout_cuda.py:geometry``), the same
-    copy as each plain version's permute."""
-    from hvi_cidnet_torch.cli.kernel_times import graph_ms
+    the wrapper's host work would otherwise be timed; L2 warm: the tensors
+    repeat), the kernel's with L2 cold (``cold_graph_ms``), the kernel and
+    the library call in alternating rounds (``in_turns``, CUDA events,
+    medians and spread), the kernel's time through its wrapper (CUDA events)
+    and the bound: each element read once and written once over 3.35 TB/s.
+    The library call permutes the input viewed as (G, X, M, Y)
+    (``ops/relayout_cuda.py:geometry``), the same copy as each plain
+    version's permute. Each case logs its plan: the arm, work items,
+    stages and blocks."""
+    from hvi_cidnet_torch.cli.kernel_times import cold_graph_ms, graph_ms
     from hvi_cidnet_torch.ops import relayout as plain
     from hvi_cidnet_torch.ops import relayout_cuda as rl
+    from hvi_cidnet_torch.ops._build import sm_count
 
     gen = torch.Generator(device="cpu").manual_seed(10)
     names = {"transpose_steps": "P7", "relayout_t3": "P8", "relayout_t2": "P9",
@@ -1353,19 +1361,24 @@ def compare_relayout(results: dict, dev) -> None:
             check_equal(f"{key} {site} {dt} (through the dispatcher)", getattr(rl, fn)(x, **kw),
                         library().view(out_shape))
             t_k, t_p, t_l = graph_ms(run), graph_ms(plain_fn), graph_ms(library)
+            t_c = cold_graph_ms(lambda t: rl.relayout_kernel(t, rl.KERNELS[key], gxmy, out_shape),
+                                x)
             t_w = time_ms(run)
+            turns = in_turns(run, library)
             nbytes = 2 * x.numel() * x.element_size()
             bound = 1e3 * nbytes / HBM_BYTES_PER_S
-            p = rl.relayout_plan(*gxmy, x.element_size())
-            results[key].append({"dtype": str(dt), "err": err, "ms": t_k, "wrapper_ms": t_w,
-                                 "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
-                                 "bound_by": "bytes", "site": site, "per_forward": per_forward,
-                                 "line": line})
-            log(f"{key} {site} {tuple(shape)} {dt}: bitwise equal  kernel {t_k:.4f} ms "
-                f"(wrapper {t_w:.4f})  plain {t_p:.4f} ms  permute().contiguous() {t_l:.4f} ms  "
-                f"bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB) = {bound / t_k:.0%}  plan "
-                f"{'copy' if p.copy else f'tile {p.tx}x{p.ty} pitch {p.pitch}'} v {p.vi}/{p.vo} "
-                f"lanes {p.lx}/{p.sx} blocks {p.blocks}")
+            p = rl.relayout_plan(*gxmy, x.element_size(), 0, 0, sm_count(dev))
+            results[key].append({"dtype": str(dt), "err": err, "ms": t_k, "cold_ms": t_c,
+                                 "wrapper_ms": t_w, "plain_ms": t_p, "library_ms": t_l,
+                                 "turns": turns, "bound_ms": bound, "bound_by": "bytes",
+                                 "site": site, "per_forward": per_forward, "line": line,
+                                 "plan": p.name})
+            log(f"{key} {site} {tuple(shape)} {dt}: bitwise equal  kernel {t_k:.4f} ms, L2 cold "
+                f"{t_c:.4f} (wrapper {t_w:.4f})  plain {t_p:.4f} ms  permute().contiguous() "
+                f"{t_l:.4f} ms  in turns {turns['ms']:.4f} (+- {turns['ms_spread']:.4f}) against "
+                f"{turns['library_ms']:.4f} (+- {turns['library_spread']:.4f})  bound {bound:.4f} "
+                f"ms (bytes, {nbytes / 1e6:.1f} MB) = {bound / t_k:.0%} warm, {bound / t_c:.0%} "
+                f"cold  plan {p.name}, {p.work} items, {p.stages} stages, {p.blocks} blocks")
             del x
         torch.cuda.empty_cache()
 
@@ -3824,12 +3837,14 @@ ROUTE_KERNEL_NAMES = {"P2/P3": r"\bln_iel_mma_kernel\b", "P4": r"\bconv3x3_(mma|
                       "P1": r"\bhead_attention_mma_kernel\b",
                       "P6": r"\bim2col_(mma|f32)_kernel\b",
                       "P10/P15": r"\bbatched_qk_mma_kernel\b",
-                      "P14, P8/P9/P11": r"\b(relayout|copy)_kernel\b"}
+                      "P14, P8/P9/P11 at batch 1 (copies)": r"\bcopy_kernel\b",
+                      "P14, P8/P9/P11 at batch 8": r"\brelayout_kernel\b"}
 
 
 def _route_kernel_names(dev, tmp: str) -> None:
     """15b: ``op_breakdown``'s names of the route kernels and the relayout,
-    from one traced forward on each path that launches them."""
+    from one traced forward on each path that launches them (the HWCB
+    contract at batch 1, where its ends are copies, and at batch 8)."""
     from hvi_cidnet_torch.models.cidnet import (
         CIDNet, CIDNetConfig, cast_conv_weights, cidnet_forward,
     )
@@ -3840,7 +3855,9 @@ def _route_kernel_names(dev, tmp: str) -> None:
         dev, torch.bfloat16)
     paths = [("fused base", "base", dict(routes=FUSED), x),
              ("probe TNSM", "tnsm", dict(routes=PROBE), x),
-             ("HWCB base", "base", dict(input_layout="hwcb"), x.permute(1, 2, 3, 0).contiguous())]
+             ("HWCB base", "base", dict(input_layout="hwcb"), x.permute(1, 2, 3, 0).contiguous()),
+             ("HWCB base batch 8", "base", dict(input_layout="hwcb"),
+              x.expand(8, -1, -1, -1).permute(1, 2, 3, 0).contiguous())]
     found = {}
     for i, (name, variant, kw, xin) in enumerate(paths):
         model = cast_conv_weights(CIDNet(CIDNetConfig(variant=variant)).to(dev),
@@ -4157,8 +4174,12 @@ def summarise_relayout(key: str, rows: list, launches: dict) -> dict:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
+        "ms_cold": row["cold_ms"],
+        "ms_turns": row["turns"]["ms"],
+        "library_ms_turns": row["turns"]["library_ms"],
         "wrapper_ms": row["wrapper_ms"],
         "site": row["site"],
+        "plan": row["plan"],
     }
 
 

@@ -1,7 +1,8 @@
-"""What bounds the bf16 kernels P4, P5, P6, P2/P3, P1 and P10/P15 on the card:
-each timed with one phase taken out.
+"""What bounds the bf16 kernels P4, P5, P6, P2/P3, P1 and P10/P15, and the
+relayout in bf16 and fp32, on the card: each timed with one phase taken out.
 
     python -m hvi_cidnet_torch.cli.conv_phases [--out build/conv_phases]
+        [--only relayout]
 
 Runs on the card. Builds variants of ``csrc/conv3x3.cu``,
 ``csrc/im2col_gemm.cu``, ``csrc/ln_iel.cu``, ``csrc/head_attention.cu`` and
@@ -39,6 +40,12 @@ phases whose savings add up to the whole time run one after the other.
   tile not written out).
 * P10/P15 (its tensor-core arm): ``no_products``, ``no_copies`` as P1's
   scores, ``no_stores`` (the cluster's sums not written out).
+* The relayout (``csrc/relayout.cu``, every arm): ``no_loads`` (no bulk,
+  box, cp.async or register load into shared memory; the bulk arm's
+  barriers expect no bytes), ``no_transpose`` (no ldmatrix / stmatrix or shuffles; the
+  cp.async arm stores zeros in place of the tile's columns), ``no_stores``
+  (nothing written out), at the HWCB ends (batch 8 and 32), P8 and P11 at
+  the three levels and P7 at steps 1 (batch 8).
 At the attention sites the rows at level 3 (N = 3,750) are realigned; a
 phase taken out can change the softmax's input, not its cost.
 
@@ -65,6 +72,7 @@ from hvi_cidnet_torch.ops import conv3x3_cuda as cc
 from hvi_cidnet_torch.ops import head_attention_cuda as ha
 from hvi_cidnet_torch.ops import im2col_cuda as icol
 from hvi_cidnet_torch.ops import ln_iel_cuda as lc
+from hvi_cidnet_torch.ops import relayout_cuda as rl
 
 BATCH = 8
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -160,6 +168,24 @@ VARIANTS = {
     ("batched_qk.cu", "no_copies"): _NO_SCORE_COPIES,
     ("batched_qk.cu", "no_stores"): [("[&](int e, float s) { og[e] = s; });",
                                       "[&](int e, float s) { if (false) og[e] = s; });")],
+    ("relayout.cu", "base"): [],
+    ("relayout.cu", "no_loads"): [
+        ("    if (lane == 0) mbar_arrive_expect(bar, load_bytes<E>(a.in_side, it));",
+         "    if (lane == 0) mbar_arrive_expect(bar, 0u);"),
+        ("    move_side<E, true>(a.in_side,", "    if (false) move_side<E, true>(a.in_side,"),
+        ("      for (int v = l_col * VI; v < tl.ny; v += l_step)",
+         "      for (int v = l_col * VI; false; v += l_step)"),
+        ("      for (int v = l_col * VI; v < ny; v += l_step) {",
+         "      for (int v = l_col * VI; false; v += l_step) {")],
+    ("relayout.cu", "no_transpose"): [
+        ("      transpose_b16(a, dv.tmb, it, sin, sout, warp, lane);", "      ;"),
+        ("      transpose_b32(a, dv.tmb, it, sin, sout, warp, lane);", "      ;"),
+        ("        for (int k = 0; k < VO; ++k) vals.v[k] = tile[(v + k) * pitch + r];",
+         "        for (int k = 0; k < VO; ++k) vals.v[k] = E(0);")],
+    ("relayout.cu", "no_stores"): [
+        ("      move_side<E, false>(a.out_side,", "      if (false) move_side<E, false>(a.out_side,"),
+        ("        store_vec<VO * sizeof(E)>(row + v, vals.v);",
+         "        if (false) store_vec<VO * sizeof(E)>(row + v, vals.v);")],
 }
 # (site, C_in, C_out, h, w, pad) at 600 x 400: P4's, and P6's (P4's and the
 # NormDownsamples', zero pad)
@@ -176,6 +202,14 @@ P23_SITES = [("level1", 36, H // 2, W // 2), ("level2", 72, H // 4, W // 4),
 # (site, heads, h, w) of P1 and P10/P15: the LCA levels, c = 18 rows a head
 ATTN_SITES = [("level1", 2, H // 2, W // 2), ("level2", 4, H // 4, W // 4),
               ("level3", 8, H // 8, W // 8)]
+# (site, relayout, input shape at batch b, kwargs): the relayout's
+RELAYOUT_SITES = [("HWCB entry", "P14", lambda b: (H * W, 3, b), {"n_blk": H * W}),
+                  ("HWCB exit", "P11", lambda b: (b, 1, 3 * H * W), {})]
+RELAYOUT_SITES += [(f"{p} level {lv}", p, shape, {})
+                   for lv, n, c in ((1, 60000, 36), (2, 15000, 72), (3, 3750, 144))
+                   for p, shape in (("P8", lambda b, n=n, c=c: (n, c, b)),
+                                    ("P11", lambda b, n=n, c=c: (b, c, n)))]
+RELAYOUT_SITES += [("P7 steps 1 level 1", "P7", lambda b: (60000, 36, b), {"steps": 1})]
 
 
 def ln_iel_weights(c: int, dev, rnd) -> tuple:
@@ -194,13 +228,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                                             "phases timed one at a time")
     p.add_argument("--out", type=str, default="build/conv_phases",
                    help="the JSON's directory; the variants build under build/conv_phases")
+    p.add_argument("--only", choices=["relayout"], default=None,
+                   help="time the relayout's variants alone")
     return p.parse_args(argv)
 
 
-def build_variants(out: str) -> dict:
-    """Every variant's library, built in parallel: (source, variant) -> CDLL."""
+def build_variants(out: str, only=None) -> dict:
+    """Every variant's library (of ``only``'s source), built in parallel:
+    (source, variant) -> CDLL."""
     procs = {}
     for (src, name), subs in VARIANTS.items():
+        if only is not None and src != only:
+            continue
         d = os.path.join(out, f"{src.split('.')[0]}_{name}")
         os.makedirs(d, exist_ok=True)
         for header in _build.CSRC_DIR.glob("*.cuh"):
@@ -243,7 +282,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi)
-    libs = build_variants(os.path.join(ROOT, "build", "conv_phases"))
+    libs = build_variants(os.path.join(ROOT, "build", "conv_phases"),
+                          "relayout.cu" if args.only else None)
     gen = torch.Generator().manual_seed(0)
     rnd = lambda shape, lo, hi: (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(
         dev, torch.bfloat16)
@@ -261,6 +301,19 @@ def main(argv=None) -> int:
         print(f"{key} {site} {tuple(data.shape)}: " + "  ".join(
             f"{n} {row[n]:.4f}" for n in names + ["one_read"]) + " ms", flush=True)
 
+    for dt in (torch.bfloat16, torch.float32):
+        for site, name, shape, kw in RELAYOUT_SITES:
+            for b in (BATCH, 32) if site.startswith("HWCB") else (BATCH,):
+                x = (torch.rand(shape(b), generator=gen) * 4 - 2).to(dev, dt)
+                gxmy, out_shape = rl.geometry(name, tuple(x.shape), **kw)
+                plan = rl.relayout_plan(*gxmy, x.element_size())
+                time_variants(f"relayout {str(dt)[6:]}", rl.P7, "relayout.cu",
+                              f"{site} batch {b} ({plan.name})",
+                              lambda: rl.relayout_kernel(x, rl.P7, gxmy, out_shape), x)
+                del x
+    rl.P7._fn = None
+    if args.only:
+        return write_rows(args.out, rows)
     alpha = torch.full((1,), 0.25, device=dev)
     for key, kernel, src, sites in (
             ("P4", cc.CONV3X3, "conv3x3.cu", P4_SITES),
@@ -298,8 +351,12 @@ def main(argv=None) -> int:
     for kernel in (cc.CONV3X3, cc.CONV3X3_HALF_PRELU, icol.IM2COL_DOTS, lc.LN_IEL,
                    ha.HEAD_ATTENTION, bq.BATCHED_QK):
         kernel._fn = None  # the next call binds the kernels' own library again
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "conv_phases.json"), "w") as f:
+    return write_rows(args.out, rows)
+
+
+def write_rows(out: str, rows: list) -> int:
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "conv_phases.json"), "w") as f:
         json.dump(rows, f, indent=1)
     return 0
 

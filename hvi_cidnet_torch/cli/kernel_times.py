@@ -4,7 +4,7 @@
 of the fused block route's kernels P2/P3, P4 and P5 instead; with
 ``--probe``, of the probe route's P1, P6 and P10/P15.
 
-    python -m hvi_cidnet_torch.cli.kernel_times [--batch 8 1] [--fused | --probe]
+    python -m hvi_cidnet_torch.cli.kernel_times [--batch 8 1] [--fused | --probe | --arms]
         [--out FILE.json]
 
 Runs on the card. For K3 at NormDownsample's three sites (36 x 400 x 600,
@@ -17,9 +17,20 @@ wrapper from CUDA events, its bytes bound (each input read once, each
 output written once, over 3.35 TB/s), and its agreement with the plain twin
 (bitwise equal, else the max error). The relayout rows: the HWCB contract's
 entry (P14 on (H W, 3, B)) and exit (P11 on K2's output as (B, 1, 3 H W)),
-and, at level 1 ((60000, 36, B)), P8, P7 at steps 3 and P12 in blocks of
-1000 rows, each through its dispatcher beside its plain version (one
-``permute(...).contiguous()``).
+TNSM's HWCB noise map (P11 on (B, 3, H W)), and, at level 1 ((60000, 36, B)), P8, P7 at steps 3 and 1 and P12 in
+blocks of 1000 rows, P14 in blocks of 1000 rows, and P11 at the three
+LCA levels ((B, C, N)), each through its dispatcher beside its plain
+version (one ``permute(...).contiguous()``); beside the warm graph, its
+device time with L2 cold (``cold_graph_ms``: one graph over a ring of
+distinct tensors past 100 MB) and its host time a call (``host_us``).
+
+With ``--arms``: the relayout rows alone, and at each site each arm of
+``csrc/relayout.cu`` that the site's shape lets run (the bulk arm, the
+cp.async arm), launched through the C entry with that arm's plan and
+timed warm and cold in alternating rounds, beside the arm the plan picks;
+for a bulk plan with tensor maps, the host time of one
+``cuTensorMapEncodeTiled`` (libcuda through ctypes, less a ctypes call of
+``cuDriverGetVersion``) and of the wrapper's cached plan lookup.
 
 With ``--fused``: P2/P3 (LayerNorm + IEL + residual) at the three LCA
 levels, P4 at the stems, heads and NormUpsample convs, P5 at the three
@@ -45,8 +56,12 @@ with that checkout first on the path, in turns with this one on one card:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import math
+import statistics
 import sys
+import time
 
 import torch
 
@@ -69,6 +84,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch", type=int, nargs="+", default=[8, 1])
     p.add_argument("--out", type=str, default="")
     routes.add_flags(p)  # --fused / --probe: time that route's kernels
+    p.add_argument("--arms", action="store_true",
+                   help="the relayout alone, each arm its shapes allow timed beside the plan's")
     return p.parse_args(argv)
 
 
@@ -93,6 +110,51 @@ def graph_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (REPLAYS * GRAPH_CALLS)
+
+
+# bytes a ring of distinct inputs and outputs passes, so that each call of a
+# cold-L2 graph finds its tensors evicted from the 50 MB L2
+COLD_RING_BYTES = 100e6
+
+
+def cold_graph_ms(fn, x: torch.Tensor) -> float:
+    """Device time a call of ``fn(t)`` with L2 cold: one CUDA graph over a
+    ring of distinct copies of ``x`` whose inputs and outputs pass
+    COLD_RING_BYTES (the outputs kept alive through the capture, so each has
+    its own memory), replayed; the time a call."""
+    pairs = max(2, math.ceil(COLD_RING_BYTES / (2 * x.numel() * x.element_size())))
+    ring = [x.clone() for _ in range(pairs)]
+    for t in ring[:2]:
+        fn(t)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(t) for t in ring]
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del outs, graph, ring
+    return start.elapsed_time(end) / (REPLAYS * pairs)
+
+
+def host_us(fn, calls: int = 200, rounds: int = 7) -> float:
+    """Host time a call of ``fn`` (``time.perf_counter`` around ``calls``
+    calls, the device not waited for inside a round): the median of
+    ``rounds`` rounds."""
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def wrapper_ms(fn, iters: int = 50) -> float:
@@ -270,20 +332,125 @@ def probe_rows(dev, gen, batches) -> list:
 RELAYOUT_SITES = (
     ("P14", "HWCB entry", "pack_blocked", lambda b: (H * W, 3, b), {"n_blk": H * W}),
     ("P8/P9/P11", "HWCB exit", "relayout_t2_rev", lambda b: (b, 1, 3 * H * W), {}),
+    ("P8/P9/P11", "TNSM noise map", "relayout_t2_rev", lambda b: (b, 3, H * W), {}),
     ("P8/P9/P11", "P8 level 1", "relayout_t3", lambda b: (60000, 36, b), {}),
     ("P7", "steps 3 level 1", "transpose_steps", lambda b: (60000, 36, b), {"steps": 3}),
     ("P12/P13", "P12 level 1", "t3_blocked", lambda b: (60000, 36, b), {"n_blk": 1000}),
+    ("P8/P9/P11", "P11 level 1", "relayout_t2_rev", lambda b: (b, 36, 60000), {}),
+    ("P8/P9/P11", "P11 level 2", "relayout_t2_rev", lambda b: (b, 72, 15000), {}),
+    ("P8/P9/P11", "P11 level 3", "relayout_t2_rev", lambda b: (b, 144, 3750), {}),
+    ("P7", "steps 1 level 1", "transpose_steps", lambda b: (60000, 36, b), {"steps": 1}),
+    ("P14", "P14 level 1", "pack_blocked", lambda b: (60000, 36, b), {"n_blk": 1000}),
 )
+NAMES = {"transpose_steps": "P7", "relayout_t3": "P8", "relayout_t2_rev": "P11",
+         "t3_blocked": "P12", "pack_blocked": "P14"}
 
 
-def relayout_rows(dev, gen, dt, b) -> list:
+def relayout_rows(dev, gen, dt, b, arms: bool = False) -> list:
     rows = []
     for name, site, fn, shape, kw in RELAYOUT_SITES:
         x = (torch.rand(shape(b), generator=gen) * 2 - 1).to(dev, dt)
-        rows.append(measure(name, lambda: getattr(relayout_cuda, fn)(x, **kw),
-                            lambda: getattr(relayout, fn)(x, **kw), x,
-                            2 * x.numel() * x.element_size(), site=site, batch=b))
+        run = lambda t: getattr(relayout_cuda, fn)(t, **kw)
+        row = measure(name, lambda: run(x), lambda: getattr(relayout, fn)(x, **kw), x,
+                      2 * x.numel() * x.element_size(), site=site, batch=b)
+        row["cold_ms"], row["host_us"] = cold_graph_ms(run, x), host_us(lambda: run(x))
+        print(f"  L2 cold {1e3 * row['cold_ms']:.2f} us a call, host {row['host_us']:.2f} us a "
+              "call", flush=True)
+        if arms:
+            geo = {k: v for k, v in kw.items() if k != "hwt"}
+            row["arms"] = arm_times(x, *relayout_cuda.geometry(NAMES[fn], tuple(x.shape), **geo),
+                                    lambda: getattr(relayout, fn)(x, **kw))
+        rows.append(row)
+        del x
     return rows
+
+
+def arm_times(x: torch.Tensor, gxmy: tuple, out_shape: tuple, plain) -> dict:
+    """Each arm of the relayout that (G, X, M, Y) lets run, launched through
+    the C entry with that arm's plan: bitwise against ``plain``, device time
+    warm and cold in alternating rounds (bulk, cp.async, cp.async, bulk),
+    the plan's items, blocks and stages; for the bulk arm's tensor maps,
+    the host time of their encode; the arm the plan picks."""
+    rl, dev, e = relayout_cuda, x.device, x.element_size()
+    sms = relayout_cuda.sm_count(dev)
+    canon = rl.canonical(*gxmy)
+    if canon[1] == 1:  # a copy: one arm
+        return {}
+    plans = {"bulk": rl.bulk_plan(*canon, e, sms), "cp.async": rl.async_plan(*canon, e, 0, 0, sms)}
+    plans = {k: p for k, p in plans.items() if p is not None}
+    ref = plain()
+
+    def launcher(p):
+        c = p.c_plan()
+
+        def launch(t):
+            out = torch.empty(out_shape, dtype=t.dtype, device=dev)
+            rl.P7(dev, t.data_ptr(), out.data_ptr(), e, p.g, p.x, p.m, p.y, c)
+            return out
+        return launch
+
+    res = {k: {"plan": p.name, "items": p.work, "blocks": p.blocks, "stages": p.stages,
+               "bitwise": bool(torch.equal(launcher(p)(x), ref)), "ms": [], "cold_ms": []}
+           for k, p in plans.items()}
+    order = list(plans)
+    for r in range(4):
+        for k in order if r % 3 == 0 else order[::-1]:
+            res[k]["ms"].append(graph_ms(lambda: launcher(plans[k])(x)))
+            res[k]["cold_ms"].append(cold_graph_ms(launcher(plans[k]), x))
+    picked = rl.relayout_plan(*gxmy, e, 0, 0, sms)
+    res["picked"] = "bulk" if picked.arm == rl.BULK else "cp.async"
+    if "bulk" in plans:
+        res["bulk"]["encode_us"] = encode_us(plans["bulk"], e)
+        res["lookup_us"] = host_us(lambda: rl._launch_args(gxmy, e, 0, 0, dev), calls=2000)
+    for k in order:
+        a = res[k]
+        print(f"  {k} arm ({a['plan']}, {a['items']} items, {a['blocks']} blocks, "
+              f"{a['stages']} stages): bitwise {a['bitwise']}, warm "
+              + " / ".join(f"{1e3 * t:.2f}" for t in a["ms"]) + " us, cold "
+              + " / ".join(f"{1e3 * t:.2f}" for t in a["cold_ms"]) + " us"
+              + (f", encode {a['encode_us']:.2f} us a map" if a.get("encode_us") else ""),
+              flush=True)
+    print(f"  the plan picks {res['picked']}" + (f"; its lookup {res['lookup_us']:.3f} us"
+                                                 if "lookup_us" in res else ""), flush=True)
+    return res
+
+
+def encode_us(p, itemsize: int, calls: int = 2000):
+    """Host time of one ``cuTensorMapEncodeTiled`` as ``csrc/relayout.cu:
+    encode_side`` calls it for the bulk plan ``p``'s first box side (libcuda
+    through ctypes, less a ctypes call of ``cuDriverGetVersion``); None
+    where the plan has no box side."""
+    rl = relayout_cuda
+    sides = [(p.in_box, p.x, p.y, p.tx, p.in_pr), (p.out_box, p.y, p.x, p.ty, p.out_pr)]
+    sides = [sd for sd in sides if sd[0]]
+    if not sides:
+        return None
+    box, a_ext, b_ext, ta, pr = sides[0]
+    cuda = ctypes.CDLL("libcuda.so.1")
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    narrow = box == rl.NARROW_BOX
+    dims = (u64 * 4)(b_ext, p.m, a_ext, p.g)
+    strides = (u64 * 3)(b_ext * itemsize, p.m * b_ext * itemsize, a_ext * p.m * b_ext * itemsize)
+    extent = (u32 * 4)((pr if narrow else rl.LINE) // itemsize, p.tmb,
+                       min(ta, rl.BOX_ROWS) if narrow else ta, 1)
+    unit = (u32 * 4)(1, 1, 1, 1)
+    buf = torch.empty(p.g * a_ext * p.m * b_ext, dtype=torch.int16 if itemsize == 2 else
+                      torch.int32, device="cuda")
+    raw = ctypes.create_string_buffer(128 + 64)  # a CUtensorMap: 128 bytes, 64-byte aligned
+    tmap = ctypes.c_void_p((ctypes.addressof(raw) + 63) // 64 * 64)
+    args = (tmap, 1 if itemsize == 2 else 2, 4, ctypes.c_void_p(buf.data_ptr()), dims, strides,
+            extent, unit, 0, 0 if narrow else 3, 3, 0)
+    if cuda.cuTensorMapEncodeTiled(*args) != 0:
+        return None
+    version = ctypes.c_int()
+    per_call = []
+    for fn, a in ((cuda.cuTensorMapEncodeTiled, args), (cuda.cuDriverGetVersion,
+                                                         (ctypes.byref(version),))):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*a)
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    return per_call[0] - per_call[1]
 
 
 def main(argv=None) -> dict:
@@ -309,6 +476,9 @@ def main(argv=None) -> dict:
     print(f"{result['device']}: K3, K1, K2 and the relayout of {result['package']}")
     for dt in (torch.bfloat16, torch.float32):
         for b in args.batch:
+            if args.arms:
+                result["rows"] += relayout_rows(dev, gen, dt, b, arms=True)
+                continue
             for site, c, h, w in K3_SITES:
                 x = (torch.rand((b, c, h, w), generator=gen) * 2 - 1).to(dev, dt)
                 result["rows"].append(measure(

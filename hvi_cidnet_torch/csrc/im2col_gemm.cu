@@ -62,6 +62,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tensor_map.cuh"
 
 namespace hvi_cidnet {
 namespace {
@@ -488,24 +489,6 @@ int launch_mma_vec(const CUtensorMap& tmap, const bf16* a, const bf16* wp, bf16*
                                static_cast<size_t>(smem), stream>>>(
       tmap, a, wp, out, kdim, cout, n, rows, groups, n_tiles, tiles, ksteps, stages);
   return static_cast<int>(cudaGetLastError());
-}
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no libcuda link)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 template <int MR>

@@ -8,12 +8,28 @@ one batched 2-D transpose with a strided middle axis,
 elements. Four launch counters, one a row of the kernel table, share the
 kernel: ``P7``, ``P8/P9/P11``, ``P12/P13`` and ``P14`` (``KERNELS``).
 
-The plan (:func:`relayout_plan`, cached per shape) first drops unit axes
-(:func:`canonical`: at batch 1 the HWCB entry and exit are copies, which
-still launch), then picks the tile, the vector widths, the threads of a
-warp along a row on each side and the shared tile's row pitch: it scores
-each choice on one warp (shared-memory wavefronts an element, the global
-sectors its vectors touch) and keeps the best. The CPU tests walk it.
+The plan (:func:`relayout_plan`, cached per shape and offsets) first drops
+unit axes (:func:`canonical`: at batch 1 the HWCB entry and exit are
+copies, which still launch), then picks the kernel's arm:
+
+* ``BULK`` where M > 1, M rows of the narrow axis hold MIN_ROW bytes, X
+  and Y are whole 16-byte vectors and both tensors start 16-byte aligned
+  (:func:`bulk_plan`): work items of k slabs g, tm channels m and a tile
+  of the long axis, the narrow axis whole; a narrow side moved
+  by bulk copies, a long side by 4-D tensor map boxes of one 128-byte line
+  x tmb channels (tmb odd) x the narrow extent, 128-byte swizzle; a ring of
+  ``stages`` input and output buffers; the pitches keep the transposition's
+  16-byte shared accesses free of bank conflicts;
+* ``ASYNC`` elsewhere (:func:`async_plan`): tiles of one (g, m) slab (of
+  ``k`` whole slabs of G where M = 1) by cp.async copies of the widest
+  vectors the extents and the starts allow into a two-stage ring where
+  half the blocks take a second item, else (``tiles``: PR 10's kernel)
+  through registers in one stage; the threads a row and the pitch scored
+  on one warp (shared-memory wavefronts an element, sectors, threads
+  busy);
+* ``COPY`` for a copy.
+
+The CPU tests replay the plans (``tests/test_torch_launch_plan.py``).
 
 Dispatch is by device only: a CPU tensor takes the plain version
 (``ops/relayout.py``), a CUDA tensor the kernel, which raises on what it
@@ -26,27 +42,45 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from hvi_cidnet_torch.ops import relayout as _plain
-from hvi_cidnet_torch.ops._build import CudaKernel, twin_backward, widest_vector
+from hvi_cidnet_torch.ops._build import CudaKernel, sm_count, twin_backward, widest_vector
 
-THREADS = 256           # csrc/relayout.cu:kRelayoutThreads
+THREADS = 256             # csrc/relayout.cu:kRelayoutThreads
+BULK_THREADS = THREADS + 32  # the bulk arm's: and its producer warp (kBulkThreads)
 WARP = 32
-BANKS = 32              # shared-memory banks of 4 bytes
-SECTOR = 32             # bytes of a global memory sector
-TILE = 4096             # elements a tile, about
-EDGE = 64               # the tile's side along a long axis, the other one long too
-MAX_PAD = 16            # row pitches tried: TY .. TY + MAX_PAD - 1 elements
-SMEM_LIMIT = 48 * 1024  # csrc/relayout.cu:kRelayoutSmem (no opt-in)
-SMS = 132               # streaming multiprocessors of an H100 SXM
-BLOCKS_PER_SM = 8       # 256-thread blocks an SM holds
+BANKS = 32                # shared-memory banks of 4 bytes
+SECTOR = 32               # bytes of a global memory sector
+SMS = 132                 # H100 SXM; the wrapper passes the card's own count
+SMEM_CAP = 227 * 1024     # a block's shared memory (csrc/relayout.cu:kSmemCap)
+SMEM_SM = 228 * 1024      # an SM's, 1 KB of it reserved a block
+BLOCKS_PER_SM = 8         # 256-thread blocks an SM holds
+COPY, BULK, ASYNC = 0, 1, 2
+BULK_SIDE, LONG_BOX, NARROW_BOX = 0, 1, 2  # how a side of the bulk arm moves (csrc/relayout.cu)
+BOX_ROWS = 256            # a box's rows along a, at most (kBoxRows)
+# the bulk arm
+LINE = 128                # bytes of a box's inner line, the swizzle's row (kLine)
+ITEM_BYTES = 8 * 1024     # a side's bytes an item, at most (where tmb channels fit)
+NARROW_BYTES = 512        # an axis whose rows are this short is whole in every item
+MIN_ROW = 512             # bytes a narrow side's row of tm channels holds, at least
+MAX_STAGES = 3            # the ring's depth at most (csrc/relayout.cu:kMaxStages)
+RING_ALIGN = 1024         # kRingAlign: the ring's and each box region's alignment
+BARS = 3 * 8 * MAX_STAGES  # the ring's mbarriers: full, done and free, kMaxStages each
+MAX_ITEMS = 1 << 22       # work items the kernel's float divisions index exactly
+# the cp.async arm
+TILE = 4096               # elements a tile, about
+EDGE = 64                 # the tile's side along a long axis
+MAX_PAD = 16              # row pitches tried: k TY .. k TY + MAX_PAD - 1 elements
+ASYNC_SMEM = 48 * 1024    # a stage of its two
+RING_ITEMS = 1.5          # items a block, on average, for its ring: half the blocks take two
 
 
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_ARGS = [_p, _p, _i, _i64, _i64, _i64, _i64, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i]
+_ARGS = [_p, _p, _i, _i64, _i64, _i64, _i64, ctypes.POINTER(ctypes.c_int)]
 P7 = CudaKernel("relayout", _ARGS)
 P8_P9_P11 = CudaKernel("relayout", _ARGS)
 P12_P13 = CudaKernel("relayout", _ARGS)
@@ -101,50 +135,238 @@ def canonical(g: int, x: int, m: int, y: int) -> tuple:
 class RelayoutPlan(NamedTuple):
     """How ``csrc/relayout.cu`` runs one (G, X, M, Y) relayout (canonical).
 
-    A copy (``x == 1``): ``blocks`` blocks of THREADS threads copy the
-    ``y`` elements in ``vi``-element vectors, grid-stride. A transpose:
-    work item w (m fastest, then g, then the tile, y-tiles before x-tiles)
-    moves the tile x in [x0, x0 + tx), y in [y0, y0 + ty) of slab (g, m)
-    (cut at X and Y), or of ``slabs`` whole slabs g, g + 1, ... (M = 1):
-    thread t loads rows t // lx + i * (THREADS // lx) of the item (row r is
-    row r % tx of slab r // tx), vectors t % lx + j * lx of ``vi`` elements
-    along y, into shared rows of ``pitch`` elements (slab s at column s *
-    ty); then stores output rows t // sx + i * (THREADS // sx), vectors
-    t % sx + j * sx of ``vo`` elements along x. Block b takes work items b,
-    b + blocks, ...
+    Fields ``arm`` .. ``smem`` are the kernel's plan array (:meth:`c_plan`).
+    Work item w (x-tiles fastest, then y-tiles, channel chunks, slab
+    groups) covers x in [x0, x0 + tx), y in [y0, y0 + ty), m in [m0, m0 +
+    tm) of slabs [g0, g0 + k), cut at the extents (``ASYNC``: one (g, m)
+    slab, or k whole slabs of G where M = 1, slabs fastest; tm 1). Block b takes items b, b + blocks, ...
+
+    ``BULK``: a side with ``*_box`` 0 holds row rho = s ta + a of the item
+    (input a = x, output a = y; tm channels of the whole narrow axis b, rb =
+    tm tb itemsize bytes) at byte (rho // ``*_run``) ``*_pr`` + (rho %
+    ``*_run``) rb of its buffer (run 0: rho rb, all rows one copy), channel
+    m at m tb itemsize in it, a run of rows a bulk copy; a side with
+    ``*_box`` 1 as tensor map boxes (a line of the long axis, ``tmb``
+    channels, the side's a tile); ``*_box`` 2 as boxes of the narrow axis
+    padded to ``*_pr`` bytes, ``tmb`` channels, up to BOX_ROWS rows of a. ``pair_y``: 4-byte elements, the blocks
+    paired in an 8-lane phase along y (else x). ``in_bytes`` /
+    ``out_bytes``: the buffers, ``stages`` of each.
+
+    ``ASYNC``: thread t loads rows t // lx + i (THREADS // lx) of the item
+    (row r is row r % tx of slab r // tx), vectors t % lx + j lx of ``vi``
+    elements along y, into shared rows of ``pitch`` elements (slab s at
+    column s ty; by cp.async where ``pitch`` is a whole number of vectors,
+    else through registers), and stores output rows t // sx + i
+    (THREADS // sx),
+    vectors t % sx + j sx of ``vo`` elements along x.
+
+    ``COPY``: ``blocks`` blocks copy the ``y`` elements in ``vi``-element
+    vectors, grid-stride.
     """
 
     g: int
     x: int
     m: int
     y: int
-    copy: bool
+    arm: int
     tx: int
     ty: int
-    pitch: int
+    tm: int
+    k: int
     vi: int
     vo: int
     lx: int
     sx: int
-    slabs: int
-    tiles_x: int
-    tiles_y: int
-    work: int
+    pitch: int
+    in_box: int
+    in_run: int
+    in_pr: int
+    out_box: int
+    out_run: int
+    out_pr: int
+    tmb: int
+    pair_y: int
+    stages: int
     blocks: int
-    smem_bytes: int
+    smem: int
+    work: int
+    in_bytes: int
+    out_bytes: int
+
+    @property
+    def copy(self) -> bool:
+        return self.arm == COPY
+
+    @property
+    def name(self) -> str:
+        """The arm as ``chip_smoke.py`` and ``kernel_times`` print it."""
+        if self.arm == COPY:
+            return "copy"
+        if self.arm == ASYNC:
+            return "cp.async" if self.stages == 2 else "tiles"
+        sides = [("bulk", "TMA", "TMA rows")[box] for box in (self.in_box, self.out_box)]
+        return f"{sides[0]} in, {sides[1]} out"
+
+    def c_plan(self):
+        """The 21 ints the C entry reads (csrc/relayout.cu:Plan)."""
+        return (ctypes.c_int * 21)(*self[4:25])
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _round_up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
 def _pow2_ceil(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def tile_shape(x: int, y: int, vi: int, vo: int) -> tuple:
-    """(tx, ty): ~TILE elements, the narrow axis whole up to EDGE and the
-    other one long; EDGE x EDGE when both are long. A cut side is a whole
+def _blocks(work: int, smem: int, sms: int, threads: int = THREADS) -> int:
+    """Persistent blocks: as many as the SMs hold at this shared memory."""
+    per_sm = min(2048 // threads, SMEM_SM // (smem + 1024))
+    return min(work, sms * max(1, per_sm))
+
+
+def odd_channels(m: int, cap: int) -> int:
+    """tmb: the largest odd divisor of M up to ``cap`` and 255 (a box's
+    channels)."""
+    odd = m
+    while odd % 2 == 0:
+        odd //= 2
+    return max(d for d in range(1, max(1, min(odd, cap, 255)) + 1, 2) if odd % d == 0)
+
+
+def _pitch(row: int, residue: int) -> int:
+    """The least pitch >= ``row`` bytes whose 16-byte chunks number ``residue``
+    (1: odd, else 2 modulo 4)."""
+    c = row // 16
+    while not (c % 2 == 1 if residue == 1 else c % 4 == 2):
+        c += 1
+    return 16 * c
+
+
+def bulk_runs(rb: int, residue: int, follow: bool) -> tuple:
+    """(run, pitch) of a bulk side's buffer: runs of ``run`` rows of ``rb``
+    bytes (a power of two), each one bulk copy, ``pitch`` bytes apart; run 0:
+    the tensor's own layout, one copy for all the item's rows. Residue 1: 8
+    consecutive rows of one 16-byte chunk land on 8 distinct bank groups
+    (2-byte elements; 4-byte ones on the paired side); residue 2: 4
+    consecutive rows of two adjacent chunks do (the other 4-byte side). A
+    row length that does so itself keeps the tensor's layout (run 0 where
+    the rows ``follow`` each other in the tensor, else one row a copy);
+    else runs of 8, 4, 2 or 1 rows at a padded pitch (one row where they do
+    not follow)."""
+    rc = rb // 16
+    if rc % 2 == 1 if residue == 1 else rc % 4 == 2:
+        return (0 if follow else 1), rb
+    if not follow:
+        return 1, _pitch(rb, residue)
+    run = 8 // math.gcd(rc, 8) if residue == 1 else (2 if rc % 8 == 4 else 1)
+    return run, _pitch(run * rb, residue)
+
+
+def bulk_plan(g: int, x: int, m: int, y: int, itemsize: int,
+              sms: int = SMS) -> Optional[RelayoutPlan]:
+    """The bulk arm's plan of a canonical (G, X, M, Y) transpose of aligned
+    tensors whose X and Y are whole 16-byte vectors (else None; also past
+    MAX_ITEMS work items, some 64 GB of data). ITEM_BYTES and MAX_STAGES:
+    sweeps of item sizes, stages and blocks on an H100 picked them.
+
+    An axis of at most NARROW_BYTES a row is narrow and whole in every item.
+    Both narrow: items of whole slabs (all m where a slab of them fits
+    ITEM_BYTES, else tm channels), both sides by bulk copies. One
+    narrow: its side by bulk copies, the long side by boxes of tmb channels
+    (the largest odd divisor of M whose line across them fits
+    ITEM_BYTES); tm a multiple of tmb that keeps a long line's bytes
+    within ITEM_BYTES but the narrow side's rows (bulk copies) at least
+    MIN_ROW bytes, M split evenly; the long tile whole lines up to
+    ITEM_BYTES; at most MAX_STAGES stages.
+    Both long: 128-byte lines on both, boxes on both. Pitches: odd chunks
+    on a bulk side (bulk_runs) for 2-byte elements (ldmatrix / stmatrix read
+    and write 8 consecutive rows of one chunk); for 4-byte elements the
+    blocks pair along x (box input) or y (box output), the paired side's
+    rows odd and the other's 2 modulo 4 chunks, or the pairing with the least
+    padding."""
+    e = itemsize
+    vec, unit = 16 // e, LINE // e
+    if x % vec or y % vec:
+        return None
+    narrow_x, narrow_y = x * e <= NARROW_BYTES, y * e <= NARROW_BYTES
+    tmb, k = 1, 1
+    if narrow_x and narrow_y:
+        in_box = out_box = 0
+        tx, ty, slab = x, y, x * y * e
+        tm = m if m * slab <= ITEM_BYTES else max(1, ITEM_BYTES // slab)
+        tm = _cdiv(m, _cdiv(m, tm))
+        if tm == m:
+            k = min(g, max(1, ITEM_BYTES // (m * slab)))
+    else:
+        in_box, out_box = int(not narrow_y), int(not narrow_x)
+        n = y if narrow_y else x if narrow_x else unit
+        per_m = unit * n * e  # a line of the long axis across the narrow one, one m
+        tmb = odd_channels(m, ITEM_BYTES // per_m)
+        # blocks of tmb channels: as many as ITEM_BYTES holds, and at least
+        # enough that a narrow side's row of them is MIN_ROW bytes (a bulk
+        # copy that long), the chunks of M even
+        blocks, lo = m // tmb, _cdiv(MIN_ROW, (x if narrow_x else y) * e * tmb)
+        hi = max(lo, ITEM_BYTES // (per_m * tmb))
+        chunks = max(1, min(_cdiv(blocks, hi), blocks // lo))
+        tm = tmb * _cdiv(blocks, chunks)
+        if narrow_x == narrow_y:  # both long
+            tx = ty = unit
+        else:
+            lines = max(1, ITEM_BYTES // (per_m * tm))
+            long = min(lines, _cdiv(y if narrow_x else x, unit)) * unit
+            tx, ty = (x, long) if narrow_x else (long, y)
+    in_row, out_row = tm * ty * e, tm * tx * e
+    sides = ((in_box, in_row, tx, x), (out_box, out_row, ty, y))
+
+    def layout(side, residue):  # (box, run, pitch, buffer bytes) of one side
+        box, row, ta, a_ext = side
+        if box:
+            region = _round_up(LINE * tmb * ta, RING_ALIGN)
+            return LONG_BOX, 1, 0, (tm // tmb) * (row // (tm * LINE)) * region
+        run, pitch = bulk_runs(row, residue, tm == m and (k == 1 or ta == a_ext))
+        line = row // tm  # the narrow axis of one channel
+        pad = _pitch(line, residue)
+        if (run != 0 and run * row < MIN_ROW and k == 1 and pad <= BOX_ROWS * e
+                and (ta <= BOX_ROWS or ta % BOX_ROWS == 0)):
+            # short copies: boxes of the narrow axis padded, tmb channels
+            region = _round_up(pad * tmb * min(ta, BOX_ROWS), RING_ALIGN)
+            return NARROW_BOX, 1, pad, (tm // tmb) * _cdiv(ta, BOX_ROWS) * region
+        return (BULK_SIDE, run, pitch,
+                _round_up((_cdiv(k * ta, run) if run else k * ta) * pitch, RING_ALIGN))
+
+    if e == 2:
+        pair_y = 0
+    elif in_box or out_box:
+        pair_y = int(out_box and not in_box)
+    else:  # both bulk: the pairing with the smaller buffers
+        size = lambda py: layout(sides[0], 2 if py else 1)[3] + layout(sides[1], 1 if py else 2)[3]
+        pair_y = int(size(1) < size(0))
+    (in_box, in_run, in_pr, in_bytes), (out_box, out_run, out_pr, out_bytes) = (
+        layout(sides[0], 2 if e == 4 and pair_y else 1),
+        layout(sides[1], 2 if e == 4 and not pair_y else 1))
+    stages = min(MAX_STAGES, (SMEM_CAP - RING_ALIGN - BARS) // (in_bytes + out_bytes))
+    if stages < 2:
+        return None
+    smem = RING_ALIGN + stages * (in_bytes + out_bytes) + BARS
+    work = _cdiv(g, k) * _cdiv(m, tm) * _cdiv(x, tx) * _cdiv(y, ty)
+    if work >= MAX_ITEMS:
+        return None
+    return RelayoutPlan(g, x, m, y, BULK, tx, ty, tm, k, vec, vec, 0, 0, 0, in_box, in_run,
+                        in_pr, out_box, out_run, out_pr, tmb, pair_y, stages,
+                        _blocks(work, smem, sms, BULK_THREADS), smem, work, in_bytes, out_bytes)
+
+
+def async_tile(g: int, x: int, m: int, y: int, vi: int, vo: int) -> tuple:
+    """(tx, ty, k) of the cp.async arm: ~TILE elements, the narrow axis whole
+    up to EDGE and the other one long, EDGE x EDGE when both are long; k
+    whole slabs of G an item where M = 1 and a slab is under half a tile
+    (their rows follow each other on both sides). A cut side is a whole
     number of vectors."""
     if y <= x:
         ty = min(y, EDGE)
@@ -156,7 +378,8 @@ def tile_shape(x: int, y: int, vi: int, vo: int) -> tuple:
         ty = max(vi, ty // vi * vi)
     if tx < x:
         tx = max(vo, tx // vo * vo)
-    return tx, ty
+    k = min(g, TILE // (x * y)) if m == 1 and 2 * x * y <= TILE else 1
+    return tx, ty, k
 
 
 def _wavefronts(words: list) -> int:
@@ -171,14 +394,15 @@ def _wavefronts(words: list) -> int:
 def side_cost(along: int, rows: int, vec: int, vectors: int, row_stride: int, itemsize: int,
               pitch: int, tile: Optional[tuple] = None) -> tuple:
     """(global sectors an element, shared wavefronts an element, share of
-    the block's threads busy) of one side's first warp: ``along`` lanes a
-    row take ``vec``-element vectors of rows ``row_stride`` elements apart
-    in global memory. The load side (``tile`` = (tx, ty)) writes input row
-    r, row r % tx of slab r // tx, at (r % tx) * pitch + (r // tx) * ty in
-    shared memory, as one vector where the pitch keeps it aligned
-    (csrc/relayout.cu), else element by element; the store side (``tile``
-    None) reads the tile's columns element by element. A vector access of B
-    bytes is served in phases of 128 / B lanes."""
+    the block's threads busy) of one side's first warp of the cp.async arm:
+    ``along`` lanes a row take ``vec``-element vectors of rows ``row_stride``
+    elements apart in global memory. The load side (``tile`` = (tx, ty))
+    copies input row r, row r % tx of slab r // tx, to (r % tx) * pitch +
+    (r // tx) * ty in shared memory as one vector where the pitch keeps it
+    aligned (a cp.async copy), else element by element; the store side
+    (``tile`` None) reads the tile's
+    columns element by element. A vector access of B bytes is served in
+    phases of 128 / B lanes."""
     lanes = [(lane // along, lane % along) for lane in range(WARP)]
     lanes = [(r, v) for r, v in lanes if r < rows and v < vectors]
     if not lanes:
@@ -186,15 +410,14 @@ def side_cost(along: int, rows: int, vec: int, vectors: int, row_stride: int, it
     sectors = {((r * row_stride + v * vec + k) * itemsize) // SECTOR
                for r, v in lanes for k in range(vec)}
     word = lambda e: e * itemsize // 4
-    load = tile is not None
     start = lambda r: r % tile[0] * pitch + r // tile[0] * tile[1]
-    if load and pitch % vec == 0:  # one vector store a lane
+    if tile is not None and pitch % vec == 0:
         words = [range(word(start(r) + v * vec), word(start(r) + (v + 1) * vec - 1) + 1)
                  for r, v in lanes]
         phase = max(1, 128 // max(4, vec * itemsize))
         waves = sum(_wavefronts([w for ws in words[i:i + phase] for w in ws])
                     for i in range(0, len(words), phase))
-    elif load:
+    elif tile is not None:
         waves = sum(_wavefronts([word(start(r) + v * vec + k) for r, v in lanes])
                     for k in range(vec))
     else:
@@ -212,55 +435,80 @@ def _along_choices(vectors: int) -> list:
     return [1 << s for s in range(top.bit_length())]
 
 
-@functools.lru_cache(maxsize=1024)
-def relayout_plan(g: int, x: int, m: int, y: int, itemsize: int, in_offset: int = 0,
-                  out_offset: int = 0) -> RelayoutPlan:
-    """The plan of a (G, X, M, Y) relayout of ``itemsize``-byte elements
-    whose input and output start ``in_offset`` and ``out_offset`` bytes
-    past 16-byte boundaries. Cached per shape: at batch 1 the host's work
-    per launch sets the pace.
+def async_plan(g: int, x: int, m: int, y: int, itemsize: int, in_offset: int = 0,
+               out_offset: int = 0, sms: int = SMS) -> RelayoutPlan:
+    """The cp.async arm's plan of a canonical (G, X, M, Y) transpose.
 
-    Each side's lanes and the pitch are scored on the first warp (side_cost):
-    the fewest sectors (DRAM traffic) first; then, on the load side, the
-    most threads busy (the loads in flight hide the memory's latency; a
-    store does not wait); then the fewest shared-memory wavefronts; then
-    the widest rows of lanes and the narrowest pitch."""
-    if min(g, x, m, y) < 1:
-        raise ValueError(f"relayout: extents must be >= 1, got {(g, x, m, y)}")
-    if itemsize not in (2, 4):
-        raise TypeError(f"relayout: {itemsize}-byte elements not supported (2 or 4)")
-    g, x, m, y = canonical(g, x, m, y)
-    cap = SMS * BLOCKS_PER_SM
-    if x == 1:
-        v = widest_vector(y, in_offset | out_offset, itemsize)
-        work = _cdiv(y, THREADS * v)
-        return RelayoutPlan(1, 1, 1, y, True, 1, y, 0, v, v, THREADS, THREADS, 1, 1, 1, work,
-                            min(work, cap), 0)
+    Each side's lanes and the pitch are scored on the first warp
+    (side_cost): the fewest sectors (DRAM traffic) first; then, on the load
+    side, the most threads busy (the loads in flight hide the memory's
+    latency; a store does not wait); then the fewest shared-memory
+    wavefronts; then the widest rows of lanes and the narrowest pitch.
+
+    Two stages, a ring the input vectors enter by cp.async, where the pitch
+    is a whole number of them and at least half the blocks take a second
+    item (work >= RING_ITEMS x blocks: with fewer there is little next item
+    for the ring to load early, and on an H100 the ring then lost to loads
+    through registers, e.g. at the bf16 HWCB exit at batch 8); else one
+    stage loaded through registers (element by element into the tile where
+    the pitch breaks the vectors' alignment)."""
     vi = widest_vector(y, in_offset, itemsize)
     vo = widest_vector(x, out_offset, itemsize)
-    tx, ty = tile_shape(x, y, vi, vo)
-    # whole slabs under half a tile share a work item (their rows follow
-    # each other on both sides when M = 1)
-    slabs = min(g, TILE // (x * y)) if m == 1 and 2 * x * y <= TILE else 1
+    tx, ty, k = async_tile(g, x, m, y, vi, vo)
     best = None
-    for pitch in range(slabs * ty, slabs * ty + MAX_PAD):
-        if tx * pitch * itemsize > SMEM_LIMIT:
+    for pitch in range(k * ty, k * ty + MAX_PAD):
+        if tx * pitch * itemsize > ASYNC_SMEM:
             break
         load = min(((sec, -busy, waves, -lx), lx) for lx in _along_choices(ty // vi)
-                   for sec, waves, busy in [side_cost(lx, slabs * tx, vi, ty // vi, m * y,
+                   for sec, waves, busy in [side_cost(lx, k * tx, vi, ty // vi, m * y,
                                                       itemsize, pitch, (tx, ty))])
         store = min(((sec, waves, -sx), sx) for sx in _along_choices(tx // vo)
-                    for sec, waves, _ in [side_cost(sx, slabs * ty, vo, tx // vo, m * x,
+                    for sec, waves, _ in [side_cost(sx, k * ty, vo, tx // vo, m * x,
                                                     itemsize, pitch)])
         (l_sec, l_busy, l_waves, l_wide), (s_sec, s_waves, s_wide) = load[0], store[0]
         score = (l_sec + s_sec, l_busy, l_waves + s_waves, l_wide + s_wide, pitch)
         if best is None or score < best[0]:
             best = (score, pitch, load[1], store[1])
     _, pitch, lx, sx = best
-    tiles_x, tiles_y = _cdiv(x, tx), _cdiv(y, ty)
-    work = _cdiv(g * m, slabs) * tiles_x * tiles_y
-    return RelayoutPlan(g, x, m, y, False, tx, ty, pitch, vi, vo, lx, sx, slabs, tiles_x,
-                        tiles_y, work, min(work, cap), tx * pitch * itemsize)
+    work = _cdiv(g * m, k) * _cdiv(x, tx) * _cdiv(y, ty)
+    ring = pitch % vi == 0 and work >= RING_ITEMS * _blocks(work, 2 * tx * pitch * itemsize, sms)
+    stages = 2 if ring else 1
+    smem = stages * tx * pitch * itemsize
+    return RelayoutPlan(g, x, m, y, ASYNC, tx, ty, 1, k, vi, vo, lx, sx, pitch, 0, 0, 0, 0, 0,
+                        0, 1, 0, stages, _blocks(work, smem, sms), smem, work, 0, 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def relayout_plan(g: int, x: int, m: int, y: int, itemsize: int, in_offset: int = 0,
+                  out_offset: int = 0, sms: int = SMS) -> RelayoutPlan:
+    """The plan of a (G, X, M, Y) relayout of ``itemsize``-byte elements
+    whose input and output start ``in_offset`` and ``out_offset`` bytes
+    past 16-byte boundaries, on a card of ``sms`` SMs. Cached. A copy
+    where a swapped axis is 1; the bulk arm where M > 1, M rows of the
+    narrow axis hold MIN_ROW bytes (the bulk copies its plan aims at) and
+    its copies can run (both starts aligned, X and Y whole 16-byte
+    vectors); the cp.async arm elsewhere. Where M = 1 a tile's rows are
+    whole runs on both sides, so the bulk arm's items have no split sector
+    to mend. On an H100 (``cli/kernel_times.py --arms``) the cp.async arm
+    was the faster at every M = 1 shape timed (the HWCB ends at batch 8
+    and 32, P14 and P7 at level 1, the levels at batch 1) and at TNSM's
+    noise map (M = 3) in fp32; the bulk arm at every level's shape with M
+    = 36 or 72 at batch 8."""
+    if min(g, x, m, y) < 1:
+        raise ValueError(f"relayout: extents must be >= 1, got {(g, x, m, y)}")
+    if itemsize not in (2, 4):
+        raise TypeError(f"relayout: {itemsize}-byte elements not supported (2 or 4)")
+    g, x, m, y = canonical(g, x, m, y)
+    if x == 1:
+        v = widest_vector(y, in_offset | out_offset, itemsize)
+        work = _cdiv(y, THREADS * v)
+        return RelayoutPlan(1, 1, 1, y, COPY, 1, y, 1, 1, v, v, THREADS, THREADS, 0, 0, 0, 0,
+                            0, 0, 0, 1, 0, 1, min(work, sms * BLOCKS_PER_SM), 0, work, 0, 0)
+    if m > 1 and m * min(x, y) * itemsize >= MIN_ROW and in_offset == 0 and out_offset == 0:
+        plan = bulk_plan(g, x, m, y, itemsize, sms)
+        if plan is not None:
+            return plan
+    return async_plan(g, x, m, y, itemsize, in_offset, out_offset, sms)
 
 
 # --------------------------------------------------------------------------
@@ -282,10 +530,19 @@ def relayout_kernel(t: torch.Tensor, counter: CudaKernel, gxmy: tuple,
     out = torch.empty(out_shape, dtype=t.dtype, device=t.device)
     if t.numel() == 0:
         return out
-    p = relayout_plan(*gxmy, t.element_size(), t.data_ptr() % 16, out.data_ptr() % 16)
-    counter(t.device, t.data_ptr(), out.data_ptr(), t.element_size(), p.g, p.x, p.m, p.y,
-            p.tx, p.ty, p.pitch, p.vi, p.vo, p.lx, p.sx, p.slabs, p.blocks, p.smem_bytes)
+    dev = t.device
+    counter(dev, t.data_ptr(), out.data_ptr(), t.element_size(),
+            *_launch_args(gxmy, t.element_size(), t.data_ptr() % 16, out.data_ptr() % 16, dev))
     return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_args(gxmy: tuple, itemsize: int, in_offset: int, out_offset: int,
+                 device: torch.device) -> tuple:
+    """The C entry's (g, x, m, y, plan) of a launch: one cached lookup a
+    call, as the wrapper's host work sets the pace at batch 1."""
+    p = relayout_plan(*gxmy, itemsize, in_offset, out_offset, sm_count(device))
+    return p.g, p.x, p.m, p.y, p.c_plan()
 
 
 class _Relayout(torch.autograd.Function):

@@ -1145,6 +1145,50 @@ def test_relayout_takes_tensors_off_16_byte_alignment(cuda, dt, elements):
         x.element_size() < 16
 
 
+# (G, X, M, Y) straight through the kernel, against one permute of the
+# view: both arms (bulk where M > 1, M rows of the narrow axis hold 512
+# bytes and X and Y are whole 16-byte vectors, else cp.async), tiles cut
+# along x, y and both (boxes on both sides), M = 1, 2, 3, 36, 144, 257
+# (prime: one channel a box) and 300, G > 1 with the x tile cut in every
+# slab, whole slabs several to an item (M = 1 and 2 in the cp.async arm,
+# 32 and 16 in the bulk arm), level 3's rows of 3,750 elements (7,500
+# bytes in bf16) at batch 8 and 1, narrow sides padded in boxes (rows of
+# 32 and 36 channels; 200 rows a box, 3 slabs), and the cp.async arm's
+# ring (the fp32 HWCB exit at batch 8; level 3's P11 at batch 32)
+RELAYOUT_GXMY = [(1, 200, 36, 8), (1, 8, 36, 200), (1, 264, 3, 272), (1, 720, 1, 24),
+                 (1, 96, 144, 8), (1, 64, 257, 8), (1, 8, 300, 320), (5, 200, 36, 8),
+                 (40, 32, 1, 8), (1, 8, 144, 3750), (1, 144, 1, 3750), (1, 520, 1, 32),
+                 (1, 32, 3, 520), (1, 300, 1, 36), (3, 200, 9, 16), (1, 720, 3, 24),
+                 (40, 32, 2, 8), (5, 16, 2, 24), (1, 520, 2, 32), (1, 300, 3, 36),
+                 (1, 8, 1, 720000), (1, 32, 144, 3750), (5, 8, 32, 8), (5, 8, 16, 8)]
+
+
+@pytest.mark.parametrize("gxmy", RELAYOUT_GXMY, ids=str)
+@pytest.mark.parametrize("dt", DTYPES + [torch.float16])
+@pytest.mark.parametrize("lead", [0, 1, 2], ids=["aligned", "+1", "+2"])
+def test_relayout_arms_are_bitwise_the_permute(cuda, dt, gxmy, lead):
+    """The input ``lead`` elements past a 16-byte boundary (2 and 4 bytes in
+    bf16 and fp16, 4 and 8 in fp32: the cp.async arm), else aligned; two
+    calls bitwise equal."""
+    g, x, m, y = gxmy
+    esize = torch.empty((), dtype=dt).element_size()
+    buf = _rand((lead + g * x * m * y,), cuda, dt, -2.0, 2.0, seed=84)
+    t = buf[lead:].view(g * x, m, y)
+    out_shape = (g * y, m, x)
+    n = rl.P8_P9_P11.launches
+    got = rl.relayout_kernel(t, rl.P8_P9_P11, gxmy, out_shape)
+    again = rl.relayout_kernel(t, rl.P8_P9_P11, gxmy, out_shape)
+    assert rl.P8_P9_P11.launches == n + 2
+    plan = rl.relayout_plan(*gxmy, esize, t.data_ptr() % 16, got.data_ptr() % 16)
+    assert (plan.arm == rl.BULK) == (t.data_ptr() % 16 == 0 and got.data_ptr() % 16 == 0
+                                     and x * esize % 16 == 0 and y * esize % 16 == 0
+                                     and rl.canonical(*gxmy)[2] > 1
+                                     and m * min(x, y) * esize >= rl.MIN_ROW)
+    torch.cuda.synchronize()
+    want = t.view(gxmy).permute(0, 3, 2, 1).reshape(out_shape)
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
 def test_relayout_backward_runs_the_plain_autograd(cuda):
     x = _rand((24, 4, 8), cuda, torch.float32, seed=82).requires_grad_()
     for fn in (lambda t: rl.transpose_steps(t, 6, 2), rl.relayout_t3, rl.relayout_t2_rev,

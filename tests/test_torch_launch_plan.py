@@ -1488,70 +1488,259 @@ def test_p6_mma_layouts_are_wgmma_canonical():
 # ---------------------------------------------------------------------------
 
 
-def _relayout_walk(p, itemsize, in_offset=0, out_offset=0):
+ZERO = -2  # a box element loaded from past the tensor's edge
+
+
+def _chunk_at(p, side, s, a, m, bc, itemsize):
+    """Byte offsets in a bulk-arm buffer of 16-byte chunk ``bc`` of row (s,
+    a, m) of ``side`` ("in": a = x, b = y; "out": a = y, b = x), as
+    csrc/relayout.cu:chunk_at computes them (numpy arrays broadcast)."""
+    box, ta, tb, run, pr = ((p.in_box, p.tx, p.ty, p.in_run, p.in_pr) if side == "in" else
+                            (p.out_box, p.ty, p.tx, p.out_run, p.out_pr))
+    if box == rl.NARROW_BOX:
+        region = -(-pr * p.tmb * min(ta, rl.BOX_ROWS) // rl.RING_ALIGN) * rl.RING_ALIGN
+        im, ab = m // p.tmb, -(-ta // rl.BOX_ROWS)
+        return ((im * ab + a // rl.BOX_ROWS) * region
+                + (a % rl.BOX_ROWS * p.tmb + m % p.tmb) * pr + bc * 16)
+    if box:
+        nbb = tb * itemsize // rl.LINE
+        region = -(-rl.LINE * p.tmb * ta // rl.RING_ALIGN) * rl.RING_ALIGN
+        im, line = m // p.tmb, a * p.tmb + m % p.tmb
+        return (im * nbb + bc // 8) * region + line * rl.LINE + ((bc % 8) ^ (line % 8)) * 16
+    rho, rb = s * ta + a, p.tm * tb * itemsize
+    at = rho // run * pr + rho % run * rb if run else rho * rb
+    return at + m * tb * itemsize + bc * 16
+
+
+def _waves(addresses):
+    """Wavefronts of each 8-lane phase of 16-byte shared accesses (a phase a
+    row, its lanes along the row): the most distinct addresses any 16-byte
+    bank group holds."""
+    addresses = np.asarray(addresses)
+    srt = np.sort(addresses, axis=1)
+    fresh = np.concatenate([np.ones((len(srt), 1), bool), srt[:, 1:] != srt[:, :-1]], axis=1)
+    group = srt // 16 % 8
+    counts = np.stack([((group == gi) & fresh).sum(axis=1) for gi in range(8)], axis=1)
+    return counts.max(axis=1)
+
+
+def _box_moves(p, side, item, shape, itemsize):
+    """(tensor flat indices, in-bounds mask, buffer element indices) of the
+    boxes of one side of an item; ``shape`` the side's tensor as (G, A, M,
+    B)."""
+    g, a_ext, m, b_ext = shape
+    g0, m0, x0, y0, ns, nm, nx, ny = item
+    box, ta, a0, b0, nb, na, pr = ((p.in_box, p.tx, x0, y0, ny, nx, p.in_pr) if side == "in" else
+                                   (p.out_box, p.ty, y0, x0, nx, ny, p.out_pr))
+    v = 16 // itemsize
+    if box == rl.NARROW_BOX:  # the narrow axis padded to pr bytes, BOX_ROWS rows a box
+        rows = min(ta, rl.BOX_ROWS)
+        im, ia, a, ml, bb = np.meshgrid(np.arange(-(-nm // p.tmb)), np.arange(-(-na // rows)),
+                                        np.arange(rows), np.arange(p.tmb),
+                                        np.arange(pr // itemsize), indexing="ij")
+        ga, gm, gb = a0 + ia * rows + a, m0 + im * p.tmb + ml, bb
+        inside = (ga < a_ext) & (gm < m) & (gb < b_ext)
+        flat = ((g0 * a_ext + ga) * m + gm) * b_ext + gb
+        at = _chunk_at(p, side, 0, ia * rows + a, im * p.tmb + ml, bb // v, itemsize)
+        return flat, inside, at // itemsize + bb % v
+    unit = rl.LINE // itemsize
+    im, bi, a, ml, bb = np.meshgrid(np.arange(-(-nm // p.tmb)), np.arange(-(-nb // unit)),
+                                    np.arange(ta), np.arange(p.tmb), np.arange(unit),
+                                    indexing="ij")
+    ga, gm, gb = a0 + a, m0 + im * p.tmb + ml, b0 + bi * unit + bb
+    inside = (ga < a_ext) & (gm < m) & (gb < b_ext)
+    flat = ((g0 * a_ext + ga) * m + gm) * b_ext + gb
+    at = _chunk_at(p, side, 0, a, im * p.tmb + ml, bi * 8 + bb // v, itemsize)
+    return flat, inside, at // itemsize + bb % v
+
+
+def _bulk_moves(p, side, item, shape, itemsize):
+    """(tensor flat indices, buffer element indices) of the bulk copies of
+    one side of an item (``shape``: the side's tensor as (G, A, M, B)), each
+    checked: 16-byte aligned at both ends, a whole number of 16-byte chunks,
+    several rows a copy only where they follow each other in the tensor."""
+    g, a_ext, m, b_ext = shape
+    g0, m0, x0, y0, ns, nm, nx, ny = item
+    ta, a0, na, run, pr = ((p.tx, x0, nx, p.in_run, p.in_pr) if side == "in" else
+                           (p.ty, y0, ny, p.out_run, p.out_pr))
+    rows = (ns - 1) * ta + na
+    run = run or rows  # run 0: all rows one copy; else a power of two (a shift in the kernel)
+    assert run == rows or run & (run - 1) == 0
+    flats, ats = [], []
+    for u in range(-(-rows // run)):
+        s, a = divmod(u * run, ta)
+        start = (((g0 + s) * a_ext + a0 + a) * m + m0) * b_ext
+        n = min(run, rows - u * run) * nm * b_ext
+        assert start * itemsize % 16 == 0 and n * itemsize % 16 == 0 and u * pr % 16 == 0
+        assert run == 1 or (nm == m and (p.k == 1 or ta == a_ext))
+        flats.append(np.arange(start, start + n))
+        ats.append(u * pr // itemsize + np.arange(n))
+    return np.concatenate(flats), np.concatenate(ats)
+
+
+def _bulk_blocks(p, item, itemsize):
+    """Each transposition block's input-row and output-row chunk offsets, in
+    the order the kernel takes them, and the most wavefronts an 8-lane phase
+    meets (2-byte: one 8 x 8 block a phase; 4-byte: two 4 x 4 blocks, an odd
+    run's last block paired with itself)."""
+    g0, m0, x0, y0, ns, nm, nx, ny = item
+    v = 16 // itemsize
+    nbx, nby = nx // v, ny // v
+    pair_y = itemsize == 4 and p.pair_y
+    fast, slow = (nby, nbx) if pair_y else (nbx, nby)
+    fast_even = fast + (fast & 1) if itemsize == 4 else fast  # the last of an odd run repeats
+    q = np.arange(ns * nm * slow * fast_even)
+    f, t = np.minimum(q % fast_even, fast - 1), q // fast_even
+    mm, t = t % nm, t // nm
+    sl, s = t % slow, t // slow
+    xo, yo = (sl, f) if pair_y else (f, sl)
+    r = np.arange(v)
+    src = _chunk_at(p, "in", s[:, None], v * xo[:, None] + r, mm[:, None], yo[:, None], itemsize)
+    dst = _chunk_at(p, "out", s[:, None], v * yo[:, None] + r, mm[:, None], xo[:, None], itemsize)
+    pad = (-len(q)) % (8 // v)  # the tail repeats the last block
+    phases = lambda a: np.concatenate([a, a[-1:].repeat(pad, 0)]).reshape(-1, 8)
+    return src, dst, int(max(_waves(phases(src)).max(), _waves(phases(dst)).max()))
+
+
+def _items(p, pick=None):
+    """(g0, m0, x0, y0, ns, nm, nx, ny) of the bulk arm's work items, x-tiles
+    fastest (csrc/relayout.cu:item_of); ``pick``: only these."""
+    tiles_x, tiles_y, chunks = -(-p.x // p.tx), -(-p.y // p.ty), -(-p.m // p.tm)
+    for w in range(p.work) if pick is None else pick:
+        t, tx_i = divmod(w, tiles_x)
+        t, ty_i = divmod(t, tiles_y)
+        gc, mc = divmod(t, chunks)
+        g0, m0, x0, y0 = gc * p.k, mc * p.tm, tx_i * p.tx, ty_i * p.ty
+        yield (g0, m0, x0, y0, min(p.k, p.g - g0), min(p.tm, p.m - m0), min(p.tx, p.x - x0),
+               min(p.ty, p.y - y0))
+
+
+def _relayout_replay(p, itemsize, in_offset=0, out_offset=0, pick=None):
     """The output of csrc/relayout.cu under plan ``p`` on the input 0, 1, 2,
-    ..., walked thread by thread as the kernel's loops run, and the times
-    each output element is written. Checks on the way: every global vector
-    starts aligned to its width, a shared vector store too, and the store
-    side reads only what the same work item's load side wrote."""
+    ..., replayed with numpy arrays (every copy, block and store of a work
+    item at once), the times each output element is written, and the most
+    shared-memory wavefronts an 8-lane phase of the bulk arm's transposition
+    met (1: no bank conflict). Checked on the way: copies and vectors aligned
+    and whole, every element stored one the item loaded. ``pick``: only these
+    work items (the rest of the output unwritten)."""
     g, x, m, y = p.g, p.x, p.m, p.y
     n = g * x * m * y
+    src = np.arange(n)
     out, writes = np.full(n, -1, np.int64), np.zeros(n, np.int64)
-    threads = rl.THREADS
     if p.copy:
-        v, stride = p.vi, p.blocks * threads * p.vi
-        for t in range(p.blocks * threads):
-            for i in range(t * v, n, stride):
-                assert (i * itemsize + in_offset) % (v * itemsize) == 0
-                assert (i * itemsize + out_offset) % (v * itemsize) == 0
-                out[i:i + v] = np.arange(i, i + v)
-                writes[i:i + v] += 1
-        return out, writes
-    groups = -(-g * m // p.slabs)
-    for w in range(p.work):  # block b takes items b, b + blocks, ...: each once
-        tile_i, grp = divmod(w, groups)
-        gm = grp * p.slabs
-        gg, mm = divmod(gm, m)
-        tx_i, ty_i = divmod(tile_i, p.tiles_y)
-        x0, y0 = tx_i * p.tx, ty_i * p.ty
-        nx, ny = min(p.tx, x - x0), min(p.ty, y - y0)
-        ns = min(p.slabs, g * m - gm)
-        smem = np.full(p.tx * p.pitch, -1, np.int64)
-        src0 = ((gg * x + x0) * m + mm) * y + y0
-        for t in range(threads):
-            l_col, l_row = t % p.lx, t // p.lx
-            for r in range(l_row, ns * nx, threads // p.lx):
-                sl, xr = divmod(r, nx)
-                for v in range(l_col * p.vi, ny, p.lx * p.vi):
-                    a = src0 + r * m * y + v
-                    assert (a * itemsize + in_offset) % (p.vi * itemsize) == 0
-                    s = xr * p.pitch + sl * ny + v
-                    assert p.pitch % p.vi or s % p.vi == 0  # a shared vector store
-                    smem[s:s + p.vi] = np.arange(a, a + p.vi)
-        dst0 = ((gg * y + y0) * m + mm) * x + x0
-        for t in range(threads):
-            s_col, s_row = t % p.sx, t // p.sx
-            for r in range(s_row, ns * ny, threads // p.sx):
-                for v in range(s_col * p.vo, nx, p.sx * p.vo):
-                    vals = smem[(v + np.arange(p.vo)) * p.pitch + r]
-                    assert (vals >= 0).all(), "read a shared element this item did not load"
-                    d = dst0 + r * m * x + v
-                    assert (d * itemsize + out_offset) % (p.vo * itemsize) == 0
-                    out[d:d + p.vo] = vals
-                    writes[d:d + p.vo] += 1
-    return out, writes
+        assert in_offset % (p.vi * itemsize) == 0 and out_offset % (p.vi * itemsize) == 0
+        assert p.y % p.vi == 0
+        return src.copy(), writes + 1, 1
+    if p.arm == rl.ASYNC:
+        groups, tiles_y = -(-g * m // p.k), -(-y // p.ty)
+        for w in range(p.work) if pick is None else pick:
+            tile_i, grp = divmod(w, groups)
+            tx_i, ty_i = divmod(tile_i, tiles_y)
+            gm0, x0, y0 = grp * p.k, tx_i * p.tx, ty_i * p.ty
+            nx, ny, ns = min(p.tx, x - x0), min(p.ty, y - y0), min(p.k, g * m - gm0)
+            tile = np.full(p.tx * p.pitch, -1, np.int64)
+            r = np.arange(ns * nx)[:, None]
+            gg, mm = np.divmod(gm0 + r // nx, m)
+            a = ((gg * x + x0 + r % nx) * m + mm) * y + y0 + np.arange(0, ny, p.vi)
+            assert ((a * itemsize + in_offset) % (p.vi * itemsize) == 0).all()
+            at = r % nx * p.pitch + r // nx * ny + np.arange(0, ny, p.vi)
+            assert p.pitch % p.vi or (at % p.vi == 0).all()  # cp.async's shared destination
+            for k in range(p.vi):
+                tile[at + k] = src[a + k]
+            r = np.arange(ns * ny)[:, None]
+            gg, mm = np.divmod(gm0 + r // ny, m)
+            d = ((gg * y + y0 + r % ny) * m + mm) * x + x0 + np.arange(0, nx, p.vo)
+            assert ((d * itemsize + out_offset) % (p.vo * itemsize) == 0).all()
+            for k in range(p.vo):
+                vals = tile[(np.arange(0, nx, p.vo) + k) * p.pitch + r]
+                assert (vals >= 0).all(), "read a shared element this item did not load"
+                out[d + k] = vals
+                np.add.at(writes, d + k, 1)
+        return out, writes, 1
+    assert (in_offset, out_offset) == (0, 0)
+    waves, v = 1, 16 // itemsize
+    for item in _items(p, pick):
+        buf_in = np.full(p.in_bytes // itemsize, -1, np.int64)
+        if p.in_box:
+            flat, inside, at = _box_moves(p, "in", item, (g, x, m, y), itemsize)
+            buf_in[at] = np.where(inside, src[np.where(inside, flat, 0)], ZERO)
+        else:
+            flat, at = _bulk_moves(p, "in", item, (g, x, m, y), itemsize)
+            buf_in[at] = src[flat]
+        rows_in, rows_out, item_waves = _bulk_blocks(p, item, itemsize)
+        waves = max(waves, item_waves)
+        buf_out = np.full(p.out_bytes // itemsize, -1, np.int64)
+        block = buf_in[rows_in[:, :, None] // itemsize + np.arange(v)]  # (block, x, y)
+        buf_out[rows_out[:, :, None] // itemsize + np.arange(v)] = block.transpose(0, 2, 1)
+        if p.out_box:
+            flat, inside, at = _box_moves(p, "out", item, (g, y, m, x), itemsize)
+            flat, at = flat[inside], at[inside]
+        else:
+            flat, at = _bulk_moves(p, "out", item, (g, y, m, x), itemsize)
+        vals = buf_out[at]
+        assert (vals >= 0).all(), "stored a buffer element the item did not load"
+        out[flat] = vals
+        np.add.at(writes, flat, 1)
+    return out, writes, waves
+
+
+def _box_rules(p, itemsize):
+    """Each box side's tensor map as csrc/relayout.cu:encode_side makes it
+    meets the TMA unit's rules: the tensor (G, A, M, B) with strides
+    (B, M B, A M B) elements, each a multiple of 16 bytes (so, both tensors
+    16-byte aligned, every base too), a box of at most 256 along each axis,
+    its inner extent a multiple of 16 bytes (128 with the 128-byte
+    swizzle)."""
+    for box, ta, a_ext, b_ext, pr in ((p.in_box, p.tx, p.x, p.y, p.in_pr),
+                                      (p.out_box, p.ty, p.y, p.x, p.out_pr)):
+        if not box:
+            continue
+        strides = (b_ext, p.m * b_ext, a_ext * p.m * b_ext)
+        inner = rl.LINE if box == rl.LONG_BOX else pr
+        dims = (inner // itemsize, p.tmb, min(ta, rl.BOX_ROWS) if box == rl.NARROW_BOX else ta, 1)
+        assert all(st * itemsize % 16 == 0 for st in strides)
+        assert all(1 <= d <= 256 for d in dims) and inner % 16 == 0
+        assert box == rl.NARROW_BOX or inner == rl.LINE
+
+
+def _bulk_can_run(shape, itemsize, in_offset=0, out_offset=0):
+    """Where the plan takes the bulk arm: M > 1 (canonical) with M rows of
+    the narrow axis MIN_ROW bytes or more (the cp.async arm was the faster
+    on an H100 at every M = 1 shape timed and at TNSM's noise map, M = 3,
+    in fp32), and its copies can run: both tensors 16-byte aligned, X and Y
+    whole 16-byte vectors, not a copy."""
+    g, x, m, y = rl.canonical(*shape)
+    v = 16 // itemsize
+    return (m > 1 and m * min(x, y) * itemsize >= rl.MIN_ROW and (in_offset, out_offset) == (0, 0)
+            and x % v == 0 and y % v == 0)
+
+
+def _ring(p, itemsize):
+    """Whether the cp.async arm's plan should take its two-stage ring: the
+    pitch a whole number of input vectors and at least half the blocks
+    taking a second item (blocks as two stages' shared memory allows)."""
+    per_sm = min(2048 // rl.THREADS, rl.SMEM_SM // (2 * p.tx * p.pitch * itemsize + 1024))
+    return p.pitch % p.vi == 0 and p.work >= rl.RING_ITEMS * min(p.work, rl.SMS * per_sm)
 
 
 # (G, X, M, Y): the relayouts' mappings at small and odd sizes (P8, P12,
 # P7 steps 1, P11, slabs of 36 x 8 and 5 x 3 several to a work item, the
 # last one cut, the HWCB entry and exit at batch 3), Y = 1 and X = 1
 # (unit axes dropped: a copy, or a transpose of X or Y with M), both axes
-# long (64 x 64 tiles cut at the edges), tiles cut along one long axis
+# long (64 x 64 tiles cut at the edges), tiles cut along one long axis;
+# then the bulk arm's: M past 256 (prime: one channel a box, and 260 = 4 x
+# 65), a long Y or X with boxes of 65 channels, both long (boxes on both
+# sides), G > 1 with a long tile cut, whole slabs several to an item (M =
+# 1 and 2: the cp.async arm; M = 32 and, in fp32, 16: the bulk arm), both
+# narrow with M = 3
 RELAYOUT_SHAPES = [(1, 24, 4, 8), (3, 6, 4, 8), (1, 21, 3, 5), (7, 3, 1, 5), (1, 5, 3, 21),
                    (40, 36, 1, 8), (300, 5, 1, 3),
                    (1, 300, 1, 3), (1, 3, 1, 300), (1, 100, 1, 1), (2, 1, 1, 7), (1, 1, 3, 50),
                    (1, 40, 3, 1), (1, 130, 2, 70), (1, 4100, 1, 2), (1, 2, 1, 4100),
-                   (1, 17, 5, 33), (2, 96, 1, 64)]
+                   (1, 17, 5, 33), (2, 96, 1, 64),
+                   (1, 64, 257, 8), (1, 8, 260, 264), (1, 264, 260, 8), (1, 272, 3, 264),
+                   (3, 200, 9, 16), (5, 32, 1, 24), (5, 16, 2, 24), (2, 96, 3, 64),
+                   (5, 8, 32, 8), (5, 8, 16, 8)]
 
 
 @pytest.mark.parametrize("offsets", [(0, 0), (2, 0), (0, 1)], ids=["aligned", "in+2", "out+1"])
@@ -1559,15 +1748,26 @@ RELAYOUT_SHAPES = [(1, 24, 4, 8), (3, 6, 4, 8), (1, 21, 3, 5), (7, 3, 1, 5), (1,
 @pytest.mark.parametrize("shape", RELAYOUT_SHAPES, ids=str)
 def test_relayout_plan_covers_each_output_once(shape, itemsize, offsets):
     """``offsets``: the input's and the output's starts, in elements past a
-    16-byte boundary."""
+    16-byte boundary. The bulk arm exactly where M > 1 and its copies can
+    run (else cp.async, its ring exactly where half the blocks take a second
+    item), each output element written once, the buffers within a block's
+    shared memory, the grid within the card."""
     in_off, out_off = (e * itemsize % 16 for e in offsets)
     p = rl.relayout_plan(*shape, itemsize, in_off, out_off)
-    out, writes = _relayout_walk(p, itemsize, in_off, out_off)
+    assert p.copy or (p.arm == rl.BULK) == _bulk_can_run(shape, itemsize, in_off, out_off)
+    out, writes, waves = _relayout_replay(p, itemsize, in_off, out_off)
     g, x, m, y = shape
     want = np.arange(g * x * m * y).reshape(g, x, m, y).transpose(0, 3, 2, 1).ravel()
     assert (writes == 1).all()
     np.testing.assert_array_equal(out, want)
-    assert p.smem_bytes <= rl.SMEM_LIMIT and 1 <= p.blocks <= rl.SMS * rl.BLOCKS_PER_SM
+    assert p.smem <= rl.SMEM_CAP and 1 <= p.blocks <= rl.SMS * rl.BLOCKS_PER_SM
+    if p.arm == rl.BULK:
+        assert p.smem == rl.RING_ALIGN + p.stages * (p.in_bytes + p.out_bytes) + rl.BARS
+        assert 2 <= p.stages <= rl.MAX_STAGES and p.tmb % 2 == 1 and p.tm % p.tmb == 0
+        _box_rules(p, itemsize)
+    if p.arm == rl.ASYNC:
+        assert p.stages == (2 if _ring(p, itemsize) else 1)
+        assert p.smem == p.stages * p.tx * p.pitch * itemsize
 
 
 @pytest.mark.parametrize("name, shape, kw", [
@@ -1616,43 +1816,78 @@ def _main_path_relayouts():
 @pytest.mark.parametrize("site, b, gxmy", list(_main_path_relayouts()), ids=str)
 def test_relayout_plan_of_the_forward(site, b, gxmy, itemsize):
     """At batch 1 the entry and exit are copies (and still launch); else the
-    tiles cover each slab once, the vectors are the widest the extents
-    allow, the shared tile fits without opting in, the grid fills the card
-    and the load side keeps at least half the threads busy."""
+    bulk arm wherever M > 1 and X and Y are whole 16-byte vectors (the
+    levels at batch 8 but level 3's N = 3,750), cp.async elsewhere (the
+    HWCB ends and the noise map, M = 1; the levels at batch 1, M = 1 once
+    unit axes go). The bulk arm: work items that cover the
+    extents, the narrow axis whole, the long one in whole 128-byte lines,
+    boxes on the long side, tmb channels (odd, dividing M) a box, 2 to
+    MAX_STAGES stages in a block's shared memory, the grid filling the card
+    from batch 8, and a transposition free of bank conflicts (replayed on
+    the first, a middle and the last work item). The cp.async arm: the
+    widest vectors, its ring exactly where half the blocks take a second
+    item, the grid filling the card and the load side keeping at least
+    half the threads busy."""
     p = rl.relayout_plan(*gxmy, itemsize)
     assert p.copy == (b == 1 and site in ("entry", "exit"))
-    assert p.smem_bytes <= rl.SMEM_LIMIT
+    assert p.smem <= rl.SMEM_CAP
     if p.copy:
         assert p.vi * itemsize == 16 and p.blocks == min(p.work, rl.SMS * rl.BLOCKS_PER_SM)
         assert p.blocks >= rl.SMS
         return
-    assert (p.tiles_x - 1) * p.tx < p.x <= p.tiles_x * p.tx
-    assert (p.tiles_y - 1) * p.ty < p.y <= p.tiles_y * p.ty
-    assert p.work == p.g * p.m * p.tiles_x * p.tiles_y
-    assert p.blocks == min(p.work, rl.SMS * rl.BLOCKS_PER_SM) >= rl.SMS
-    assert p.ty % p.vi == 0 and p.tx % p.vo == 0 and p.pitch >= p.ty
-    widest = lambda n: next(v for v in (8, 4, 2, 1) if v * itemsize <= 16 and n % v == 0)
-    assert (p.vi, p.vo) == (widest(p.y), widest(p.x))
-    assert min(p.tx, rl.THREADS // p.lx) * min(p.ty // p.vi, p.lx) >= rl.THREADS // 2
+    assert (p.arm == rl.BULK) == _bulk_can_run(gxmy, itemsize)
+    g, x, m, y = p.g, p.x, p.m, p.y
+    if p.arm == rl.ASYNC:
+        widest = lambda n: next(v for v in (8, 4, 2, 1) if v * itemsize <= 16 and n % v == 0)
+        assert (p.vi, p.vo) == (widest(y), widest(x))
+        assert p.stages == (2 if _ring(p, itemsize) else 1)
+        assert p.smem == p.stages * p.tx * p.pitch * itemsize
+        assert p.blocks >= rl.SMS  # the grid fills the card
+        # the load side keeps at least half the threads busy
+        assert min(p.k * p.tx, rl.THREADS // p.lx) * min(p.ty // p.vi, p.lx) >= rl.THREADS // 2
+        return
+    unit = rl.LINE // itemsize
+    assert p.work == -(-g // p.k) * -(-m // p.tm) * -(-x // p.tx) * -(-y // p.ty)
+    long_x, long_y = x * itemsize > rl.NARROW_BYTES, y * itemsize > rl.NARROW_BYTES
+    assert (p.in_box == rl.LONG_BOX, p.out_box == rl.LONG_BOX) == (long_y, long_x)
+    assert p.tx % unit == 0 if long_x else p.tx == x
+    assert p.ty % unit == 0 if long_y else p.ty == y
+    assert p.tmb % 2 == 1 and m % p.tmb == 0 and p.tm % p.tmb == 0
+    assert 2 <= p.stages <= rl.MAX_STAGES
+    assert b == 1 or p.blocks >= rl.SMS
+    _box_rules(p, itemsize)
+    _, _, waves = _relayout_replay(p, itemsize, pick=sorted({0, p.work // 2, p.work - 1}))
+    assert waves == 1
 
 
 def test_relayout_plan_of_the_hwcb_ends_at_batch_8():
-    """bf16, batch 8: the entry's 512 x 8 tiles take a 10-element pitch (a
-    load's 16 bytes stored element by element, the columns read without
-    conflicts), the exit's 8 x 512 tiles no padding (a load's 16 bytes
-    stored whole, the columns read by 32 rows); each side's first warp
+    """bf16, batch 8: M = 1, so both ends take the cp.async arm (on an H100
+    the bulk arm was 1.05-1.12x slower there, its 704 items on 396 blocks),
+    as PR 10's tiles.
+    The entry's 512 x 8 tiles take a 10-element pitch (a load's 16 bytes
+    stored element by element, the columns read without conflicts), the
+    exit's 8 x 512 tiles no padding (a load's 16 bytes stored whole, the
+    columns read by 32 rows); 1,407 items on 1,056 blocks: under one and a
+    half a block, so one stage, loaded through registers (PR 10's kernel;
+    the fp32 exit, 1,407 on 792 two-stage blocks, takes the ring); each
+    side's first warp
     meets no bank conflict."""
     hw = 400 * 600
     entry = rl.relayout_plan(*rl.geometry("P14", (hw, 3, 8), n_blk=hw)[0], 2)
     exit_ = rl.relayout_plan(*rl.geometry("P11", (8, 1, 3 * hw))[0], 2)
+    assert (entry.name, exit_.name) == ("tiles", "tiles")
     assert (entry.tx, entry.ty, entry.pitch, entry.vi, entry.vo) == (512, 8, 10, 8, 8)
     assert (exit_.tx, exit_.ty, exit_.pitch, exit_.vi, exit_.vo) == (8, 512, 512, 8, 8)
+    assert entry.stages == exit_.stages == 1 and entry.work == exit_.work == 1407
+    assert rl.relayout_plan(*rl.geometry("P11", (8, 1, 3 * hw))[0], 4).stages == 2
     for p in (entry, exit_):
         _, l_waves, _ = rl.side_cost(p.lx, p.tx, p.vi, p.ty // p.vi, p.m * p.y, 2, p.pitch,
                                      (p.tx, p.ty))
         _, s_waves, _ = rl.side_cost(p.sx, p.ty, p.vo, p.tx // p.vo, p.m * p.x, 2, p.pitch)
         # conflict-free: 32 lanes of 2 bytes a wavefront, or 8 of 16 bytes
         assert (l_waves, s_waves) == (1 / 64 if p.pitch % p.vi == 0 else 1 / 32, 1 / 32)
+        _, writes, _ = _relayout_replay(p, 2, pick=[0, 1, p.work - 1])
+        assert writes.max() == 1
 
 
 def test_relayout_plan_is_cached_and_rejects_what_the_kernel_does_not_take():
@@ -1666,4 +1901,5 @@ def test_relayout_plan_is_cached_and_rejects_what_the_kernel_does_not_take():
         rl.relayout_plan(1, 0, 1, 8, 2)
     # a plan's 64-bit extents: G X M Y past 2**31 elements
     big = rl.relayout_plan(1, 60000 * 36, 1, 1024, 2)
-    assert big.g * big.x * big.m * big.y > 2**31 and big.work == big.tiles_x * big.tiles_y
+    assert big.g * big.x * big.m * big.y > 2**31
+    assert big.work == -(-big.x // big.tx) * -(-big.y // big.ty)
